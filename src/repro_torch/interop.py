@@ -1,0 +1,48 @@
+"""Carry the JAX package's parameters over to the port, leaf for leaf.
+
+The port keeps the JAX layout (linear weights ``(in, out)``, stage-stacked
+leaves with their leading ``(p,)`` axis, the ``mask`` leaf), so the carry-over
+is a copy.  Callers turn every JAX leaf into numpy first (``np.asarray``), so
+this module needs neither ``jax`` nor ``repro``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .tree import tree_map
+
+__all__ = ["params_from_numpy", "to_torch"]
+
+
+def to_torch(a: np.ndarray, *, device="cpu", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """numpy (including ``ml_dtypes.bfloat16``, bit for bit) -> torch."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_numpy(stacked, shared, *, device, dtype: Optional[torch.dtype] = None):
+    """(stacked per chunk, shared) numpy trees -> the port's parameters.
+
+    ``dtype`` casts the floating-point weights; the ``mask`` leaf stays
+    float32 as in the JAX package.
+    """
+
+    def conv(a):
+        return to_torch(a, device=device, dtype=dtype)
+
+    out_stacked = tuple(
+        {
+            "mask": to_torch(chunk["mask"], device=device, dtype=torch.float32),
+            "blocks": tree_map(conv, chunk["blocks"]),
+        }
+        for chunk in stacked
+    )
+    return out_stacked, tree_map(conv, dict(shared))

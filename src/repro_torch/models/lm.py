@@ -1,0 +1,218 @@
+"""Model assembly of the port: configs, group layout, parameters, embedding.
+
+Counterpart of ``src/repro/models/lm.py`` (the pieces the serving path
+needs).  Blocks are assigned to (stage, chunk) groups of uniform size; when
+``n_layers`` does not divide evenly, groups are padded with blocks whose
+``mask`` leaf is 0, which leave the activation unchanged.  Parameters keep
+the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
+...)}`` with every leaf stage-stacked on a leading ``(p,)`` axis, and shared
+``{"embed": (V, d), "head": (d, V), "final_ln": (d,)}``.  Random weights are
+drawn from an explicit ``torch.Generator`` with the JAX package's
+distributions and scales (not its bits: the tests carry the JAX weights
+over with ``repro_torch.interop.params_from_numpy``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .modules import ShardCtx, init_layer, pad_to_multiple
+
+__all__ = [
+    "ArchConfig",
+    "RunSpec",
+    "group_layout",
+    "group_masks",
+    "init_params",
+    "init_shared",
+    "init_chunk_params",
+    "layer_cfg",
+    "make_src",
+]
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    block_pattern: Tuple[Tuple[str, ...], ...] = (("attn", "mlp"),)
+    head_dim: Optional[int] = None
+    extras: Tuple[Tuple[str, Any], ...] = ()  # hashable dict
+    dtype: str = "float32"
+    sub_quadratic: bool = False  # eligible for long_500k decode
+    has_decoder: bool = True  # False only for pure encoders
+    source: str = ""  # provenance note
+
+    def extras_dict(self) -> Dict[str, Any]:
+        return dict(self.extras)
+
+    @property
+    def period(self) -> int:
+        return len(self.block_pattern)
+
+    def torch_dtype(self) -> torch.dtype:
+        return _TORCH_DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    p: int  # pipeline stages
+    n_chunks: int  # chunks per stage (1, or 2 for ZB-V / interleaved)
+    microbatch: int  # b per microbatch
+    seq_len: int
+    m: int  # number of microbatches (request groups) per pipe
+    tp_axis: Optional[str] = None
+    tp_size: int = 1
+
+
+def layer_cfg(cfg: ArchConfig, tp_size: int = 1) -> Dict[str, Any]:
+    d = dict(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        d_ff=cfg.d_ff,
+        n_layers=cfg.n_layers,
+        head_dim=cfg.head_dim,
+        tp_size=tp_size,
+    )
+    d.update(cfg.extras_dict())
+    return d
+
+
+# --------------------------------------------------------------------- #
+# block -> group assignment
+# --------------------------------------------------------------------- #
+def group_layout(cfg: ArchConfig, p: int, n_chunks: int) -> Tuple[Tuple[Tuple[str, ...], ...], int]:
+    """Blocks per (stage, chunk) group; returns (group pattern, group size).
+
+    Group size g is the smallest multiple of the pattern period with
+    g * p * n_chunks >= n_layers, so every group is pattern-aligned.
+    """
+    period = cfg.period
+    slots = p * n_chunks
+    g = max(1, math.ceil(cfg.n_layers / slots))
+    g = period * math.ceil(g / period)
+    blocks = tuple(cfg.block_pattern[i % period] for i in range(g))
+    return blocks, g
+
+
+def group_masks(cfg: ArchConfig, p: int, n_chunks: int, placement) -> np.ndarray:
+    """(p, n_chunks, g) float mask: 1 for real blocks, 0 for padding."""
+    _, g = group_layout(cfg, p, n_chunks)
+    masks = np.zeros((p, n_chunks, g), np.float32)
+    for c in range(n_chunks):
+        for k in range(p):
+            s = placement.stage_of(c, k)
+            start = (c * p + k) * g  # global group order along the model depth
+            for bi in range(g):
+                if start + bi < cfg.n_layers:
+                    masks[s, c, bi] = 1.0
+    return masks
+
+
+# --------------------------------------------------------------------- #
+# parameters
+# --------------------------------------------------------------------- #
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet"
+        )
+
+
+def init_chunk_params(cfg: ArchConfig, gen: torch.Generator, stage: int, chunk: int,
+                      p: int, n_chunks: int, ctx: ShardCtx, masks: np.ndarray):
+    blocks, _ = group_layout(cfg, p, n_chunks)
+    lcfg = layer_cfg(cfg, ctx.tp_size)
+    dt = cfg.torch_dtype()
+    block_params = tuple(
+        tuple(init_layer(kind, gen, lcfg, ctx, dt) for kind in kinds) for kinds in blocks
+    )
+    return {
+        "mask": torch.as_tensor(masks[stage, chunk], dtype=torch.float32, device=gen.device),
+        "blocks": block_params,
+    }
+
+
+def init_shared(cfg: ArchConfig, gen: torch.Generator, ctx: ShardCtx):
+    _check_family(cfg)
+    dt = cfg.torch_dtype()
+    v_pad = pad_to_multiple(cfg.vocab, max(1, ctx.tp_size))
+    dev = gen.device
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dt)
+
+    return {
+        "embed": normal((v_pad, cfg.d_model)),
+        "head": normal((cfg.d_model, v_pad)),
+        "final_ln": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+    }
+
+
+def _stack(trees):
+    """Stack identically structured trees of tensors along a new axis 0."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _stack([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, tuple):
+        return tuple(_stack(list(xs)) for xs in zip(*trees))
+    return torch.stack(trees)
+
+
+def init_params(cfg: ArchConfig, spec: RunSpec, placement, *, seed: int = 0,
+                device="cpu"):
+    """Returns (stacked stage params per chunk, shared params).
+
+    Weights are drawn on ``device`` from ``torch.Generator(device)`` seeded
+    with ``seed``; the same seed gives the same weights on one device type.
+    """
+    _check_family(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
+    masks = group_masks(cfg, spec.p, spec.n_chunks, placement)
+    stacked = tuple(
+        _stack([
+            init_chunk_params(cfg, gen, s, c, spec.p, spec.n_chunks, ctx, masks)
+            for s in range(spec.p)
+        ])
+        for c in range(spec.n_chunks)
+    )
+    shared = init_shared(cfg, gen, ctx)
+    return stacked, shared
+
+
+# --------------------------------------------------------------------- #
+# src (embedding)
+# --------------------------------------------------------------------- #
+def _embed_lookup(shared, tokens: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx):
+    v_l = shared["embed"].shape[0]
+    loc = tokens - ctx.index() * v_l
+    ok = (loc >= 0) & (loc < v_l)
+    safe = torch.clamp(loc, 0, v_l - 1)
+    return shared["embed"][safe] * ok[..., None].to(shared["embed"].dtype)
+
+
+def make_src(cfg: ArchConfig, ctx: ShardCtx):
+    """Forward half of the JAX ``make_src``: the token embedding (dense
+    family only; the encdec/vlm fronts are not ported)."""
+    _check_family(cfg)
+
+    def src_fwd(shared, side_mb):
+        return _embed_lookup(shared, side_mb["tokens"], cfg, ctx)
+
+    return src_fwd

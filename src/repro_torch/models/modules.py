@@ -1,0 +1,225 @@
+"""Layer library of the port: the dense GQA kinds ``attn`` and ``mlp`` at tp=1.
+
+Counterpart of ``src/repro/models/modules.py``: the same functions, names,
+parameter layouts (linear weights ``(in, out)``, applied as ``x @ w``) and
+numerics, written as plain PyTorch on tensors.  Every RMSNorm goes through
+``kernels.ops.rmsnorm`` (the CUDA kernel on the card).  Attention stays plain
+tensor code, as the JAX package leaves it to XLA: einsum products, the
+``-1e30`` mask, softmax in fp32.  Every other layer kind raises
+``NotImplementedError`` naming the kind.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+
+__all__ = [
+    "ShardCtx",
+    "init_layer",
+    "apply_layer",
+    "LAYER_KINDS",
+    "PORTED_KINDS",
+    "UNPORTED_KINDS",
+    "rmsnorm",
+    "rope",
+    "attention",
+    "pad_to_multiple",
+]
+
+# kinds of the JAX layer library that this port does not carry yet
+UNPORTED_KINDS = ("attn_local", "mla", "moe", "slstm", "mlstm", "rglru", "encdec")
+PORTED_KINDS = ("attn", "mlp")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Tensor-parallel context; the port runs at tp=1 only so far."""
+
+    tp_axis: Optional[str] = None
+    tp_size: int = 1
+
+    def __post_init__(self):
+        if self.tp_axis is not None or self.tp_size != 1:
+            raise NotImplementedError(
+                f"tensor parallelism (tp_axis={self.tp_axis!r}, tp_size={self.tp_size}) "
+                "is not ported to repro_torch yet"
+            )
+
+    def index(self) -> int:
+        return 0
+
+
+def pad_to_multiple(n: int, k: int) -> int:
+    return ((n + k - 1) // k) * k
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported to repro_torch yet (ported: {PORTED_KINDS})"
+        )
+
+
+def _head_dim(cfg) -> int:
+    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
+
+
+# --------------------------------------------------------------------- #
+# primitives
+# --------------------------------------------------------------------- #
+def _normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
+    out = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (out * scale).to(dtype)
+
+
+def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Argument order as in the JAX package; x must be contiguous."""
+    return ops.rmsnorm(x, g, eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (b, s, h, d); positions: (s,)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device)
+        / half
+    )
+    ang = (positions[None, :, None].float() * freqs)[:, :, None, :]  # (1, s, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _softcap(x, cap):
+    if cap is None or cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------- #
+# attention (dense for short sequences, a loop over query blocks beyond)
+# --------------------------------------------------------------------- #
+def _attend_dense(q, k, v, softcap, q_offset=0):
+    """Causal.  q: (b, sq, hq, d); k/v: (b, sk, hq, d) head-matched -> (b, sq, hq, d)."""
+    sq, sk = q.shape[1], k.shape[1]
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
+    logits = _softcap(logits, softcap)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(sk, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attend_chunked(q, k, v, softcap, block=1024):
+    """Query blocks one at a time, so the scores stay (block, sk) per head.
+    Inference keeps no residuals, so the JAX version's remat has no part here."""
+    s = q.shape[1]
+    outs = [
+        _attend_dense(q[:, i : i + block], k, v, softcap, q_offset=i)
+        for i in range(0, s, block)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+def _match_kv_heads(q_heads_local, k, v, cfg, ctx: ShardCtx):
+    """Repeat kv heads so k/v carry one head per local q head (tp=1)."""
+    rep = q_heads_local // k.shape[2]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    return k, v
+
+
+def attention(q, k, v, *, softcap=None, block=1024):
+    """Causal attention: dense up to 2 * block queries, query blocks beyond."""
+    if q.shape[1] <= 2 * block:
+        return _attend_dense(q, k, v, softcap)
+    return _attend_chunked(q, k, v, softcap, block)
+
+
+# --------------------------------------------------------------------- #
+# dense attention + MLP
+# --------------------------------------------------------------------- #
+def init_attn(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    h, hq, hk = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"]
+    dh = _head_dim(cfg)
+    sc = 1.0 / math.sqrt(h)
+    so = sc / math.sqrt(2 * cfg["n_layers"])
+    return {
+        "ln": torch.zeros((h,), dtype=dtype, device=gen.device),
+        "wq": _normal(gen, (h, hq * dh), sc, dtype),
+        "wk": _normal(gen, (h, hk * dh), sc, dtype),
+        "wv": _normal(gen, (h, hk * dh), sc, dtype),
+        "wo": _normal(gen, (hq * dh, h), so, dtype),
+    }
+
+
+def attn_forward(p, x, positions, cfg, ctx: ShardCtx):
+    """``apply_attn`` that also returns the roped k and the v it attended
+    with, before the kv-head repeat: (y, k, v), k/v (b, s, hk, dh)."""
+    b, s, _ = x.shape
+    hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
+    dh = _head_dim(cfg)
+    xin = rmsnorm(p["ln"], x)
+    q = (xin @ p["wq"]).reshape(b, s, hq, dh)
+    k = (xin @ p["wk"]).reshape(b, s, hk, dh)
+    v = (xin @ p["wv"]).reshape(b, s, hk, dh)
+    q, k = rope(q, positions), rope(k, positions)
+    km, vm = _match_kv_heads(hq, k, v, cfg, ctx)
+    o = attention(q, km, vm, softcap=cfg.get("attn_softcap"))
+    o = o.reshape(b, s, hq * dh) @ p["wo"]
+    return x + o, k, v
+
+
+def apply_attn(p, x, positions, cfg, ctx: ShardCtx):
+    return attn_forward(p, x, positions, cfg, ctx)[0]
+
+
+def init_mlp(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    h, f = cfg["d_model"], cfg["d_ff"]
+    sc = 1.0 / math.sqrt(h)
+    return {
+        "ln": torch.zeros((h,), dtype=dtype, device=gen.device),
+        "wu": _normal(gen, (h, f), sc, dtype),
+        "wg": _normal(gen, (h, f), sc, dtype),
+        "wd": _normal(gen, (f, h), sc / math.sqrt(2 * cfg["n_layers"]), dtype),
+    }
+
+
+def apply_mlp(p, x, cfg, ctx: ShardCtx):
+    xin = rmsnorm(p["ln"], x)
+    up = xin @ p["wu"]
+    gate = torch.nn.functional.silu(xin @ p["wg"])
+    return x + (up * gate) @ p["wd"]
+
+
+# --------------------------------------------------------------------- #
+# registry
+# --------------------------------------------------------------------- #
+LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
+    "attn": (init_attn, lambda p, x, pos, cfg, ctx: apply_attn(p, x, pos, cfg, ctx)),
+    "mlp": (init_mlp, lambda p, x, pos, cfg, ctx: apply_mlp(p, x, cfg, ctx)),
+}
+
+
+def init_layer(kind: str, gen: torch.Generator, cfg, ctx: ShardCtx, dtype):
+    _check_kind(kind)
+    return LAYER_KINDS[kind][0](gen, cfg, dtype)
+
+
+def apply_layer(kind: str, params, x, positions, cfg, ctx: ShardCtx):
+    _check_kind(kind)
+    return LAYER_KINDS[kind][1](params, x, positions, cfg, ctx)
+

@@ -1,0 +1,188 @@
+"""Serving path of the port: prefill (cache build) and decode (one token)
+for the dense kinds ``attn`` and ``mlp``.
+
+Counterpart of ``src/repro/models/serve.py``.  Where the JAX version is
+pure and returns updated caches, the port writes each group's cache slice in
+place: ``cache`` leaves are views into the stacked ``(p, m, ...)`` cache
+buffers (``core/infer_executor.py`` hands them out), and the slice
+assignments below write through those views.  Every other kind raises
+``NotImplementedError`` naming the kind.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from ..core.infer_executor import InferProgram
+from .lm import ArchConfig, RunSpec, group_layout, layer_cfg, make_src
+from .modules import (
+    ShardCtx,
+    _check_kind,
+    _head_dim,
+    _match_kv_heads,
+    _softcap,
+    apply_mlp,
+    attn_forward,
+    pad_to_multiple,
+    rmsnorm,
+    rope,
+)
+
+__all__ = [
+    "cache_spec",
+    "decode_block",
+    "prefill_block",
+    "make_serve_chunk",
+    "build_serve_program",
+]
+
+
+# --------------------------------------------------------------------- #
+# per-kind cache init (batch b, max context S)
+# --------------------------------------------------------------------- #
+def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
+               device, lead=()) -> Dict[str, torch.Tensor]:
+    """Zero cache of one layer, shaped ``lead + (b, S, hk, dh)`` for attn."""
+    _check_kind(kind)
+    if kind == "attn":
+        shape = tuple(lead) + (b, S, cfg["n_kv_heads"], _head_dim(cfg))
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+    return {}  # mlp
+
+
+# --------------------------------------------------------------------- #
+# decode: one token through one block
+# --------------------------------------------------------------------- #
+def _cached_attend(q, kc, vc, pos: int, softcap=None):
+    """q: (b, 1, hq, d); kc/vc: (b, S, hk, d); pos: the current index."""
+    rep = q.shape[2] // kc.shape[2]
+    k = torch.repeat_interleave(kc, rep, dim=2) if rep > 1 else kc
+    v = torch.repeat_interleave(vc, rep, dim=2) if rep > 1 else vc
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    logits = logits / math.sqrt(q.shape[-1])
+    logits = _softcap(logits, softcap)
+    kpos = torch.arange(kc.shape[1], device=q.device)
+    mask = kpos <= pos
+    logits = torch.where(mask[None, None, None, :], logits, -1e30)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
+    """x: (b, 1, h) -> (y, cache); writes the new k/v at ``pos`` in place."""
+    _check_kind(kind)
+    if kind == "mlp":
+        return apply_mlp(p, x, cfg, ctx), cache
+    b = x.shape[0]
+    hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
+    dh = _head_dim(cfg)
+    posv = torch.full((1,), pos, device=x.device)
+    xin = rmsnorm(p["ln"], x)
+    q = rope((xin @ p["wq"]).reshape(b, 1, hq, dh), posv)
+    k = rope((xin @ p["wk"]).reshape(b, 1, hk, dh), posv)
+    v = (xin @ p["wv"]).reshape(b, 1, hk, dh)
+    cache["k"][:, pos : pos + 1] = k  # dynamic_update_slice, in place
+    cache["v"][:, pos : pos + 1] = v
+    kcm, vcm = _match_kv_heads(hq, cache["k"], cache["v"], cfg, ctx)
+    o = _cached_attend(q, kcm, vcm, pos, cfg.get("attn_softcap"))
+    o = o.reshape(b, 1, hq * dh) @ p["wo"]
+    return x + o, cache
+
+
+# --------------------------------------------------------------------- #
+# prefill: full sequence through one block, emitting the cache
+# --------------------------------------------------------------------- #
+def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
+    """x: (b, s, h) -> (y, cache); writes k/v of positions [0, s) in place.
+
+    The JAX version runs the train forward and then recomputes rmsnorm and
+    the k/v projections for the cache (``src/repro/models/serve.py``
+    ``prefill_block``); the port keeps the k/v of the one forward.  The
+    numbers are the same, and each attention block launches one RMSNorm
+    kernel in prefill instead of two.
+    """
+    _check_kind(kind)
+    if kind == "mlp":
+        return apply_mlp(p, x, cfg, ctx), cache
+    s = x.shape[1]
+    y, k, v = attn_forward(p, x, positions, cfg, ctx)
+    if cache["k"].shape[1] < s:
+        raise ValueError(f"prefill of {s} tokens into a cache of {cache['k'].shape[1]}")
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    return y, cache
+
+
+# --------------------------------------------------------------------- #
+# serve chunk: the per-stage layer group, cache-threaded
+# --------------------------------------------------------------------- #
+def make_serve_chunk(cfg: ArchConfig, spec: RunSpec, mode: str):
+    """Returns (chunk_fn(params, x, side, cache, pos) -> (y, cache),
+    cache_init(b, S, *, device, lead=()) -> cache tree) for one chunk."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: want 'prefill' or 'decode'")
+    ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
+    blocks, _ = group_layout(cfg, spec.p, spec.n_chunks)
+    lcfg = layer_cfg(cfg, spec.tp_size)
+
+    def cache_init(b: int, S: int, *, device, lead=()):
+        return tuple(
+            tuple(
+                cache_spec(kind, lcfg, ctx, b, S, cfg.torch_dtype(), device=device, lead=lead)
+                for kind in kinds
+            )
+            for kinds in blocks
+        )
+
+    def chunk_fn(params, x, side, cache, pos):
+        for bi, kinds in enumerate(blocks):
+            # a padded block (mask 0) still runs and writes its cache, as in
+            # the JAX version; only its output is discarded
+            mask = params["mask"][bi].to(x.dtype)
+            xb = x
+            for ki, kind in enumerate(kinds):
+                if mode == "decode":
+                    xb, _ = decode_block(
+                        kind, params["blocks"][bi][ki], xb, cache[bi][ki], pos, lcfg, ctx
+                    )
+                else:
+                    xb, _ = prefill_block(
+                        kind, params["blocks"][bi][ki], xb, cache[bi][ki], lcfg, ctx,
+                        side["positions"],
+                    )
+            x = mask * xb + (1.0 - mask) * x
+        return x, cache
+
+    return chunk_fn, cache_init
+
+
+def build_serve_program(cfg: ArchConfig, spec: RunSpec, placement, mode: str):
+    """Returns (InferProgram, cache_init(b, S, *, device, lead=()) for one
+    stage's group of blocks)."""
+    ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
+    chunk_fn, cache_init = make_serve_chunk(cfg, spec, mode)
+    src = make_src(cfg, ctx)  # the token embedding, in prefill and decode alike
+
+    def sink(shared, y, side_mb):
+        yl = y[:, -1:].contiguous()  # next-token logits from the last position
+        yn = rmsnorm(shared["final_ln"], yl)
+        return (yn @ shared["head"])[:, 0]
+
+    s_total = 1 if mode == "decode" else spec.seq_len
+    v_l = pad_to_multiple(cfg.vocab, max(1, spec.tp_size)) // max(1, spec.tp_size)
+    program = InferProgram(
+        chunk_fns=[chunk_fn] * spec.n_chunks,
+        src=src,
+        sink=sink,
+        act_shape=(spec.microbatch, s_total, cfg.d_model),
+        act_dtype=cfg.torch_dtype(),
+        out_shape=(spec.microbatch, v_l),
+        out_dtype=cfg.torch_dtype(),
+    )
+    return program, cache_init

@@ -1,0 +1,54 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``, and the serving entry point
+does not carry on on the CPU when the card it asks for is missing."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s+import\b))", re.M)
+
+
+def test_imports_pull_in_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.launch.serve, repro_torch.interop, chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean" in out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_neither_jax_nor_repro(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_scan_pattern_catches_forbidden_imports():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.models import lm", "from repro import configs", "import repro"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.models import lm", "import jaxtyping_x"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_serve_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced", "--pipe-size", "1", "--groups", "1"])
