@@ -6,12 +6,15 @@
 Phases, in order; any failed check raises and the exit code is not 0:
 
 1. build   -- compile every CUDA source of ``src/repro_torch/kernels/csrc/``
-              with nvcc (sm_90a) into ``build/repro_torch/``.
+              with nvcc (sm_90a) into ``build/repro_torch/``, all at once.
 2. card    -- the card's name and power limit from nvidia-smi.
 3. kernels -- each kernel against its plain PyTorch version on the card at
-              the serving path's shapes, with device times (CUDA events
+              the shapes its path gives it, with device times (CUDA events
               around a CUDA graph of many calls) of the kernel, the plain
-              version and one PyTorch library call, and the bound.
+              version and one PyTorch library call, and the bound: RMSNorm
+              at the serving shapes, wgrad_accum at the four (H, F) shapes
+              of the training step's W ops (N = 1024, bf16 a/g, fp32 acc),
+              plus fp32 and ragged shapes.
 4. reduced -- reduced internlm2 (float32) served on cuda and on cpu: logits
               within 1e-4 and identical greedy tokens.
 5. serve   -- internlm2-1.8b at full width and depth (bf16, random weights
@@ -22,6 +25,23 @@ Phases, in order; any failed check raises and the exit code is not 0:
               last position of a prefill of s + 1 tokens, at full width.
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
+8. train-reduced -- reduced internlm2 (float32), p=2, m=4: 3 training steps
+              (AdamW + post-validation) on cuda and on cpu; losses within
+              1e-5 relative, grad norms within 1e-4.
+9. train   -- internlm2-1.8b at full width and depth (bf16, random weights
+              from a seed): 4 stages on the one card, 8 microbatches of
+              1 x 1024 tokens from the synthetic stream, 3 steps each under
+              1f1b, zb-h1 and zb-h2: step time, tokens/s, peak memory,
+              losses, grad norms; both kernels' launch counts, read around
+              each schedule's run, equal the counts the structure implies.
+10. train-checks -- step-0 loss in the band of tests/test_arch_smoke.py and
+              identical across schedules, later losses within a stated
+              tolerance; the step-0 full-width gradient of the B/W-split
+              pipeline against plain torch.autograd through the same model.
+11. profile-train -- torch.profiler over one full-width zb-h1 step, run
+              right after that schedule's steps in phase 9: host spans of
+              the pipeline and the optimizer, device busy share, top
+              kernels, wgrad_accum's share of device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -43,17 +63,35 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.core.executor import PipelineExecutor  # noqa: E402
+from repro_torch.core.schedules import compile_plan  # noqa: E402
 from repro_torch.core.schedules.ir import Placement  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
-from repro_torch.kernels.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
+from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models.lm import RunSpec, group_layout, init_params  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
+from repro_torch.launch.train import make_schedule, side_from_batch, train  # noqa: E402
+from repro_torch.models.lm import (  # noqa: E402
+    RunSpec,
+    build_program,
+    group_layout,
+    init_params,
+    make_chunk_fn,
+    make_sink_fn,
+    make_src,
+)
+from repro_torch.models.modules import ShardCtx  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores,
+# dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 ARCH = "internlm2_1_8b"
 P, M, B, PROMPT, NEW = 4, 8, 2, 512, 16  # full-width serving run
@@ -67,8 +105,41 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
 CONSIST_REL_L2 = 3e-2
 CONSIST_MAX_ABS = 0.25
 # norm launches of each ported kind per call: one rmsnorm in attn and mlp,
-# in prefill (the port reuses the forward's k/v) and in decode alike
+# in prefill (the port reuses the forward's k/v), in decode and in a
+# training forward alike (the norm's backward is plain torch, no kernel)
 NORMS_PER_KIND = {"attn": 1, "mlp": 1}
+# deferred linears (W ops, one wgrad_accum launch each) of each kind
+LINEARS_PER_KIND = {"attn": 4, "mlp": 3}
+
+# full-width training run: 4 stages on the card, m microbatches of b x seq
+T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 3
+T_SCHEDULES = ("1f1b", "zb-h1", "zb-h2")
+T_MEM_LIMIT_GB = 75.0  # above this peak, the schedule runs again at seq 512
+# reduced cuda-vs-cpu training run
+TR_P, TR_M, TR_B, TR_SEQ, TR_STEPS = 2, 4, 2, 32, 3
+# the W products of the training step: (H, F) of wq/wo, wk/wv, wu/wg, wd
+WGRAD_MAIN = (("wq,wo", 2048, 2048), ("wk,wv", 2048, 1024), ("wu,wg", 2048, 8192),
+              ("wd", 8192, 2048))
+# later full-width losses across schedules: the embedding gradient is a
+# CUDA index_add_ (atomics, no fixed order), so it differs between runs by
+# fp32 rounding (~1e-7 relative); AdamW's first steps are nearly
+# scale-invariant and the bf16 cast of the updated weights flips a few
+# hundred embedding entries by one ulp at most, which moves the loss by
+# ~1e-6 relative.  1e-4 relative leaves a wide margin for that and none for
+# a real difference between schedules.
+T_LATER_LOSS_RTOL = 1e-4
+DEV = "cuda"  # the device of the training phases
+# step-0 gradient, pipeline vs plain autograd (bf16): the plain path rounds
+# each microbatch's weight gradient to bf16 (2^-9 relative, ~1.1e-3 rms)
+# where the pipeline keeps fp32; activation gradients agree to rounding
+# (H100, 700 W: 1.63e-3 pooled, 1.66e-3 on the worst of the 58 leaves, the
+# same in three runs).  Both limits are 1e-2, six times those readings.  The
+# pooled norm is dominated by the embedding and head, so the worst leaf is
+# gated too: a fault confined to one leaf kind (the wk and wv pairs swapped,
+# one (H, F) case mis-tiled) puts an O(1) relative error on that leaf.  A
+# leaf whose plain gradient is zero must be zero in the pipeline as well.
+T_GRAD_REL_L2 = 1e-2
+T_GRAD_WORST_LEAF = 1e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -266,6 +337,266 @@ def phase_consistency(cfg, stacked, shared, prompts, res):
     check(rel <= CONSIST_REL_L2 and mx <= CONSIST_MAX_ABS, "prefill->decode consistency")
 
 
+def wgrad_bound_ms(n: int, h: int, f: int, in_dtype):
+    """Least time for acc + a^T g: bytes (a and g read, acc read, out
+    written, once each) over the HBM rate, or 2*N*H*F operations over the
+    tensor-core bf16 rate (the fp32 rate for fp32 inputs)."""
+    es = torch.tensor([], dtype=in_dtype).element_size()
+    byte_ms = (n * (h + f) * es + 2 * h * f * 4) / HBM_BYTES_PER_S * 1e3
+    rate = BF16_OPS_PER_S if in_dtype == torch.bfloat16 else FP32_OPS_PER_S
+    op_ms = 2 * n * h * f / rate * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _library_wgrad(a, g, acc):
+    """One PyTorch call for acc + a^T g with an fp32 result, the yardstick."""
+    return lambda: torch.addmm(acc, a.t(), g, out_dtype=torch.float32)
+
+
+def phase_kernels_wgrad(cfg_red):
+    """wgrad_accum on the card at the W products of the training step, plus
+    fp32 (the reduced model's path) and ragged shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = T_B * T_SEQ
+    shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN] + [
+        ("fp32", n, 2048, 2048, f32),
+        ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
+        ("ragged-bf16", 1000, 200, 300, bf16),
+        ("ragged-fp32", 77, 129, 257, f32),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for label, n_, h, f, dt in shapes:
+        a = (torch.randn(n_, h, generator=gen, device="cuda") * 0.5).to(dt)
+        g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
+        acc = torch.randn(h, f, generator=gen, device="cuda")
+        out = wgrad_kernel.wgrad_accum_cuda(a, g, acc)
+        torch.cuda.synchronize()
+        ref = wgrad_accum_ref(a, g, acc)
+        err = float((out - ref).abs().max())
+        tol = TOL[dt]
+        torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        iters = 20 if h * f >= 2048 * 2048 else 100  # each call allocates its (H, F) output
+        library = _library_wgrad(a, g, acc)
+        row = dict(
+            max_abs_err=err,
+            ms=device_ms(lambda: wgrad_kernel.wgrad_accum_cuda(a, g, acc), iters=iters),
+            plain_ms=device_ms(lambda: wgrad_accum_ref(a, g, acc), iters=iters),
+            library_ms=device_ms(library, iters=iters),
+        )
+        row["bound_ms"], row["bound_by"] = wgrad_bound_ms(n_, h, f, dt)
+        rows[label] = row
+        print(f"[kernels] wgrad_accum {label} N={n_} H={h} F={f} in={dt}: max_abs_err={err:.3g} "
+              f"(tol {tol}) device ms: kernel={row['ms']:.5f} plain={row['plain_ms']:.5f} "
+              f"library={row['library_ms']:.5f} [torch.addmm out_dtype=float32] bound={row['bound_ms']:.5f} "
+              f"({row['bound_by']}); kernel TFLOP/s={2 * n_ * h * f / row['ms'] / 1e9:.1f}")
+        del a, g, acc, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _to(tree, device):
+    return tree_map(lambda a: a.to(device), tree)
+
+
+def phase_train_reduced(cfg):
+    """The reduced model's training steps on cuda against cpu (float32)."""
+    runs = {}
+    for device in ("cpu", DEV):
+        sched = make_schedule("zb-h1", TR_P, TR_M)
+        spec = RunSpec(p=TR_P, n_chunks=1, microbatch=TR_B, seq_len=TR_SEQ, m=TR_M)
+        step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement,
+                                   TrainStepConfig(adamw.AdamWConfig(lr=3e-3)))
+        stacked, shared = init_params(cfg, spec, sched.placement, seed=2, device="cpu")
+        data = SyntheticLM(DataConfig(global_batch=TR_M * TR_B, seq_len=TR_SEQ, vocab=cfg.vocab))
+        runs[device] = train(cfg, spec, step, _to(stacked, device), _to(shared, device), data,
+                             TR_STEPS)
+    cpu, gpu = runs["cpu"], runs[DEV]
+    l_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.losses, cpu.losses)]
+    g_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.grad_norms, cpu.grad_norms)]
+    print(f"[train-reduced] p={TR_P} m={TR_M} b={TR_B} seq={TR_SEQ} f32 zb-h1, {TR_STEPS} steps: "
+          f"losses cuda={gpu.losses} cpu={cpu.losses} rel_err={[f'{e:.3g}' for e in l_rel]} "
+          f"(tol 1e-5); grad_norm rel_err={[f'{e:.3g}' for e in g_rel]} (tol 1e-4)")
+    check(max(l_rel) <= 1e-5, "reduced training losses differ between cuda and cpu")
+    check(max(g_rel) <= 1e-4, "reduced training grad norms differ between cuda and cpu")
+
+
+def expected_train_launches(cfg, p, m):
+    """Per training step: (wgrad_accum, rmsnorm) launches the port's
+    structure implies -- one wgrad per deferred linear per W op, one norm
+    per attn/mlp forward plus the sink's, per microbatch."""
+    blocks, _ = group_layout(cfg, p, 1)
+    wgrad = m * p * sum(LINEARS_PER_KIND[k] for kinds in blocks for k in kinds)
+    norms = m * (p * sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds) + 1)
+    return wgrad, norms
+
+
+def _train_full(cfg, name: str, seq: int):
+    sched = make_schedule(name, T_P, T_M)
+    spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
+    step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, TrainStepConfig())
+    stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
+    data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
+    torch.cuda.synchronize()
+    print(f"[train] {name}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after init "
+          f"(bf16 weights)")
+    torch.cuda.reset_peak_memory_stats()
+    wgrad_kernel.launches = 0
+    rms_kernel.launches = 0
+    res = train(cfg, spec, step, stacked, shared, data, T_STEPS,
+                log=lambda s: print(f"[train] {name}: {s}"))
+    launches = (wgrad_kernel.launches, rms_kernel.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return res, launches, peak_gb, (stacked, shared, spec, sched, step, data)
+
+
+def phase_train(cfg):
+    """Full-width training under each schedule, from the same weights."""
+    out = {}
+    for name in T_SCHEDULES:
+        seq = T_SEQ
+        res, launches, peak_gb, state = _train_full(cfg, name, seq)
+        if peak_gb > T_MEM_LIMIT_GB:
+            print(f"[train] {name}: peak {peak_gb:.1f} GB > {T_MEM_LIMIT_GB} GB at seq {seq}; "
+                  f"running it again at seq 512")
+            del state
+            torch.cuda.empty_cache()
+            seq = 512
+            res, launches, peak_gb, state = _train_full(cfg, name, seq)
+        want = tuple(T_STEPS * n for n in expected_train_launches(cfg, T_P, T_M))
+        check(launches == want, f"{name}: (wgrad_accum, rmsnorm) launches {launches} != {want} "
+              f"implied by the port's structure")
+        for k, (loss, gn) in enumerate(zip(res.losses, res.grad_norms)):
+            check(np.isfinite(loss) and np.isfinite(gn), f"{name} step {k}: non-finite loss/norm")
+        med = float(np.median(res.step_s))
+        tokens = T_M * T_B * seq
+        print(f"[train] {name} p={T_P} m={T_M} b={T_B} seq={seq}: ms_per_step "
+              f"median={med * 1e3:.1f} all={[round(t * 1e3, 1) for t in res.step_s]} "
+              f"tokens_per_s={tokens / med:.0f} max_memory_allocated_GB={peak_gb:.2f} "
+              f"losses={res.losses} grad_norms={res.grad_norms} amended={res.amended} "
+              f"launches wgrad_accum={launches[0]} rmsnorm={launches[1]} (expected {want})")
+        out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb)
+        if name == "zb-h1":
+            phase_profile_train(state)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _plain_grads(cfg, spec, stacked, shared, side):
+    """Step-0 gradient by plain torch.autograd through the same model (plain
+    x @ w products, the same RMSNorm function), per microbatch, summed in
+    fp32; stacked like the pipeline's grads."""
+    ctx = ShardCtx()
+    chunk_fn, _, _ = make_chunk_fn(cfg, spec.p, 1, ctx)
+    src_fwd, _ = make_src(cfg, ctx)
+    sink_fn = make_sink_fn(cfg, ctx, spec.m)
+    leaves, struct = tree_flatten((stacked, shared))
+    alias = [t.detach().requires_grad_(t.is_floating_point()) for t in leaves]
+    st, sh = tree_unflatten(struct, alias)
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaves]
+    wrt = [k for k, t in enumerate(alias) if t.requires_grad]
+    loss = 0.0
+    for j in range(spec.m):
+        side_j = tree_map(lambda a: a[j], side)
+        with torch.enable_grad():
+            x = src_fwd(sh, side_j)
+            for s in range(spec.p):
+                x = chunk_fn(tree_map(lambda a: a[s], st[0]), x, side_j)
+            lj = sink_fn(sh, x, side_j)
+            gs = torch.autograd.grad(lj, [alias[k] for k in wrt], allow_unused=True)
+        loss += float(lj.detach())
+        for k, g in zip(wrt, gs):
+            if g is not None:
+                acc[k] += g.float()
+    return tree_unflatten(struct, acc), loss
+
+
+def phase_train_checks(cfg, runs):
+    band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
+    first = {n: r["res"].losses[0] for n, r in runs.items()}
+    for n, l0 in first.items():
+        check(band[0] < l0 < band[1], f"{n}: step-0 loss {l0} outside {band}")
+    same_seq = {r["seq"] for r in runs.values()} == {T_SEQ}
+    if same_seq:
+        check(len(set(first.values())) == 1, f"step-0 losses differ across schedules: {first}")
+        ref = runs["1f1b"]["res"].losses
+        worst = max(abs(a - b) / abs(b) for r in runs.values()
+                    for a, b in zip(r["res"].losses[1:], ref[1:]))
+        check(worst <= T_LATER_LOSS_RTOL, f"later losses differ across schedules by {worst}")
+        print(f"[train-checks] step-0 loss {list(first.values())[0]} in band "
+              f"({band[0]:.3f}, {band[1]:.3f}) and identical across {list(first)}; later "
+              f"losses max rel diff across schedules {worst:.3g} (limit {T_LATER_LOSS_RTOL})")
+    else:
+        print(f"[train-checks] step-0 losses {first} in band; schedules ran at other seq lengths, "
+              f"so no cross-schedule equality check")
+
+    # step-0 gradient: the B/W-split pipeline against plain autograd
+    sched = make_schedule("zb-h1", T_P, T_M)
+    spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+    stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
+    data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=T_SEQ, vocab=cfg.vocab))
+    side = side_from_batch(data.batch_at(0), spec, DEV)
+    grad_fn = PipelineExecutor(build_program(cfg, spec, sched.placement),
+                               compile_plan(sched)).build_grad_fn()
+    g_pipe, sg_pipe, loss_pipe = grad_fn(stacked, shared, side)
+    pipe = tree_leaves((g_pipe, sg_pipe))
+    del g_pipe, sg_pipe
+    plain_tree, loss_plain = _plain_grads(cfg, spec, stacked, shared, side)
+    plain = tree_leaves((plain_tree[0], plain_tree[1]))
+    diff2 = sum(float((a - b).double().pow(2).sum()) for a, b in zip(pipe, plain))
+    ref2 = sum(float(b.double().pow(2).sum()) for b in plain)
+    rel = (diff2 / ref2) ** 0.5
+    worst_leaf = max(float((a - b).double().norm()) / max(float(b.double().norm()), 1e-30)
+                     for a, b in zip(pipe, plain))
+    print(f"[train-checks] step-0 gradient, pipeline (zb-h1, wgrad_accum) vs plain autograd: "
+          f"rel_l2 over {len(plain)} leaves = {rel:.3g} (limit {T_GRAD_REL_L2}); worst leaf "
+          f"rel_l2 {worst_leaf:.3g} (limit {T_GRAD_WORST_LEAF}); loss {float(loss_pipe):.6f} vs "
+          f"{loss_plain:.6f}")
+    check(rel <= T_GRAD_REL_L2, "pipeline gradient disagrees with plain autograd")
+    check(worst_leaf <= T_GRAD_WORST_LEAF, "a gradient leaf disagrees with plain autograd")
+    check(abs(float(loss_pipe) - loss_plain) <= 1e-3 * abs(loss_plain), "step-0 loss differs")
+    del pipe, plain, plain_tree, stacked, shared
+    torch.cuda.empty_cache()
+
+
+def phase_profile_train(state):
+    """Device busy share of one full-width zb-h1 training step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stacked, shared, spec, sched, step, data = state
+    opt, sopt = adamw.init(stacked), adamw.init(shared)
+    side = side_from_batch(data.batch_at(T_STEPS), spec, DEV)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(stacked, shared, opt, sopt, side)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith("train_step.") and e.device_type == torch.autograd.DeviceType.CPU:
+            spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    print("[profile-train] host spans: " + ", ".join(
+        f"{k} {v / 1e3:.1f} ms" for k, v in sorted(spans.items())))
+    # the spans show up on the device timeline too, as annotations: not kernels
+    iv = [x for x in _device_intervals(prof) if not x[2].startswith("train_step.")]
+    if not iv:
+        print("[profile-train] the profiler recorded no device activity: busy share not measured")
+        return
+    busy = _union_us(iv)
+    by_name = {}
+    for s_, e_, name in iv:
+        by_name[name] = by_name.get(name, 0.0) + (e_ - s_)
+    total = sum(by_name.values())
+    wg = sum(us for name, us in by_name.items() if "wgrad" in name)
+    print(f"[profile-train] zb-h1 step: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} "
+          f"ms (idle share {1 - busy / wall_us:.3f}); wgrad_accum kernels {wg / 1e3:.1f} ms = "
+          f"{wg / total:.1%} of device time")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile-train] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
+
+
 def _device_intervals(prof):
     """(start_us, end_us, name) of every device activity in a profile."""
     return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -312,6 +643,23 @@ def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 4):
         print(f"[profile] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
 
 
+def _kernel_row(name, source, replaces, launches, by_path, row):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "launches_by_path": by_path,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA card visible to torch; nothing was run", file=sys.stderr)
@@ -323,26 +671,30 @@ def main() -> int:
     phase_build()
     phase_card()
     rows = phase_kernels(cfg_full, cfg_red)
+    wrows = phase_kernels_wgrad(cfg_red)
     phase_reduced(cfg_red)
-    stacked, shared, prompts, res, launches = phase_serve(cfg_full)
+    stacked, shared, prompts, res, serve_launches = phase_serve(cfg_full)
     phase_consistency(cfg_full, stacked, shared, prompts, res)
     phase_profile(cfg_full, stacked, shared, prompts)
+    del stacked, shared, res
+    torch.cuda.empty_cache()
+    print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f}s")
+    phase_train_reduced(cfg_red)
+    runs = phase_train(cfg_full)
+    phase_train_checks(cfg_full, runs)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
-    main_row = rows["prefill"]
-    print(json.dumps({"kernels": [{
-        "name": "rmsnorm",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-        "replaces": "src/repro/kernels/rmsnorm.py:29",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]}))
+    wgrad_by_path = {f"train-{n}": r["launches"][0] for n, r in runs.items()}
+    rms_by_path = {"serve": serve_launches, **{f"train-{n}": r["launches"][1]
+                                               for n, r in runs.items()}}
+    print(json.dumps({"kernels": [
+        _kernel_row("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:29", sum(rms_by_path.values()), rms_by_path,
+                    rows["prefill"]),
+        _kernel_row("wgrad_accum", "src/repro_torch/kernels/csrc/wgrad_accum.cu",
+                    "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_path.values()),
+                    wgrad_by_path, wrows["wu,wg"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

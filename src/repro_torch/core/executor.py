@@ -1,0 +1,206 @@
+"""Ticked pipeline executor of the port: one device holds all p stages.
+
+Counterpart of ``src/repro/core/executor.py``.  It runs any
+:class:`~repro_torch.core.schedules.ir.ExecutionPlan` -- 1F1B, ZB-H1, ZB-H2 --
+and, since it follows the tables generically (chunk ids, local sends, all
+four channels), V-shaped ones once their builders are ported.  The JAX
+version is one SPMD program under ``shard_map`` with collective permutes;
+this one is re-designed for one device:
+
+  * the host walks the plan tick by tick; in each tick every stage runs its
+    F, B or W, in stage order (``op_kind``/``op_chunk``/``op_mb``);
+  * per-stage state lives in pools keyed by the plan's slot ids: activation
+    and gradient inboxes (per chunk), residuals (written by F, taken by B),
+    W-contexts (written by B, taken by W), and the sink's residuals and
+    W-context at the loss position.  Residual and W-context slots are the
+    plan's joint cross-chunk ids.  Writing a slot that is still live raises,
+    so the plan's slot allocation is checked as a side effect;
+  * outputs are handed on only after every stage of the tick ran, as
+    ``send_local``/``send_channel``/``recv_*`` say -- the JAX version's
+    end-of-tick ``ppermute`` (the serving executor follows the same rule);
+  * gradients accumulate in fp32 (``acc_dt``): W adds each block's products
+    through the wgrad-accumulation kernel (the JAX default ``fuse_wgrad``,
+    the only mode here); the embedding
+    gradient is added at ``op_is_last_b`` and the sink's at ``op_is_loss``
+    W.  The loss is the sum of the sink's per-microbatch ``loss / m``.
+
+One process per stage with NCCL point-to-point sends is a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+import torch
+
+from ..tree import tree_map
+from .passes import FBWModule, loss_seed
+from .schedules.ir import (
+    CHANNEL_BWD_DOWN,
+    CHANNEL_BWD_UP,
+    CHANNEL_FWD_DOWN,
+    CHANNEL_FWD_UP,
+    ExecutionPlan,
+    N_CHANNELS,
+    OpKind,
+)
+
+__all__ = ["PipelineProgram", "PipelineExecutor"]
+
+PyTree = Any
+
+_CHANNEL_SHIFT = {CHANNEL_FWD_UP: +1, CHANNEL_FWD_DOWN: -1, CHANNEL_BWD_DOWN: -1, CHANNEL_BWD_UP: +1}
+_ACT_CHANNELS = (CHANNEL_FWD_UP, CHANNEL_FWD_DOWN)
+
+
+@dataclasses.dataclass
+class PipelineProgram:
+    """What the model hands the executor.
+
+    ``chunks[c]`` computes chunk ``c``'s layer group on any stage (parameters
+    differ by stage).  ``src_fwd(shared, side_mb) -> x`` is the embedding;
+    ``src_bwd_w(shared, side_mb, dx, acc)`` adds its gradient into ``acc``;
+    ``sink`` maps the last chunk's output to the scalar ``loss / m``.
+    """
+
+    chunks: Sequence[FBWModule]
+    src_fwd: Callable[[PyTree, PyTree], torch.Tensor]
+    src_bwd_w: Callable[..., PyTree]
+    sink: FBWModule
+    act_shape: Tuple[int, ...]  # (b_mb, s, h) carried between stages
+    act_dtype: Any = torch.float32
+
+    def n_chunks(self) -> int:
+        return len(self.chunks)
+
+
+def acc_dt(dtype: torch.dtype) -> torch.dtype:
+    """Gradient accumulator dtype: at least fp32."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _put(pool: Dict, key, value, what: str) -> None:
+    if key in pool:
+        raise RuntimeError(f"{what} slot {key} written while still live")
+    pool[key] = value
+
+
+def _take(pool: Dict, key, what: str):
+    if key not in pool:
+        raise RuntimeError(f"{what} slot {key} read before it was written")
+    return pool.pop(key)
+
+
+class PipelineExecutor:
+    """Turns (program, plan) into a pipelined grads-and-loss function."""
+
+    def __init__(self, program: PipelineProgram, plan: ExecutionPlan):
+        if program.n_chunks() != plan.n_chunks:
+            raise ValueError(f"program has {program.n_chunks()} chunks, plan {plan.n_chunks}")
+        self.program = program
+        self.plan = plan
+
+    def build_grad_fn(self):
+        """``grad_fn(stacked, shared, side_all) -> (grads, shared_grads, loss)``.
+
+        ``stacked``: per chunk, parameter trees whose leaves carry a leading
+        (p,) stage axis; ``side_all``: leaves with a leading (m,) microbatch
+        axis.  ``grads`` are stacked like ``stacked``, ``shared_grads`` like
+        ``shared``, both in ``acc_dt``; ``loss`` is an fp32 scalar.
+        """
+        prog, plan = self.program, self.plan
+        p, C = plan.p, plan.n_chunks
+
+        @torch.no_grad()  # each F builds its own graph (passes.autograd_fbw)
+        def grad_fn(stacked, shared, side_all):
+            local = [[tree_map(lambda a: a[s], stacked[c]) for s in range(p)] for c in range(C)]
+            acc = [[tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
+                                                   device=a.device), local[c][s])
+                    for s in range(p)] for c in range(C)]
+            shared_acc = tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
+                                                        device=a.device), shared)
+            loss = torch.zeros((), dtype=torch.float32, device=shared["embed"].device)
+            act_in = [{} for _ in range(p)]  # (chunk, slot) -> activation
+            grad_in = [{} for _ in range(p)]  # (chunk, slot) -> activation gradient
+            res = [{} for _ in range(p)]  # joint slot -> chunk residuals
+            wctx = [{} for _ in range(p)]  # joint slot -> chunk W-context
+            sink_res = [{} for _ in range(p)]
+            sink_wctx = [{} for _ in range(p)]
+
+            for t in range(plan.n_ticks):
+                sends = [None] * p
+                for s in range(p):
+                    kind = int(plan.op_kind[s, t])
+                    if kind == OpKind.IDLE:
+                        continue
+                    c, j = int(plan.op_chunk[s, t]), int(plan.op_mb[s, t])
+                    side_mb = tree_map(lambda a: a[j], side_all)
+                    params = local[c][s]
+                    is_loss = bool(plan.op_is_loss[s, t])
+                    if kind == OpKind.F:
+                        if plan.op_is_src[s, t]:
+                            x = prog.src_fwd(shared, side_mb).to(prog.act_dtype)
+                        else:
+                            x = _take(act_in[s], (c, int(plan.op_in_slot[s, t])), "act inbox")
+                        y, r = prog.chunks[c].fwd(params, x, side_mb)
+                        _put(res[s], int(plan.op_res_slot_joint[s, t]), r, "residual")
+                        if is_loss:
+                            lj, sr = prog.sink.fwd(shared, y, side_mb)
+                            _put(sink_res[s], int(plan.op_sink_slot[s, t]), (sr, lj), "sink residual")
+                            loss = loss + lj.float()
+                        sends[s] = y.to(prog.act_dtype)
+                    elif kind == OpKind.B:
+                        r = _take(res[s], int(plan.op_res_slot_joint[s, t]), "residual")
+                        if is_loss:
+                            sr, lj = _take(sink_res[s], int(plan.op_sink_slot[s, t]), "sink residual")
+                            dy, sw = prog.sink.bwd_x(shared, sr, loss_seed(lj), side_mb)
+                            _put(sink_wctx[s], int(plan.op_sink_wctx_slot[s, t]), sw, "sink wctx")
+                            dy = dy.to(prog.act_dtype)
+                        else:
+                            dy = _take(grad_in[s], (c, int(plan.op_in_slot[s, t])), "grad inbox")
+                        dx, w = prog.chunks[c].bwd_x(params, r, dy, side_mb)
+                        del r
+                        _put(wctx[s], int(plan.op_wctx_slot_joint[s, t]), w, "wctx")
+                        if plan.op_is_last_b[s, t]:
+                            shared_acc = prog.src_bwd_w(shared, side_mb, dx, shared_acc)
+                        else:
+                            sends[s] = dx.to(prog.act_dtype)
+                    else:  # W: the W-context alone, no residuals
+                        w = _take(wctx[s], int(plan.op_wctx_slot_joint[s, t]), "wctx")
+                        acc[c][s] = prog.chunks[c].bwd_w(params, w, side_mb, acc=acc[c][s])
+                        del w
+                        if is_loss:
+                            sw = _take(sink_wctx[s], int(plan.op_sink_wctx_slot[s, t]), "sink wctx")
+                            shared_acc = prog.sink.bwd_w(shared, sw, side_mb, acc=shared_acc)
+
+                # end of tick: local deposits, then the channel hand-offs
+                for s in range(p):
+                    if plan.send_local[s, t]:
+                        box = grad_in if plan.local_is_grad[s, t] else act_in
+                        key = (int(plan.local_chunk[s, t]), int(plan.local_slot[s, t]))
+                        _put(box[s], key, sends[s], "local inbox")
+                for s in range(p):
+                    for d in range(N_CHANNELS):
+                        if not plan.recv_valid[s, t, d]:
+                            continue
+                        src = (s - _CHANNEL_SHIFT[d]) % p
+                        if plan.send_channel[src, t] != d or sends[src] is None:
+                            raise RuntimeError(f"tick {t}: stage {s} expects channel {d} "
+                                               f"from stage {src}, which sent nothing")
+                        box = act_in if d in _ACT_CHANNELS else grad_in
+                        key = (int(plan.recv_chunk[s, t, d]), int(plan.recv_slot[s, t, d]))
+                        _put(box[s], key, sends[src], "inbox")
+
+            for pools, what in ((act_in, "act inbox"), (grad_in, "grad inbox"), (res, "residual"),
+                                (wctx, "wctx"), (sink_res, "sink residual"),
+                                (sink_wctx, "sink wctx")):
+                left = [s for s in range(p) if pools[s]]
+                if left:
+                    raise RuntimeError(f"{what} slots still live after the last tick on stages {left}")
+            grads = tuple(
+                tree_map(lambda *leaves: torch.stack(leaves), *acc[c]) for c in range(C)
+            )
+            return grads, shared_acc, loss
+
+        return grad_fn

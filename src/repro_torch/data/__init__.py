@@ -1,0 +1,5 @@
+"""Deterministic synthetic token stream (numpy)."""
+
+from .pipeline import DataConfig, SyntheticLM
+
+__all__ = ["DataConfig", "SyntheticLM"]

@@ -39,7 +39,7 @@ def resolve_device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "repro_torch serving runs on a CUDA card and none is available; "
+            "repro_torch runs on a CUDA card and none is available; "
             "pass --device cpu to run the plain CPU path on purpose"
         )
     return dev

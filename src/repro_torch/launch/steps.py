@@ -1,18 +1,126 @@
-"""Step builders of the port.  This slice has the serving step only.
+"""Step builders of the port: the pipelined training step and the serving step.
 
-Counterpart of ``src/repro/launch/steps.py::build_serve_step``: no
-``shard_map`` and no ``jit`` -- the step is the host-driven executor of
-``core/infer_executor.py`` over one device holding all pipeline stages.
+Counterpart of ``src/repro/launch/steps.py``.  No ``shard_map`` and no
+``jit``: one device holds all p pipeline stages and the host drives the
+executors (``core/executor.py`` for training, ``core/infer_executor.py`` for
+serving).  The training step mirrors the JAX one: grads of the pipelined
+step, the frozen ``mask`` leaves zeroed, per-stage gradient statistics with
+the shared parameters counted on stage 0, then AdamW under optimizer
+post-validation (``within_step``) or the blocking baseline (``sync``).
 """
 
 from __future__ import annotations
 
-from ..core.infer_executor import InferExecutor, compile_infer_plan
-from ..core.schedules.ir import Placement
-from ..models.lm import ArchConfig, RunSpec
-from ..models.serve import build_serve_program
+import dataclasses
+from typing import Any, Optional
 
-__all__ = ["build_serve_step"]
+import torch
+
+from ..core.executor import PipelineExecutor
+from ..core.infer_executor import InferExecutor, compile_infer_plan
+from ..core.schedules.ir import ExecutionPlan, Placement
+from ..models.lm import ArchConfig, RunSpec, build_program
+from ..models.serve import build_serve_program
+from ..optim import adamw, postval
+from ..tree import tree_flatten, tree_map
+
+PyTree = Any
+
+__all__ = ["TrainStepConfig", "build_train_step", "build_serve_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    adamw: adamw.AdamWConfig = dataclasses.field(default_factory=adamw.AdamWConfig)
+    postval_mode: str = "within_step"  # "within_step" | "sync" (baseline)
+
+
+def _freeze_filter(tree, frozen: bool = False):
+    """Bool tree: True = frozen (the structural ``mask`` leaves are not
+    trainable)."""
+    if isinstance(tree, dict):
+        return {k: _freeze_filter(v, frozen or k == "mask") for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_freeze_filter(v, frozen) for v in tree)
+    return frozen
+
+
+def _copy_into(dst: PyTree, src: PyTree) -> None:
+    for d, s in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
+        d.copy_(s)
+
+
+def build_train_step(cfg: ArchConfig, spec: RunSpec, plan: ExecutionPlan, placement: Placement,
+                     tcfg: Optional[TrainStepConfig] = None):
+    """Returns (step, program).
+
+    ``step(stacked, shared, opt, shared_opt, side) -> (stacked, shared, opt,
+    shared_opt, metrics)``.  ``opt`` holds the stacked params' moments,
+    ``shared_opt`` the shared ones'; ``side`` holds tokens/labels (m, b, s)
+    and positions (m, s) on the parameters' device.  Parameters and moments
+    are updated in place, as the JAX step donates them, and returned;
+    ``metrics`` has ``loss``, ``grad_norm`` (0-d tensors) and ``amended``
+    (bool: some stage's optimistic step was rolled back or redone).
+    """
+    tcfg = tcfg or TrainStepConfig()
+    if tcfg.postval_mode not in ("within_step", "sync"):
+        raise ValueError(f"unknown postval_mode {tcfg.postval_mode!r}")
+    program = build_program(cfg, spec, placement)
+    grad_fn = PipelineExecutor(program, plan).build_grad_fn()
+    acfg = tcfg.adamw
+    p = plan.p
+
+    @torch.no_grad()
+    def step(stacked, shared, opt, shared_opt, side):
+        with torch.profiler.record_function("train_step.pipeline"):
+            grads, shared_grads, loss = grad_fn(stacked, shared, side)
+        with torch.profiler.record_function("train_step.optimizer"):
+            return _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss)
+
+    def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss):
+        grads = tree_map(lambda g, f: torch.zeros_like(g) if f else g, grads,
+                         _freeze_filter(stacked))
+
+        def at(tree, s):
+            return tuple(tree_map(lambda a: a[s], x) for x in tree)
+
+        # gradient statistics per stage; shared params counted on stage 0 only
+        stats_shared = postval.local_stats(shared_grads)
+        stats = []
+        for s in range(p):
+            st = postval.local_stats(at(grads, s))
+            on0 = 1.0 if s == 0 else 0.0
+            stats.append(postval.GradStats(st.sumsq + on0 * stats_shared.sumsq,
+                                           st.nonfinite | (s == 0 and stats_shared.nonfinite)))
+        prefix, full = postval.pipe_prefix_stats(stats)
+
+        amended, new_t = False, opt.t
+        for s in range(p):
+            # stage 0 steps (local, shared) together, as every stage of the
+            # JAX step does; the shared result of the other stages is unused
+            params = (at(stacked, s), shared) if s == 0 else (at(stacked, s),)
+            g = (at(grads, s), shared_grads) if s == 0 else (at(grads, s),)
+            state = adamw.AdamWState(
+                t=opt.t,
+                m=(at(opt.m, s), shared_opt.m) if s == 0 else (at(opt.m, s),),
+                v=(at(opt.v, s), shared_opt.v) if s == 0 else (at(opt.v, s),),
+            )
+            if tcfg.postval_mode == "sync":
+                new_p, new_s = postval.sync_step(params, state, g, acfg, full)
+            else:
+                p1, s1, dec = postval.optimistic_step(params, state, g, prefix[s], acfg)
+                new_p, new_s, am = postval.validate_and_fix(p1, s1, g, dec, full, acfg)
+                amended = amended or am
+            _copy_into(params, new_p)
+            _copy_into(state.m, new_s.m)
+            _copy_into(state.v, new_s.v)
+            if s == 0:
+                new_t = new_s.t
+        metrics = {"loss": loss, "grad_norm": torch.sqrt(full.sumsq), "amended": amended}
+        return (stacked, shared, adamw.AdamWState(new_t, opt.m, opt.v),
+                adamw.AdamWState(new_t, shared_opt.m, shared_opt.v), metrics)
+
+    return step, program
 
 
 def build_serve_step(cfg: ArchConfig, spec: RunSpec, placement: Placement, mode: str):

@@ -1,7 +1,7 @@
-"""Model assembly of the port: configs, group layout, parameters, embedding.
+"""Model assembly of the port: configs, group layout, parameters, the
+split chunk modules, the embedding source and the loss sink.
 
-Counterpart of ``src/repro/models/lm.py`` (the pieces the serving path
-needs).  Blocks are assigned to (stage, chunk) groups of uniform size; when
+Counterpart of ``src/repro/models/lm.py`` (dense family).  Blocks are assigned to (stage, chunk) groups of uniform size; when
 ``n_layers`` does not divide evenly, groups are padded with blocks whose
 ``mask`` leaf is 0, which leave the activation unchanged.  Parameters keep
 the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
@@ -21,11 +21,18 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .modules import ShardCtx, init_layer, pad_to_multiple
+from ..core.executor import PipelineProgram
+from ..core.passes import FBWModule, SequentialFBW, autograd_fbw, linear
+from .modules import ShardCtx, apply_block, init_layer, pad_to_multiple, rmsnorm, vocab_parallel_ce
 
 __all__ = [
     "ArchConfig",
     "RunSpec",
+    "ChunkFBW",
+    "build_program",
+    "make_chunk_fn",
+    "make_sink_fn",
+    "side_inputs",
     "group_layout",
     "group_masks",
     "init_params",
@@ -124,6 +131,68 @@ def group_masks(cfg: ArchConfig, p: int, n_chunks: int, placement) -> np.ndarray
 
 
 # --------------------------------------------------------------------- #
+# chunk modules: one split module per architectural block
+# --------------------------------------------------------------------- #
+def make_chunk_fn(cfg: ArchConfig, p: int, n_chunks: int, ctx: ShardCtx):
+    """Whole-chunk forward (the plain path; the executor uses ChunkFBW)."""
+    blocks, g = group_layout(cfg, p, n_chunks)
+    lcfg = layer_cfg(cfg, ctx.tp_size)
+
+    def chunk_fn(params, x, side):
+        pos = side["positions"]
+        for bi, kinds in enumerate(blocks):
+            x = apply_block(kinds, params["mask"][bi], params["blocks"][bi], x, pos, lcfg, ctx)
+        return x
+
+    return chunk_fn, blocks, g
+
+
+class ChunkFBW(FBWModule):
+    """A pipeline chunk as a sequence of per-block split modules.
+
+    The parameter structure is the stacked one (``{"mask": (g,), "blocks":
+    (...)}``); each block module sees ``(mask[bi], blocks[bi])``.  B runs the
+    blocks right to left and keeps one W-context per block (the deferred
+    linears' ``(a, g)`` pairs and the finished norm-gain and mask grads); W
+    rebuilds the chunk gradient from those contexts alone.
+    """
+
+    def __init__(self, cfg: ArchConfig, p: int, n_chunks: int, ctx: ShardCtx, name: str):
+        blocks, _ = group_layout(cfg, p, n_chunks)
+        lcfg = layer_cfg(cfg, ctx.tp_size)
+        self.name = name
+        self.block_kinds = blocks
+
+        def block_fn(kinds):
+            def f(params, x, side):
+                mask, kp = params
+                return apply_block(kinds, mask, kp, x, side["positions"], lcfg, ctx)
+
+            return f
+
+        self.mods = [autograd_fbw(block_fn(kinds), name=f"{name}.b{bi}")
+                     for bi, kinds in enumerate(blocks)]
+        self.seq = SequentialFBW(self.mods, name=name)
+
+    @staticmethod
+    def _per_block(params):
+        return tuple((params["mask"][bi], blk) for bi, blk in enumerate(params["blocks"]))
+
+    def fwd(self, params, x, side):
+        return self.seq.fwd(self._per_block(params), x, side)
+
+    def bwd_x(self, params, res, dy, side):
+        return self.seq.bwd_x(self._per_block(params), res, dy, side)
+
+    def bwd_w(self, params, wctx, side, acc):
+        outs = self.seq.bwd_w(self._per_block(params), wctx, side, acc=self._per_block(acc))
+        return {
+            "mask": torch.stack([o[0] for o in outs]),
+            "blocks": tuple(o[1] for o in outs),
+        }
+
+
+# --------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------- #
 def _check_family(cfg: ArchConfig) -> None:
@@ -207,12 +276,82 @@ def _embed_lookup(shared, tokens: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx):
     return shared["embed"][safe] * ok[..., None].to(shared["embed"].dtype)
 
 
+def _embed_grad(shared, tokens: torch.Tensor, dx: torch.Tensor, ctx: ShardCtx,
+                out: torch.Tensor) -> torch.Tensor:
+    """Scatter-add the rows of dx into the fp32 embedding gradient ``out``, in
+    place (the JAX package adds a fresh zero table instead; this saves a
+    (V, d) buffer per microbatch).  On the
+    card ``index_add_`` sums colliding rows with atomics, in no fixed order."""
+    v_l = shared["embed"].shape[0]
+    loc = tokens - ctx.index() * v_l
+    ok = (loc >= 0) & (loc < v_l)
+    safe = torch.clamp(loc, 0, v_l - 1)
+    flat_dx = (dx * ok[..., None].to(dx.dtype)).reshape(-1, dx.shape[-1])
+    return out.index_add_(0, safe.reshape(-1), flat_dx.to(out.dtype))
+
+
 def make_src(cfg: ArchConfig, ctx: ShardCtx):
-    """Forward half of the JAX ``make_src``: the token embedding (dense
-    family only; the encdec/vlm fronts are not ported)."""
+    """(src_fwd, src_bwd_w): the token embedding and its gradient (dense
+    family only; the encdec/vlm fronts are not ported).
+
+    ``src_bwd_w(shared, side_mb, dx, acc)`` adds the embedding rows into
+    ``acc["embed"]`` (fp32, ``acc`` like shared) in place and returns
+    ``acc``."""
     _check_family(cfg)
 
     def src_fwd(shared, side_mb):
         return _embed_lookup(shared, side_mb["tokens"], cfg, ctx)
 
-    return src_fwd
+    def src_bwd_w(shared, side_mb, dx, acc):
+        _embed_grad(shared, side_mb["tokens"], dx, ctx, out=acc["embed"])
+        return acc
+
+    return src_fwd, src_bwd_w
+
+
+def make_sink_fn(cfg: ArchConfig, ctx: ShardCtx, m: int):
+    """Final RMSNorm, LM head, token CE; the loss of one microbatch / m."""
+
+    def sink_fn(shared, y, side_mb):
+        yn = rmsnorm(shared["final_ln"], y)
+        logits = linear(yn, shared["head"])
+        return vocab_parallel_ce(logits, side_mb["labels"], ctx, cfg.vocab) / m
+
+    return sink_fn
+
+
+# --------------------------------------------------------------------- #
+# program factory and side inputs
+# --------------------------------------------------------------------- #
+def build_program(cfg: ArchConfig, spec: RunSpec, placement) -> PipelineProgram:
+    """The executor's program: one ChunkFBW per chunk, the embedding source,
+    and the sink split by the same autograd cut.  The sink's head product
+    stays a plain ``torch.matmul`` in W (``fuse_wgrad=False``), as the JAX
+    package leaves it to XLA."""
+    _check_family(cfg)
+    ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
+    src_fwd, src_bwd_w = make_src(cfg, ctx)
+    chunks = [ChunkFBW(cfg, spec.p, spec.n_chunks, ctx, name=f"{cfg.name}.chunk{c}")
+              for c in range(spec.n_chunks)]
+    return PipelineProgram(
+        chunks=chunks,
+        src_fwd=src_fwd,
+        src_bwd_w=src_bwd_w,
+        sink=autograd_fbw(make_sink_fn(cfg, ctx, spec.m), name=f"{cfg.name}.sink",
+                          fuse_wgrad=False),
+        act_shape=(spec.microbatch, spec.seq_len, cfg.d_model),
+        act_dtype=cfg.torch_dtype(),
+    )
+
+
+def side_inputs(cfg: ArchConfig, spec: RunSpec, seed: int = 1) -> Dict[str, np.ndarray]:
+    """Synthetic per-microbatch side inputs as numpy: tokens and labels
+    (m, b, s), positions (m, s)."""
+    _check_family(cfg)
+    rng = np.random.default_rng(seed)
+    m, b, s = spec.m, spec.microbatch, spec.seq_len
+    return {
+        "tokens": rng.integers(0, cfg.vocab, (m, b, s)),
+        "labels": rng.integers(0, cfg.vocab, (m, b, s)),
+        "positions": np.broadcast_to(np.arange(s), (m, s)).copy(),
+    }

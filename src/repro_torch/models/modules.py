@@ -3,10 +3,12 @@
 Counterpart of ``src/repro/models/modules.py``: the same functions, names,
 parameter layouts (linear weights ``(in, out)``, applied as ``x @ w``) and
 numerics, written as plain PyTorch on tensors.  Every RMSNorm goes through
-``kernels.ops.rmsnorm`` (the CUDA kernel on the card).  Attention stays plain
-tensor code, as the JAX package leaves it to XLA: einsum products, the
-``-1e30`` mask, softmax in fp32.  Every other layer kind raises
-``NotImplementedError`` naming the kind.
+``kernels.ops.rmsnorm`` (the CUDA kernel on the card; differentiable).  The
+seven weight products of a block go through ``core.passes.linear``: plain
+``x @ w`` when serving, the deferred linear of the B/W split when a training
+block collects its W-context.  Attention stays plain tensor code, as the JAX
+package leaves it to XLA: einsum products, the ``-1e30`` mask, softmax in
+fp32.  Every other layer kind raises ``NotImplementedError`` naming the kind.
 """
 
 from __future__ import annotations
@@ -17,12 +19,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..core.passes import linear
 from ..kernels import ops
 
 __all__ = [
     "ShardCtx",
     "init_layer",
     "apply_layer",
+    "apply_block",
+    "vocab_parallel_ce",
     "LAYER_KINDS",
     "PORTED_KINDS",
     "UNPORTED_KINDS",
@@ -124,7 +129,8 @@ def _attend_dense(q, k, v, softcap, q_offset=0):
 
 def _attend_chunked(q, k, v, softcap, block=1024):
     """Query blocks one at a time, so the scores stay (block, sk) per head.
-    Inference keeps no residuals, so the JAX version's remat has no part here."""
+    Serving keeps no residuals, so the JAX version's remat has no part there;
+    a training step at s > 2 * block keeps every block's scores for B."""
     s = q.shape[1]
     outs = [
         _attend_dense(q[:, i : i + block], k, v, softcap, q_offset=i)
@@ -173,13 +179,13 @@ def attn_forward(p, x, positions, cfg, ctx: ShardCtx):
     hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
     dh = _head_dim(cfg)
     xin = rmsnorm(p["ln"], x)
-    q = (xin @ p["wq"]).reshape(b, s, hq, dh)
-    k = (xin @ p["wk"]).reshape(b, s, hk, dh)
-    v = (xin @ p["wv"]).reshape(b, s, hk, dh)
+    q = linear(xin, p["wq"]).reshape(b, s, hq, dh)
+    k = linear(xin, p["wk"]).reshape(b, s, hk, dh)
+    v = linear(xin, p["wv"]).reshape(b, s, hk, dh)
     q, k = rope(q, positions), rope(k, positions)
     km, vm = _match_kv_heads(hq, k, v, cfg, ctx)
     o = attention(q, km, vm, softcap=cfg.get("attn_softcap"))
-    o = o.reshape(b, s, hq * dh) @ p["wo"]
+    o = linear(o.reshape(b, s, hq * dh), p["wo"])
     return x + o, k, v
 
 
@@ -200,9 +206,9 @@ def init_mlp(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
 
 def apply_mlp(p, x, cfg, ctx: ShardCtx):
     xin = rmsnorm(p["ln"], x)
-    up = xin @ p["wu"]
-    gate = torch.nn.functional.silu(xin @ p["wg"])
-    return x + (up * gate) @ p["wd"]
+    up = linear(xin, p["wu"])
+    gate = torch.nn.functional.silu(linear(xin, p["wg"]))
+    return x + linear(up * gate, p["wd"])
 
 
 # --------------------------------------------------------------------- #
@@ -223,3 +229,35 @@ def apply_layer(kind: str, params, x, positions, cfg, ctx: ShardCtx):
     _check_kind(kind)
     return LAYER_KINDS[kind][1](params, x, positions, cfg, ctx)
 
+
+
+def apply_block(kinds: Tuple[str, ...], mask, params, x, positions, cfg, ctx: ShardCtx):
+    """One architectural block (several sub-kinds) with its padding mask
+    folded in: a padded block (mask 0) is an exact no-op with zero grads.
+    The unit the F/B/W split works on (``models/lm.py::ChunkFBW``)."""
+    xb = x
+    for ki, kind in enumerate(kinds):
+        xb = apply_layer(kind, params[ki], xb, positions, cfg, ctx)
+    m = mask.to(x.dtype)
+    return m * xb + (1.0 - m) * x
+
+
+# --------------------------------------------------------------------- #
+# cross entropy (sink), tp=1
+# --------------------------------------------------------------------- #
+def vocab_parallel_ce(logits_loc, labels, ctx: ShardCtx, vocab: int):
+    """logits_loc (b, s, V_pad) -- the whole vocab at tp=1; labels (b, s).
+    Mean token CE in fp32; the max-shift carries no gradient, as in the
+    JAX package (it cancels analytically)."""
+    v_l = logits_loc.shape[-1]
+    off = ctx.index() * v_l
+    z = logits_loc.float()
+    zmax = torch.max(z, dim=-1).values.detach()
+    z = z - zmax[..., None]
+    sumexp = torch.sum(torch.exp(z), dim=-1)
+    local_lab = labels - off
+    in_range = (local_lab >= 0) & (local_lab < v_l)
+    safe = torch.clamp(local_lab, 0, v_l - 1)
+    picked = torch.gather(z, -1, safe[..., None])[..., 0]
+    picked = torch.where(in_range, picked, torch.zeros_like(picked))
+    return torch.mean(torch.log(sumexp) - picked)

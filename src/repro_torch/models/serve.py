@@ -167,7 +167,7 @@ def build_serve_program(cfg: ArchConfig, spec: RunSpec, placement, mode: str):
     stage's group of blocks)."""
     ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
     chunk_fn, cache_init = make_serve_chunk(cfg, spec, mode)
-    src = make_src(cfg, ctx)  # the token embedding, in prefill and decode alike
+    src, _ = make_src(cfg, ctx)  # the token embedding, in prefill and decode alike
 
     def sink(shared, y, side_mb):
         yl = y[:, -1:].contiguous()  # next-token logits from the last position

@@ -1,11 +1,20 @@
-"""Minimal pytree helper over the nested dict/tuple/list parameter and
-cache structures the JAX package keeps (the port keeps them too)."""
+"""Minimal pytree helpers over the nested dict/tuple/list parameter and
+cache structures the JAX package keeps (the port keeps them too).
+
+Leaves are flattened with dict keys in sorted order, as ``jax.tree_util``
+does, so a sum over leaves runs in the JAX package's order."""
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_map"]
+__all__ = ["tree_map", "tree_leaves", "tree_flatten", "tree_unflatten"]
+
+
+def _rebuild(cls, kids):
+    if hasattr(cls, "_fields"):  # NamedTuple
+        return cls(*kids)
+    return cls(kids)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -14,5 +23,39 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return _rebuild(type(tree), [tree_map(fn, *xs) for xs in zip(tree, *rest)])
     return fn(tree, *rest)
+
+
+def _flatten(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        return (dict, tuple((k, _flatten(t[k], leaves)) for k in sorted(t)))
+    if isinstance(t, (tuple, list)):
+        return (type(t), tuple(_flatten(x, leaves) for x in t))
+    leaves.append(t)
+    return None
+
+
+def _unflatten(sp, it):
+    if sp is None:
+        return next(it)
+    kind, kids = sp
+    if kind is dict:
+        return {k: _unflatten(s, it) for k, s in kids}
+    return _rebuild(kind, [_unflatten(s, it) for s in kids])
+
+
+# Module-level recursion on purpose: a nested recursive closure would form
+# a reference cycle holding the leaves (tensors) until the next gc pass.
+def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
+    """(leaves, structure); :func:`tree_unflatten` inverts it."""
+    leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
+
+
+def tree_unflatten(structure: Any, leaves) -> Any:
+    return _unflatten(structure, iter(leaves))
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    return tree_flatten(tree)[0]

@@ -1,6 +1,7 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro``, and the serving entry point
-does not carry on on the CPU when the card it asks for is missing."""
+neither ``jax`` nor the JAX package ``repro``, and the serving and training
+entry points do not carry on on the CPU when the card they ask for is
+missing."""
 
 import os
 import pathlib
@@ -21,6 +22,7 @@ def test_imports_pull_in_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.interop, chip_smoke\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -52,3 +54,19 @@ def test_serve_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced", "--pipe-size", "1", "--groups", "1"])
+
+
+def test_train_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--pipe-size", "1", "--m", "1", "--steps", "1"])
+
+
+@pytest.mark.parametrize("schedule", ["zb-v", "v-min", "v-half", "zb-1p", "zb-2p"])
+def test_train_unported_schedules_raise(schedule):
+    from repro_torch.launch import train
+
+    with pytest.raises(NotImplementedError, match=schedule):
+        train.main(["--reduced", "--device", "cpu", "--schedule", schedule, "--steps", "1"])

@@ -92,7 +92,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed at its default path")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build(["rmsnorm"])
-    assert build.sources() == ["rmsnorm"]
+    assert build.sources() == ["rmsnorm", "wgrad_accum"]
 
 
 @pytest.mark.cuda
