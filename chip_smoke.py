@@ -14,7 +14,12 @@ Phases, in order; any failed check raises and the exit code is not 0:
               version and one PyTorch library call, and the bound: RMSNorm
               at the serving shapes, wgrad_accum at the four (H, F) shapes
               of the training step's W ops (N = 1024, bf16 a/g, fp32 acc),
-              plus fp32 and ragged shapes.
+              plus a ragged N, fp32 and ragged shapes.  wgrad_accum adds
+              into a clone of acc in place and is held against the plain
+              version on the original; its path (wgmma / mma_sync / fma) is
+              printed per shape, kernel and library are timed in
+              turns (kernel, library, library, kernel), and the wrapper's
+              eager host time per call is measured.
 4. reduced -- reduced internlm2 (float32) served on cuda and on cpu: logits
               within 1e-4 and identical greedy tokens.
 5. serve   -- internlm2-1.8b at full width and depth (bf16, random weights
@@ -33,7 +38,8 @@ Phases, in order; any failed check raises and the exit code is not 0:
               1 x 1024 tokens from the synthetic stream, 3 steps each under
               1f1b, zb-h1 and zb-h2: step time, tokens/s, peak memory,
               losses, grad norms; both kernels' launch counts, read around
-              each schedule's run, equal the counts the structure implies.
+              each schedule's run, equal the counts the structure implies,
+              and every wgrad_accum launch took the wgmma path.
 10. train-checks -- step-0 loss in the band of tests/test_arch_smoke.py and
               identical across schedules, later losses within a stated
               tolerance; the step-0 full-width gradient of the B/W-split
@@ -50,6 +56,7 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -162,12 +169,20 @@ def eager_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.lru_cache(maxsize=None)
+def _warmup_stream() -> torch.cuda.Stream:
+    return torch.cuda.Stream()
+
+
 def device_ms(fn, iters: int = 100, replays: int = 5) -> float:
     """Mean device time of one call: ``iters`` calls captured in one CUDA
     graph, replayed between CUDA events, so host dispatch is not counted.
     The inputs stay in L2 between calls, as they do on the serving path,
-    where the norm reads what the previous op just wrote."""
-    side = torch.cuda.Stream()
+    where the norm reads what the previous op just wrote.  The warm-up runs
+    on one side stream shared by all calls: cuBLAS keeps a workspace for
+    every stream it has run on, so a new stream per call would leave one
+    more workspace allocated for the rest of the run."""
+    side = _warmup_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture, as torch asks
         for _ in range(3):
@@ -353,12 +368,26 @@ def _library_wgrad(a, g, acc):
     return lambda: torch.addmm(acc, a.t(), g, out_dtype=torch.float32)
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Host time of one eager call: the enqueue alone, no device sync inside
+    the window (the launch queue is deeper than ``iters``)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_kernels_wgrad(cfg_red):
-    """wgrad_accum on the card at the W products of the training step, plus
-    fp32 (the reduced model's path) and ragged shapes."""
+    """wgrad_accum on the card at the W products of the training step, plus a
+    ragged N, fp32 (the reduced model's path) and ragged shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     n = T_B * T_SEQ
     shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN] + [
+        ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
         ("ragged-bf16", 1000, 200, 300, bf16),
@@ -370,27 +399,40 @@ def phase_kernels_wgrad(cfg_red):
         a = (torch.randn(n_, h, generator=gen, device="cuda") * 0.5).to(dt)
         g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
         acc = torch.randn(h, f, generator=gen, device="cuda")
-        out = wgrad_kernel.wgrad_accum_cuda(a, g, acc)
+        path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
+        ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
+        out = acc.clone()
+        got = wgrad_kernel.wgrad_accum_cuda(a, g, out)  # the kernel, in place on a clone
         torch.cuda.synchronize()
-        ref = wgrad_accum_ref(a, g, acc)
+        check(got is out, "wgrad_accum did not return the accumulator it updated")
         err = float((out - ref).abs().max())
         tol = TOL[dt]
         torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
-        iters = 20 if h * f >= 2048 * 2048 else 100  # each call allocates its (H, F) output
+        # the plain version and the library call allocate an (H, F) output per
+        # call, and the CUDA graph's pool keeps each one: fewer calls when large
+        iters = 20 if h * f >= 2048 * 2048 else 100
+        kernel = lambda: wgrad_kernel.wgrad_accum_cuda(a, g, out)  # noqa: E731
         library = _library_wgrad(a, g, acc)
+        turns = [device_ms(fn, iters=iters) for fn in (kernel, library, library, kernel)]
         row = dict(
             max_abs_err=err,
-            ms=device_ms(lambda: wgrad_kernel.wgrad_accum_cuda(a, g, acc), iters=iters),
+            ms=(turns[0] + turns[3]) / 2,
+            library_ms=(turns[1] + turns[2]) / 2,
             plain_ms=device_ms(lambda: wgrad_accum_ref(a, g, acc), iters=iters),
-            library_ms=device_ms(library, iters=iters),
+            path=path, host_us=host_us(kernel),
         )
         row["bound_ms"], row["bound_by"] = wgrad_bound_ms(n_, h, f, dt)
         rows[label] = row
-        print(f"[kernels] wgrad_accum {label} N={n_} H={h} F={f} in={dt}: max_abs_err={err:.3g} "
-              f"(tol {tol}) device ms: kernel={row['ms']:.5f} plain={row['plain_ms']:.5f} "
-              f"library={row['library_ms']:.5f} [torch.addmm out_dtype=float32] bound={row['bound_ms']:.5f} "
-              f"({row['bound_by']}); kernel TFLOP/s={2 * n_ * h * f / row['ms'] / 1e9:.1f}")
-        del a, g, acc, out, ref
+        print(f"[kernels] wgrad_accum {label} N={n_} H={h} F={f} in={dt}: path={path} "
+              f"max_abs_err={err:.3g} (tol {tol}) device ms: kernel={row['ms']:.5f} "
+              f"library={row['library_ms']:.5f} [torch.addmm out_dtype=float32] "
+              f"(in turns kernel/library/library/kernel: "
+              f"{'/'.join(f'{t:.5f}' for t in turns)}) plain={row['plain_ms']:.5f} "
+              f"bound={row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%} of it); "
+              f"kernel TFLOP/s={2 * n_ * h * f / row['ms'] / 1e9:.1f}; "
+              f"wrapper host us per eager call={row['host_us']:.1f}")
+        del a, g, acc, out, got, ref, library
     torch.cuda.empty_cache()
     return rows
 
@@ -442,10 +484,11 @@ def _train_full(cfg, name: str, seq: int):
           f"(bf16 weights)")
     torch.cuda.reset_peak_memory_stats()
     wgrad_kernel.launches = 0
+    wgrad_kernel.launches_by_path.update({k: 0 for k in wgrad_kernel.PATHS})
     rms_kernel.launches = 0
     res = train(cfg, spec, step, stacked, shared, data, T_STEPS,
                 log=lambda s: print(f"[train] {name}: {s}"))
-    launches = (wgrad_kernel.launches, rms_kernel.launches)
+    launches = (wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return res, launches, peak_gb, (stacked, shared, spec, sched, step, data)
 
@@ -464,8 +507,11 @@ def phase_train(cfg):
             seq = 512
             res, launches, peak_gb, state = _train_full(cfg, name, seq)
         want = tuple(T_STEPS * n for n in expected_train_launches(cfg, T_P, T_M))
-        check(launches == want, f"{name}: (wgrad_accum, rmsnorm) launches {launches} != {want} "
-              f"implied by the port's structure")
+        check(launches[:2] == want, f"{name}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
+              f"{want} implied by the port's structure")
+        want_paths = {k: (want[0] if k == "wgmma" else 0) for k in wgrad_kernel.PATHS}
+        check(launches[2] == want_paths, f"{name}: wgrad_accum launches by path {launches[2]} != "
+              f"{want_paths}: every W op of the training step should take the wgmma path")
         for k, (loss, gn) in enumerate(zip(res.losses, res.grad_norms)):
             check(np.isfinite(loss) and np.isfinite(gn), f"{name} step {k}: non-finite loss/norm")
         med = float(np.median(res.step_s))
@@ -474,7 +520,8 @@ def phase_train(cfg):
               f"median={med * 1e3:.1f} all={[round(t * 1e3, 1) for t in res.step_s]} "
               f"tokens_per_s={tokens / med:.0f} max_memory_allocated_GB={peak_gb:.2f} "
               f"losses={res.losses} grad_norms={res.grad_norms} amended={res.amended} "
-              f"launches wgrad_accum={launches[0]} rmsnorm={launches[1]} (expected {want})")
+              f"launches wgrad_accum={launches[0]} {launches[2]} rmsnorm={launches[1]} "
+              f"(expected {want})")
         out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb)
         if name == "zb-h1":
             phase_profile_train(state)
@@ -643,7 +690,7 @@ def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 4):
         print(f"[profile] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
 
 
-def _kernel_row(name, source, replaces, launches, by_path, row):
+def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
     return {
         "name": name,
         "route": "cuda",
@@ -651,6 +698,7 @@ def _kernel_row(name, source, replaces, launches, by_path, row):
         "replaces": replaces,
         "launches": launches,
         "launches_by_path": by_path,
+        **extra,
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -684,16 +732,18 @@ def main() -> int:
     phase_train_checks(cfg_full, runs)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
-    wgrad_by_path = {f"train-{n}": r["launches"][0] for n, r in runs.items()}
-    rms_by_path = {"serve": serve_launches, **{f"train-{n}": r["launches"][1]
-                                               for n, r in runs.items()}}
+    wgrad_by_run = {f"train-{n}": r["launches"][0] for n, r in runs.items()}
+    wgrad_by_path = {k: sum(r["launches"][2][k] for r in runs.values())
+                     for k in wgrad_kernel.PATHS}
+    rms_by_run = {"serve": serve_launches, **{f"train-{n}": r["launches"][1]
+                                              for n, r in runs.items()}}
     print(json.dumps({"kernels": [
         _kernel_row("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-                    "src/repro/kernels/rmsnorm.py:29", sum(rms_by_path.values()), rms_by_path,
+                    "src/repro/kernels/rmsnorm.py:29", sum(rms_by_run.values()), rms_by_run,
                     rows["prefill"]),
         _kernel_row("wgrad_accum", "src/repro_torch/kernels/csrc/wgrad_accum.cu",
-                    "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_path.values()),
-                    wgrad_by_path, wrows["wu,wg"]),
+                    "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_run.values()),
+                    wgrad_by_run, wrows["wu,wg"], launches_by_kernel_path=wgrad_by_path),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -22,8 +22,9 @@ makes it with autograd and one deferred linear instead:
     reference's compact cut folds them (DESIGN.md Sec. 3 and 7).  The
     residual graph is freed there (``retain_graph=False``).
   * W reads only the W-context: one ``kernels.ops.wgrad_accum(a, g, acc)``
-    per deferred linear (the CUDA kernel on the card), plus the finished
-    cheap grads, all added into the caller's fp32 accumulator.
+    per deferred linear (the CUDA kernel on the card), which adds into that
+    weight's fp32 accumulator in place, plus the finished cheap grads, added
+    out of place.
 
 A module built with ``fuse_wgrad=False`` adds ``a^T @ g``, computed by
 ``torch.matmul`` in the weight's dtype, to the accumulator instead: the
@@ -60,7 +61,7 @@ class FBWModule:
         """Parameter gradients from the B pass's ``wctx`` alone; the F->B
         residuals are gone.  Returns ``acc + grads`` (``acc`` is a tree like
         params), the terminal products fused through the accumulation
-        kernel."""
+        kernel, which updates those leaves of ``acc`` in place."""
         raise NotImplementedError
 
 

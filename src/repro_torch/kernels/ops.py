@@ -6,8 +6,16 @@ CUDA tensor the kernel refuses raises.
 the kernel (on the card) and whose backward is plain PyTorch
 (``ref.rmsnorm_bwd_ref``, the JAX package's ``_rms_bwd``): only x and g are
 saved and inv-rms is recomputed.  The JAX package has no TPU kernel for that
-backward; a CUDA one is later work.  ``wgrad_accum`` is a W-pass op and needs
-no gradient.
+backward; a CUDA one is later work.
+
+``wgrad_accum`` is a W-pass op and needs no gradient.  It updates its
+accumulator in place and returns it, where the JAX reference returns a new
+array (and updates the donated buffer in place under ``jit``).  That is safe
+on the training path: the accumulators are fresh zeros made per step by
+``core/executor.py`` (one per block leaf), W is the only writer, nothing
+reads them before the step's gradients are returned, and
+``optim/postval.py``'s rollback and redo read only those returned
+gradients, never a W-pass intermediate.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import torch
 
 from . import rmsnorm as _rms
 from . import wgrad_accum as _wg
-from .ref import rmsnorm_bwd_ref, rmsnorm_ref, wgrad_accum_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 __all__ = ["rmsnorm", "wgrad_accum"]
 
@@ -50,10 +58,12 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 
 
 def wgrad_accum(a: torch.Tensor, g: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """a (N, H), g (N, F), acc (H, F) float32 -> acc + a^T @ g (new tensor)."""
+    """a (N, H), g (N, F), acc (H, F) float32: adds ``a^T @ g`` (summed in
+    fp32) into ``acc`` in place, in the reference's order ``acc + sum``, and
+    returns ``acc``."""
     if a.device.type == "cuda":
         return _wg.wgrad_accum_cuda(a, g, acc)  # checks its arguments itself
     _wg.check_args(a, g, acc)
     if a.device.type == "cpu":
-        return wgrad_accum_ref(a, g, acc)
+        return acc.add_(a.float().t() @ g.float())
     raise ValueError(f"wgrad_accum: no kernel for device {a.device}")

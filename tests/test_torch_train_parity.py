@@ -203,6 +203,44 @@ def test_chunk_split_matches_jax(p, stage, wgrad_calls):
     _close_trees(w_t, w_j, BLOCK_TOL)
 
 
+BLOCK_LINEARS = ("wq", "wk", "wv", "wo", "wu", "wg", "wd")
+
+
+def test_bwd_w_accumulates_block_linears_in_place(wgrad_calls):
+    """One W pass adds each block linear's gradient into its accumulator's own
+    storage (``ops.wgrad_accum`` updates in place): the returned leaf is the
+    accumulator passed in, at its old address, holding the JAX split's sum."""
+    from repro.core.schedules.ir import Placement as JaxPlacement
+
+    cfg_j, cfg_t = jax_get_reduced(ARCH), get_reduced(ARCH)
+    spec = jlm.RunSpec(p=1, n_chunks=1, microbatch=2, seq_len=16, m=1)
+    stacked_j, shared_j = jlm.init_params(cfg_j, spec, JaxPlacement.linear(1))
+    stacked_t, _ = params_from_numpy(_np(stacked_j), _np(shared_j), device="cpu")
+    params_j = jax.tree_util.tree_map(lambda a: a[0], stacked_j[0])
+    params_t = tree_map(lambda a: a[0], stacked_t[0])
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 16, cfg_t.d_model)).astype(np.float32)
+    dy = rng.standard_normal((2, 16, cfg_t.d_model)).astype(np.float32)
+    pos = np.arange(16)
+    jax_mod = jlm.ChunkFBW(cfg_j, 1, 1, jmod.ShardCtx(), name="c")
+    port_mod = tlm.ChunkFBW(cfg_t, 1, 1, tmod.ShardCtx(), name="c")
+    acc = _acc_like(params_j, 17)
+    (_, _, w_j), (_, _, wctx_t) = _split_both(
+        jax_mod, port_mod, params_j, params_t, x, dy, {"positions": jnp.asarray(pos)},
+        {"positions": torch.from_numpy(pos)}, acc)
+    acc_t = tree_map(lambda a: torch.from_numpy(np.array(a)), acc)
+    linears = [(blk, name) for kinds in acc_t["blocks"] for blk in kinds for name in blk
+               if name in BLOCK_LINEARS]
+    ptrs = [blk[name].data_ptr() for blk, name in linears]
+    w_t = port_mod.bwd_w(params_t, wctx_t, {"positions": torch.from_numpy(pos)}, acc=acc_t)
+    out = [blk[name] for kinds in w_t["blocks"] for blk in kinds for name in blk
+           if name in BLOCK_LINEARS]
+    assert len(out) == len(linears) == len(wgrad_calls) == 7 * len(port_mod.mods)
+    for (blk, name), ptr, leaf in zip(linears, ptrs, out):
+        assert leaf is blk[name] and leaf.data_ptr() == ptr, name
+    _close_trees(w_t, w_j, BLOCK_TOL)
+
+
 # --------------------------------------------------------------------- #
 # (b) one pipelined step: loss and gradients
 # --------------------------------------------------------------------- #

@@ -14,12 +14,15 @@ JAX package.
   in two blocks of 512; against a float64 product their errors are 1.6e-5
   and 6.8e-6), so the plain version -- which agrees with the oracle to
   4e-6 -- is held to the Pallas kernel at 2e-5 in float32.
-* The wrapper refuses what the CUDA kernel would refuse, on the CPU too.
+* ``ops.wgrad_accum`` adds into its accumulator in place and returns it.
+* The wrapper refuses what the CUDA kernel would refuse, on the CPU too, and
+  ``plan_launch`` picks the kernel path (wgmma / mma_sync / fma) by shape,
+  dtype and alignment, without a card.
 * The RMSNorm ``autograd.Function`` backward against the JAX ``_rms_bwd``
   and against ``jax.grad`` of ``modules.rmsnorm`` (f32, 1e-5: one rsqrt and
   a few sums in another order).
-* The CUDA kernel itself runs only on the card: the ``cuda``-marked case
-  skips here, and ``chip_smoke.py`` holds the kernel against the plain
+* The CUDA kernel itself runs only on the card: the ``cuda``-marked cases
+  skip here, and ``chip_smoke.py`` holds the kernel against the plain
   version on the H100 at the training path's shapes.
 """
 
@@ -88,11 +91,53 @@ def test_plain_wgrad_ragged_matches_jax(n, h, f, dtype):
                                rtol=tol, atol=tol)
 
 
-def test_wgrad_returns_a_new_tensor():
-    a, g, acc = (torch.ones(4, 3), torch.ones(4, 2), torch.zeros(3, 2))
-    out = ops.wgrad_accum(a, g, acc)
-    assert out.data_ptr() != acc.data_ptr() and float(acc.abs().sum()) == 0.0
-    torch.testing.assert_close(out, torch.full((3, 2), 4.0))
+def test_wgrad_accumulates_in_place():
+    a, g, acc = _inputs(64, 48, 96, "float32", seed=2)
+    acc_t = _t(acc)
+    ptr = acc_t.data_ptr()
+    out = ops.wgrad_accum(_t(a), _t(g), acc_t)
+    assert out is acc_t and out.data_ptr() == ptr
+    np.testing.assert_allclose(acc_t.numpy(), np.asarray(jax_wgrad_ref(a, g, acc), np.float32),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+@pytest.mark.parametrize(
+    "n,h,f,dtype,offsets,want",
+    [
+        # the four W products of the training step (N = 1024 tokens)
+        (1024, 2048, 2048, torch.bfloat16, (0, 0, 0), "wgmma"),  # wq, wo
+        (1024, 2048, 1024, torch.bfloat16, (0, 0, 0), "wgmma"),  # wk, wv
+        (1024, 2048, 8192, torch.bfloat16, (0, 0, 0), "wgmma"),  # wu, wg
+        (1024, 8192, 2048, torch.bfloat16, (0, 0, 0), "wgmma"),  # wd
+        (1000, 2048, 2048, torch.bfloat16, (0, 0, 0), "wgmma"),  # ragged N
+        (40, 200, 296, torch.bfloat16, (0, 0, 0), "wgmma"),  # ragged everywhere
+        (1000, 200, 300, torch.bfloat16, (0, 0, 0), "mma_sync"),  # F % 8 != 0
+        (1000, 204, 304, torch.bfloat16, (0, 0, 0), "mma_sync"),  # H % 8 != 0
+        (1024, 2048, 2048, torch.bfloat16, (2, 0, 0), "mma_sync"),  # a misaligned
+        (1024, 2048, 2048, torch.bfloat16, (0, 2, 0), "mma_sync"),  # g misaligned
+        (1024, 2048, 2048, torch.bfloat16, (0, 0, 4), "mma_sync"),  # acc misaligned
+        (1024, 2048, 2048, torch.float32, (0, 0, 0), "fma"),
+        (32, 48, 96, torch.float32, (4, 4, 4), "fma"),
+    ],
+)
+def test_plan_launch_picks_path_and_tile(n, h, f, dtype, offsets, want):
+    base = 1 << 20
+    ptrs = [base + o for o in offsets]
+    assert twg.plan_launch(n, h, f, dtype, *ptrs) == want
+
+
+def test_plan_launch_sees_a_misaligned_view():
+    a = torch.zeros(64 * 128 + 1, dtype=torch.bfloat16)[1:].view(64, 128)  # 2 bytes past a line
+    g, acc = torch.zeros(64, 256, dtype=torch.bfloat16), torch.zeros(128, 256)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    got = twg.plan_launch(64, 128, 256, a.dtype, a.data_ptr(), g.data_ptr(), acc.data_ptr())
+    assert got == "mma_sync"
+    ops.wgrad_accum(a, g, acc)  # the plain path takes it all the same
+
+
+def test_plan_launch_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        twg.plan_launch(8, 8, 8, torch.float16, 0, 0, 0)
 
 
 @pytest.mark.parametrize(
@@ -115,10 +160,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(a, g, acc, err):
 
 
 def test_kernel_launcher_never_takes_cpu_tensors():
-    before = twg.launches
+    before, by_path = twg.launches, dict(twg.launches_by_path)
     with pytest.raises(ValueError, match="CUDA"):
         twg.wgrad_accum_cuda(torch.zeros(4, 3), torch.zeros(4, 2), torch.zeros(3, 2))
-    assert twg.launches == before
+    assert twg.launches == before and twg.launches_by_path == by_path
 
 
 # --------------------------------------------------------------------- #
@@ -159,20 +204,35 @@ def test_rmsnorm_backward_keeps_dtypes():
 # the CUDA kernel (card only)
 # --------------------------------------------------------------------- #
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,f,dtype", [(1024, 2048, 2048, torch.bfloat16),
-                                         (1024, 2048, 8192, torch.bfloat16),
-                                         (32, 48, 96, torch.float32),
-                                         (77, 129, 257, torch.bfloat16)])
-def test_cuda_kernel_matches_plain(n, h, f, dtype):
+@pytest.mark.parametrize("n,h,f,dtype,path", [
+    (1024, 2048, 2048, torch.bfloat16, "wgmma"),
+    (1024, 2048, 1024, torch.bfloat16, "wgmma"),
+    (1024, 2048, 8192, torch.bfloat16, "wgmma"),
+    (1024, 8192, 2048, torch.bfloat16, "wgmma"),
+    (1000, 2048, 2048, torch.bfloat16, "wgmma"),  # N not a multiple of 64
+    (40, 200, 296, torch.bfloat16, "wgmma"),  # every edge ragged, TMA zero fill
+    (32, 48, 96, torch.float32, "fma"),
+    (77, 129, 257, torch.bfloat16, "mma_sync"),
+])
+def test_cuda_kernel_matches_plain(n, h, f, dtype, path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
     gen = torch.Generator(device="cuda").manual_seed(0)
     a = (torch.randn(n, h, generator=gen, device="cuda") * 0.5).to(dtype)
     g = (torch.randn(n, f, generator=gen, device="cuda") * 0.5).to(dtype)
     acc = torch.randn(h, f, generator=gen, device="cuda")
-    before = twg.launches
-    got = ops.wgrad_accum(a, g, acc)
+    want = wgrad_accum_ref(a, g, acc)
+    assert twg.plan_launch(n, h, f, dtype, a.data_ptr(), g.data_ptr(), acc.data_ptr()) == path
+    before, on_path = twg.launches, twg.launches_by_path[path]
+    clone = acc.clone()
+    got = ops.wgrad_accum(a, g, clone)  # in place, on a clone
     torch.cuda.synchronize()
-    assert twg.launches == before + 1
+    assert got is clone and twg.launches == before + 1
+    assert twg.launches_by_path[path] == on_path + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got, wgrad_accum_ref(a, g, acc), rtol=tol, atol=tol)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    ptr = acc.data_ptr()
+    ops.wgrad_accum(a, g, acc)  # in place, on the original
+    torch.cuda.synchronize()
+    assert acc.data_ptr() == ptr
+    torch.testing.assert_close(acc, want, rtol=tol, atol=tol)
