@@ -31,23 +31,34 @@ Phases, in order; any failed check raises and the exit code is not 0:
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
 8. train-reduced -- reduced internlm2 (float32), p=2, m=4: 3 training steps
-              (AdamW + post-validation) on cuda and on cpu; losses within
+              (AdamW + post-validation) on cuda and on cpu under zb-h1 and
+              under zb-v (two chunks on the V placement); losses within
               1e-5 relative, grad norms within 1e-4.
 9. train   -- internlm2-1.8b at full width and depth (bf16, random weights
               from a seed): 4 stages on the one card, 8 microbatches of
               1 x 1024 tokens from the synthetic stream, 3 steps each under
-              1f1b, zb-h1 and zb-h2: step time, tokens/s, peak memory,
-              losses, grad norms; both kernels' launch counts, read around
-              each schedule's run, equal the counts the structure implies,
-              and every wgrad_accum launch took the wgmma path.
+              all eight schedules of the launcher (1f1b, zb-h1, zb-h2,
+              zb-1p, zb-2p on one chunk a stage; zb-v, v-min, v-half on two,
+              with the seed-0 weights relaid layer by layer onto the V
+              placement, so every schedule starts from the same model):
+              step time, tokens/s, peak memory beside the plan's live
+              activation and W-context units, losses, grad norms; both
+              kernels' launch counts, read around each schedule's run, equal
+              the counts the structure implies, and every wgrad_accum launch
+              took the wgmma path.
 10. train-checks -- step-0 loss in the band of tests/test_arch_smoke.py and
-              identical across schedules, later losses within a stated
-              tolerance; the step-0 full-width gradient of the B/W-split
-              pipeline against plain torch.autograd through the same model.
-11. profile-train -- torch.profiler over one full-width zb-h1 step, run
-              right after that schedule's steps in phase 9: host spans of
-              the pipeline and the optimizer, device busy share, top
-              kernels, wgrad_accum's share of device time.
+              identical across all eight schedules, later losses within a
+              stated tolerance; the step-0 full-width gradient of the
+              B/W-split pipeline against plain torch.autograd through the
+              same model, and zb-v's step-0 gradient, relaid back, against
+              zb-h1's; then zb-h1 and zb-v once more, 3 steps each with
+              the clip off, where their losses and grad norms must agree
+              within the same tolerance.
+11. profile-train -- torch.profiler over one full-width step of zb-h1 and
+              one of zb-v, each run right after that schedule's steps in
+              phase 9: the plan's ticks and chunk ops, host spans of the
+              pipeline and the optimizer, device busy share, top kernels,
+              wgrad_accum's share of device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -73,6 +84,7 @@ from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core.executor import PipelineExecutor  # noqa: E402
 from repro_torch.core.schedules import compile_plan  # noqa: E402
 from repro_torch.core.schedules.ir import Placement  # noqa: E402
+from repro_torch.core.simulator import TimeModel, simulate  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
@@ -120,7 +132,8 @@ LINEARS_PER_KIND = {"attn": 4, "mlp": 3}
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq
 T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 3
-T_SCHEDULES = ("1f1b", "zb-h1", "zb-h2")
+T_SCHEDULES = ("1f1b", "zb-h1", "zb-h2", "zb-1p", "zb-2p", "zb-v", "v-min", "v-half")
+T_PROFILED = ("zb-h1", "zb-v")  # one chunk a stage, and two on the V placement
 T_MEM_LIMIT_GB = 75.0  # above this peak, the schedule runs again at seq 512
 # reduced cuda-vs-cpu training run
 TR_P, TR_M, TR_B, TR_SEQ, TR_STEPS = 2, 4, 2, 32, 3
@@ -133,7 +146,11 @@ WGRAD_MAIN = (("wq,wo", 2048, 2048), ("wk,wv", 2048, 1024), ("wu,wg", 2048, 8192
 # scale-invariant and the bf16 cast of the updated weights flips a few
 # hundred embedding entries by one ulp at most, which moves the loss by
 # ~1e-6 relative.  1e-4 relative leaves a wide margin for that and none for
-# a real difference between schedules.
+# a real difference between schedules.  Grad norms are held to it only with
+# the clip off: the clip scale is 1/sqrt of a sum of squares that each stage
+# adds over its own layers, so the V and the linear placements' scales differ
+# in their last bit, and the bf16 weights carry one f32 ulp of the scale to
+# ~1e-2 of the step-2 grad norm (tools/placement_gap.py; H100, 700 W)
 T_LATER_LOSS_RTOL = 1e-4
 DEV = "cuda"  # the device of the training phases
 # step-0 gradient, pipeline vs plain autograd (bf16): the plain path rounds
@@ -147,6 +164,14 @@ DEV = "cuda"  # the device of the training phases
 # leaf whose plain gradient is zero must be zero in the pipeline as well.
 T_GRAD_REL_L2 = 1e-2
 T_GRAD_WORST_LEAF = 1e-2
+# step-0 gradient, zb-v (two chunks, V placement) relaid back vs zb-h1 on the
+# same weights: every block runs the same kernels on the same inputs and each
+# (stage, chunk) accumulator sums its microbatches in the same order, so the
+# two agree bit for bit apart from the embedding gradient, whose index_add_
+# atomics sum colliding rows in no fixed order (fp32 rounding, ~1e-7
+# relative).  1e-5 on the worst leaf leaves room for that and for nothing a
+# misplaced layer or chunk would cause.
+T_V_GRAD_WORST_LEAF = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -442,46 +467,112 @@ def _to(tree, device):
 
 
 def phase_train_reduced(cfg):
-    """The reduced model's training steps on cuda against cpu (float32)."""
-    runs = {}
-    for device in ("cpu", DEV):
-        sched = make_schedule("zb-h1", TR_P, TR_M)
-        spec = RunSpec(p=TR_P, n_chunks=1, microbatch=TR_B, seq_len=TR_SEQ, m=TR_M)
-        step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement,
-                                   TrainStepConfig(adamw.AdamWConfig(lr=3e-3)))
-        stacked, shared = init_params(cfg, spec, sched.placement, seed=2, device="cpu")
-        data = SyntheticLM(DataConfig(global_batch=TR_M * TR_B, seq_len=TR_SEQ, vocab=cfg.vocab))
-        runs[device] = train(cfg, spec, step, _to(stacked, device), _to(shared, device), data,
-                             TR_STEPS)
-    cpu, gpu = runs["cpu"], runs[DEV]
-    l_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.losses, cpu.losses)]
-    g_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.grad_norms, cpu.grad_norms)]
-    print(f"[train-reduced] p={TR_P} m={TR_M} b={TR_B} seq={TR_SEQ} f32 zb-h1, {TR_STEPS} steps: "
-          f"losses cuda={gpu.losses} cpu={cpu.losses} rel_err={[f'{e:.3g}' for e in l_rel]} "
-          f"(tol 1e-5); grad_norm rel_err={[f'{e:.3g}' for e in g_rel]} (tol 1e-4)")
-    check(max(l_rel) <= 1e-5, "reduced training losses differ between cuda and cpu")
-    check(max(g_rel) <= 1e-4, "reduced training grad norms differ between cuda and cpu")
+    """The reduced model's training steps on cuda against cpu (float32),
+    under one chunk a stage (zb-h1) and two on the V placement (zb-v)."""
+    for name in ("zb-h1", "zb-v"):
+        runs = {}
+        for device in ("cpu", DEV):
+            sched = make_schedule(name, TR_P, TR_M)
+            spec = RunSpec(p=TR_P, n_chunks=sched.n_chunks, microbatch=TR_B, seq_len=TR_SEQ,
+                           m=TR_M)
+            step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement,
+                                       TrainStepConfig(adamw.AdamWConfig(lr=3e-3)))
+            stacked, shared = init_params(cfg, spec, sched.placement, seed=2, device="cpu")
+            data = SyntheticLM(DataConfig(global_batch=TR_M * TR_B, seq_len=TR_SEQ,
+                                          vocab=cfg.vocab))
+            runs[device] = train(cfg, spec, step, _to(stacked, device), _to(shared, device),
+                                 data, TR_STEPS)
+        cpu, gpu = runs["cpu"], runs[DEV]
+        l_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.losses, cpu.losses)]
+        g_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.grad_norms, cpu.grad_norms)]
+        print(f"[train-reduced] p={TR_P} m={TR_M} b={TR_B} seq={TR_SEQ} f32 {name} "
+              f"({sched.n_chunks} chunk(s) a stage), {TR_STEPS} steps: losses cuda={gpu.losses} "
+              f"cpu={cpu.losses} rel_err={[f'{e:.3g}' for e in l_rel]} (tol 1e-5); grad_norm "
+              f"rel_err={[f'{e:.3g}' for e in g_rel]} (tol 1e-4)")
+        check(max(l_rel) <= 1e-5, f"{name}: reduced training losses differ between cuda and cpu")
+        check(max(g_rel) <= 1e-4,
+              f"{name}: reduced training grad norms differ between cuda and cpu")
 
 
-def expected_train_launches(cfg, p, m):
+def expected_train_launches(cfg, p, n_chunks, m):
     """Per training step: (wgrad_accum, rmsnorm) launches the port's
     structure implies -- one wgrad per deferred linear per W op, one norm
-    per attn/mlp forward plus the sink's, per microbatch."""
-    blocks, _ = group_layout(cfg, p, 1)
-    wgrad = m * p * sum(LINEARS_PER_KIND[k] for kinds in blocks for k in kinds)
-    norms = m * (p * sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds) + 1)
+    per attn/mlp forward plus the sink's, per microbatch, over every
+    (stage, chunk) group."""
+    blocks, _ = group_layout(cfg, p, n_chunks)
+    groups = p * n_chunks
+    wgrad = m * groups * sum(LINEARS_PER_KIND[k] for kinds in blocks for k in kinds)
+    norms = m * (groups * sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds) + 1)
     return wgrad, norms
 
 
-def _train_full(cfg, name: str, seq: int):
+def _layer_map(cfg, placement):
+    """For each layer l of the model: ((stage, block) under one linear chunk
+    a stage, (chunk, stage, block) on ``placement``).  Depth position pos
+    holds layers pos*g .. pos*g + g - 1 and is chunk c's position k, with
+    (c, k) = divmod(pos, p), on stage placement.stage_of(c, k)."""
+    p, C = placement.p, placement.n_chunks
+    _, g_lin = group_layout(cfg, p, 1)
+    _, g = group_layout(cfg, p, C)
+    check(cfg.n_layers == g_lin * p == g * C * p,
+          f"{cfg.n_layers} layers do not fill {p} x 1 and {p} x {C} groups without padding")
+    out = []
+    for layer in range(cfg.n_layers):
+        c, k = divmod(layer // g, p)
+        out.append((divmod(layer, g_lin), (c, placement.stage_of(c, k), layer % g)))
+    return out
+
+
+def relay_to_placement(cfg, stacked_lin, placement):
+    """The linear placement's stacked parameters (one chunk a stage), laid
+    out for ``placement`` layer by layer: the same model, so every schedule
+    starts from the same weights."""
+    p, C = placement.p, placement.n_chunks
+    _, g = group_layout(cfg, p, C)
+    where = {(c, s, bi): lin for lin, (c, s, bi) in _layer_map(cfg, placement)}
+    lin_blocks = stacked_lin[0]["blocks"]
+    mask = stacked_lin[0]["mask"]
+    out = []
+    for c in range(C):
+        blocks = []
+        for bi in range(g):
+            per_stage = [tree_map(lambda a, st=where[(c, s, bi)][0]: a[st],
+                                  lin_blocks[where[(c, s, bi)][1]]) for s in range(p)]
+            blocks.append(tree_map(lambda *xs: torch.stack(xs), *per_stage))
+        out.append({"mask": torch.ones((p, g), dtype=mask.dtype, device=mask.device),
+                    "blocks": tuple(blocks)})
+    return tuple(out)
+
+
+def plan_units(sched, plan):
+    """The plan's memory in units of one stage's activations (M_B): live
+    residuals (act) and W-contexts (wctx) summed over stages and chunks at
+    the worst tick of their sum (a chunk's slot holds 1/C of a stage's
+    layers), and the paper's op-count profile summed over stages
+    (``memory_profile(M_B/C, M_W/C)``, M_W = M_B/2)."""
+    C = plan.n_chunks
+    act = plan.res_live.sum(axis=(0, 1)) / C
+    wctx = plan.wctx_live.sum(axis=(0, 1)) / C
+    t = int(np.argmax(act + wctx))
+    profile = float(sched.memory_profile(1.0 / C, 0.5 / C).peak.sum())
+    return float(act[t]), float(wctx[t]), profile
+
+
+def _train_full(cfg, name: str, seq: int, tcfg=None):
     sched = make_schedule(name, T_P, T_M)
-    spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
-    step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, TrainStepConfig())
-    stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
+    spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=seq, m=T_M)
+    plan = compile_plan(sched)
+    step, _ = build_train_step(cfg, spec, plan, sched.placement, tcfg or TrainStepConfig())
+    # every schedule starts from the seed-0 model of the linear placement
+    lin_spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
+    stacked, shared = init_params(cfg, lin_spec, Placement.linear(T_P), seed=0, device=DEV)
+    if sched.n_chunks != 1:
+        stacked = relay_to_placement(cfg, stacked, sched.placement)
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
     torch.cuda.synchronize()
-    print(f"[train] {name}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after init "
-          f"(bf16 weights)")
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[train] {name}: {base_gb:.2f} GB allocated after init (bf16 weights; "
+          f"{sched.n_chunks} chunk(s) a stage, {plan.n_ticks} ticks)")
     torch.cuda.reset_peak_memory_stats()
     wgrad_kernel.launches = 0
     wgrad_kernel.launches_by_path.update({k: 0 for k in wgrad_kernel.PATHS})
@@ -490,7 +581,7 @@ def _train_full(cfg, name: str, seq: int):
                 log=lambda s: print(f"[train] {name}: {s}"))
     launches = (wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    return res, launches, peak_gb, (stacked, shared, spec, sched, step, data)
+    return res, launches, peak_gb, base_gb, plan, (stacked, shared, spec, sched, step, data)
 
 
 def phase_train(cfg):
@@ -498,15 +589,16 @@ def phase_train(cfg):
     out = {}
     for name in T_SCHEDULES:
         seq = T_SEQ
-        res, launches, peak_gb, state = _train_full(cfg, name, seq)
+        res, launches, peak_gb, base_gb, plan, state = _train_full(cfg, name, seq)
         if peak_gb > T_MEM_LIMIT_GB:
             print(f"[train] {name}: peak {peak_gb:.1f} GB > {T_MEM_LIMIT_GB} GB at seq {seq}; "
                   f"running it again at seq 512")
             del state
             torch.cuda.empty_cache()
             seq = 512
-            res, launches, peak_gb, state = _train_full(cfg, name, seq)
-        want = tuple(T_STEPS * n for n in expected_train_launches(cfg, T_P, T_M))
+            res, launches, peak_gb, base_gb, plan, state = _train_full(cfg, name, seq)
+        sched = state[3]
+        want = tuple(T_STEPS * n for n in expected_train_launches(cfg, T_P, sched.n_chunks, T_M))
         check(launches[:2] == want, f"{name}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
               f"{want} implied by the port's structure")
         want_paths = {k: (want[0] if k == "wgmma" else 0) for k in wgrad_kernel.PATHS}
@@ -522,9 +614,16 @@ def phase_train(cfg):
               f"losses={res.losses} grad_norms={res.grad_norms} amended={res.amended} "
               f"launches wgrad_accum={launches[0]} {launches[2]} rmsnorm={launches[1]} "
               f"(expected {want})")
+        act, wctx, profile = plan_units(sched, plan)
+        bubble = simulate(sched, TimeModel.unit()).bubble_rate
+        print(f"[train] {name} memory: peak above the after-init base {peak_gb - base_gb:.2f} GB; "
+              f"plan at its worst tick: {act:g} activation + {wctx:g} W-context units = "
+              f"{act + wctx:g} (units of one stage's activations, summed over stages); op-count "
+              f"profile summed over stages {profile:g} M_B; {plan.n_ticks} ticks, simulated "
+              f"bubble rate {bubble:.4f} (unit times, several cards)")
         out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb)
-        if name == "zb-h1":
-            phase_profile_train(state)
+        if name in T_PROFILED:
+            phase_profile_train(name, plan, state)
         del state
         torch.cuda.empty_cache()
     return out
@@ -587,6 +686,7 @@ def phase_train_checks(cfg, runs):
     grad_fn = PipelineExecutor(build_program(cfg, spec, sched.placement),
                                compile_plan(sched)).build_grad_fn()
     g_pipe, sg_pipe, loss_pipe = grad_fn(stacked, shared, side)
+    _check_v_grads(cfg, stacked, shared, side, g_pipe, sg_pipe, loss_pipe)
     pipe = tree_leaves((g_pipe, sg_pipe))
     del g_pipe, sg_pipe
     plain_tree, loss_plain = _plain_grads(cfg, spec, stacked, shared, side)
@@ -607,8 +707,67 @@ def phase_train_checks(cfg, runs):
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(state):
-    """Device busy share of one full-width zb-h1 training step."""
+def phase_train_noclip(cfg, runs):
+    """zb-v against zb-h1 from the same weights with the clip off: the
+    placements' gap in the clipped runs of phase 9 must vanish here (see
+    T_LATER_LOSS_RTOL)."""
+    seq = runs["zb-h1"]["seq"]
+    if runs["zb-v"]["seq"] != seq:
+        print("[train-noclip] zb-h1 and zb-v ran at other seq lengths: no placement check")
+        return
+    noclip = {}
+    for name in ("zb-h1", "zb-v"):
+        tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(grad_clip=None))
+        res, *_, state = _train_full(cfg, name, seq, tcfg)
+        del state
+        torch.cuda.empty_cache()
+        noclip[name] = res
+
+    def gaps(a, b):
+        return ([abs(x - y) / abs(y) for x, y in zip(a.losses, b.losses)],
+                [abs(x - y) / abs(y) for x, y in zip(a.grad_norms, b.grad_norms)])
+
+    clip_l, clip_g = gaps(runs["zb-v"]["res"], runs["zb-h1"]["res"])
+    off_l, off_g = gaps(noclip["zb-v"], noclip["zb-h1"])
+    print(f"[train-noclip] zb-v vs zb-h1, relative gaps per step; clip 1.0 (phase 9): losses "
+          f"{[f'{e:.3g}' for e in clip_l]} grad norms {[f'{e:.3g}' for e in clip_g]}; clip off: "
+          f"losses {[f'{e:.3g}' for e in off_l]} grad norms {[f'{e:.3g}' for e in off_g]} "
+          f"(limit {T_LATER_LOSS_RTOL}); clip off grad norms zb-h1 {noclip['zb-h1'].grad_norms} "
+          f"zb-v {noclip['zb-v'].grad_norms}")
+    check(max(off_l + off_g) <= T_LATER_LOSS_RTOL, "with the clip off zb-v and zb-h1 still part")
+
+
+def _check_v_grads(cfg, stacked, shared, side, g_lin, sg_lin, loss_lin):
+    """zb-v's step-0 gradient (two chunks on the V placement, the same weights
+    relaid) against zb-h1's, layer by layer and on the shared leaves."""
+    sched = make_schedule("zb-v", T_P, T_M)
+    spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+    v_stacked = relay_to_placement(cfg, stacked, sched.placement)
+    grad_fn = PipelineExecutor(build_program(cfg, spec, sched.placement),
+                               compile_plan(sched)).build_grad_fn()
+    g_v, sg_v, loss_v = grad_fn(v_stacked, shared, side)
+    del v_stacked
+    layers = _layer_map(cfg, sched.placement)  # per layer: its block in either layout
+    v_layers = [tree_map(lambda a, s=s: a[s], g_v[c]["blocks"][bi]) for _, (c, s, bi) in layers]
+    lin_layers = [tree_map(lambda a, s=s: a[s], g_lin[0]["blocks"][bi]) for (s, bi), _ in layers]
+    got = tree_leaves((v_layers, sg_v))
+    want = tree_leaves((lin_layers, sg_lin))
+    check(len(got) == len(want), "zb-v and zb-h1 gradients have other structures")
+    rels = [float((a - b).double().norm()) / max(float(b.double().norm()), 1e-30)
+            for a, b in zip(got, want)]
+    exact = sum(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"[train-checks] step-0 gradient, zb-v (2 chunks, V placement, relaid weights) vs "
+          f"zb-h1: {exact} of {len(want)} leaves bit-identical, worst leaf rel_l2 "
+          f"{max(rels):.3g} (limit {T_V_GRAD_WORST_LEAF}); loss {float(loss_v)!r} vs "
+          f"{float(loss_lin)!r}")
+    check(float(loss_v) == float(loss_lin), "zb-v's step-0 loss differs from zb-h1's")
+    check(max(rels) <= T_V_GRAD_WORST_LEAF, "zb-v's step-0 gradient differs from zb-h1's")
+    del g_v, sg_v, got, want, v_layers, lin_layers
+    torch.cuda.empty_cache()
+
+
+def phase_profile_train(name, plan, state):
+    """Device busy share of one full-width training step under ``name``."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked, shared, spec, sched, step, data = state
@@ -624,7 +783,7 @@ def phase_profile_train(state):
     for e in prof.events():
         if e.name.startswith("train_step.") and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    print("[profile-train] host spans: " + ", ".join(
+    print(f"[profile-train] {name} host spans: " + ", ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in sorted(spans.items())))
     # the spans show up on the device timeline too, as annotations: not kernels
     iv = [x for x in _device_intervals(prof) if not x[2].startswith("train_step.")]
@@ -633,15 +792,16 @@ def phase_profile_train(state):
         return
     busy = _union_us(iv)
     by_name = {}
-    for s_, e_, name in iv:
-        by_name[name] = by_name.get(name, 0.0) + (e_ - s_)
+    for s_, e_, kernel in iv:
+        by_name[kernel] = by_name.get(kernel, 0.0) + (e_ - s_)
     total = sum(by_name.values())
-    wg = sum(us for name, us in by_name.items() if "wgrad" in name)
-    print(f"[profile-train] zb-h1 step: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} "
-          f"ms (idle share {1 - busy / wall_us:.3f}); wgrad_accum kernels {wg / 1e3:.1f} ms = "
-          f"{wg / total:.1%} of device time")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile-train] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
+    wg = sum(us for kernel, us in by_name.items() if "wgrad" in kernel)
+    print(f"[profile-train] {name} step ({plan.n_ticks} ticks, {plan.total_ops} chunk ops of "
+          f"{plan.n_chunks} chunk(s) a stage): wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f}); wgrad_accum kernels "
+          f"{wg / 1e3:.1f} ms = {wg / total:.1%} of device time")
+    for kernel, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile-train] {us / total:6.1%} {us / 1e3:9.2f} ms  {kernel[:100]}")
 
 
 def _device_intervals(prof):
@@ -730,6 +890,7 @@ def main() -> int:
     phase_train_reduced(cfg_red)
     runs = phase_train(cfg_full)
     phase_train_checks(cfg_full, runs)
+    phase_train_noclip(cfg_full, runs)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     wgrad_by_run = {f"train-{n}": r["launches"][0] for n, r in runs.items()}

@@ -1,9 +1,11 @@
 """Ticked pipeline executor of the port: one device holds all p stages.
 
 Counterpart of ``src/repro/core/executor.py``.  It runs any
-:class:`~repro_torch.core.schedules.ir.ExecutionPlan` -- 1F1B, ZB-H1, ZB-H2 --
-and, since it follows the tables generically (chunk ids, local sends, all
-four channels), V-shaped ones once their builders are ported.  The JAX
+:class:`~repro_torch.core.schedules.ir.ExecutionPlan` -- one chunk a stage
+(1F1B, ZB-H1/H2, ZB-1p/2p) or two on the V placement (ZB-V, V-Min,
+V-Half: the last stage hands chunk 0's output to its own chunk 1 and the
+gradient back by a local send) -- since it follows the tables generically
+(chunk ids, per-chunk inboxes, local sends, all four channels).  The JAX
 version is one SPMD program under ``shard_map`` with collective permutes;
 this one is re-designed for one device:
 

@@ -29,6 +29,7 @@ __all__ = [
     "Placement",
     "Schedule",
     "ExecutionPlan",
+    "MemoryProfile",
     "compile_plan",
     "CHANNEL_FWD_UP",
     "CHANNEL_FWD_DOWN",
@@ -127,6 +128,22 @@ class Placement:
         return None
 
 
+@dataclasses.dataclass
+class MemoryProfile:
+    """Peak activation memory per stage in units of (M_B, M_W).
+
+    Deltas per the paper's Appendix G: F:+M_B, B:+M_W-M_B, W:-M_W.
+    """
+
+    peak: np.ndarray  # (p,) floats, in units given by m_b/m_w
+    m_b: float
+    m_w: float
+
+    @property
+    def max_peak(self) -> float:
+        return float(self.peak.max())
+
+
 class Schedule:
     """An ordered per-stage program of F/B/W passes."""
 
@@ -219,6 +236,19 @@ class Schedule:
     def validate(self) -> None:
         """Raise if the schedule deadlocks (unsatisfiable dependency order)."""
         self.to_ticks()  # raises on deadlock
+
+    # ------------------------------------------------------------------ #
+    # memory profile (paper Sec 2.3)
+    # ------------------------------------------------------------------ #
+    def memory_profile(self, m_b: float = 1.0, m_w: float = 0.5) -> MemoryProfile:
+        delta = {OpKind.F: m_b, OpKind.B: m_w - m_b, OpKind.W: -m_w}
+        peak = np.zeros(self.p)
+        for s, ops in enumerate(self.stage_ops):
+            cur = 0.0
+            for op in ops:
+                cur += delta[op.kind]
+                peak[s] = max(peak[s], cur)
+        return MemoryProfile(peak=peak, m_b=m_b, m_w=m_w)
 
     # ------------------------------------------------------------------ #
     # tick compilation

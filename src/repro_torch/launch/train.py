@@ -6,11 +6,11 @@
 All p stages sit on one device.  Runs on the CUDA card by default and raises
 when there is none; it never carries on on the CPU unless ``--device cpu``
 asks for it.  Weights are random, drawn from ``--seed``; batches come from the
-seeded synthetic stream (``data.SyntheticLM``).  Ported schedules: 1f1b,
-zb-h1, zb-h2; every other schedule of the JAX launcher raises
-``NotImplementedError``.  Checkpointing, the fault-tolerant driver, the
-executor modes and the memory-budget planner of the JAX launcher are not
-ported yet.
+seeded synthetic stream (``data.SyntheticLM``).  Schedules: every one the JAX
+launcher accepts -- 1f1b, zb-h1, zb-h2, zb-v, v-min, v-half, zb-1p, zb-2p; the
+V-shaped ones (zb-v, v-min, v-half) run two chunks a stage.  Checkpointing,
+the fault-tolerant driver, the executor modes and the memory-budget planner
+of the JAX launcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +24,17 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_reduced
-from ..core.schedules import compile_plan, one_f_one_b, zb_h1, zb_h2
+from ..core.schedules import (
+    compile_plan,
+    one_f_one_b,
+    v_half,
+    v_min,
+    zb_1p,
+    zb_2p,
+    zb_h1,
+    zb_h2,
+    zb_v,
+)
 from ..data import DataConfig, SyntheticLM
 from ..models.lm import ArchConfig, RunSpec, init_params
 from ..optim import adamw
@@ -33,15 +43,19 @@ from .steps import TrainStepConfig, build_train_step
 
 __all__ = ["SCHEDULES", "TrainResult", "build_everything", "side_from_batch", "train", "main"]
 
-SCHEDULES = {"1f1b": one_f_one_b, "zb-h1": zb_h1, "zb-h2": zb_h2}
-# schedules of the JAX launcher that the port does not carry yet
-UNPORTED_SCHEDULES = ("zb-v", "v-min", "v-half", "zb-1p", "zb-2p")
+SCHEDULES = {
+    "1f1b": one_f_one_b,
+    "zb-h1": zb_h1,
+    "zb-h2": zb_h2,
+    "zb-v": zb_v,
+    "v-min": v_min,
+    "v-half": v_half,
+    "zb-1p": zb_1p,
+    "zb-2p": zb_2p,
+}
 
 
 def make_schedule(name: str, p: int, m: int):
-    if name in UNPORTED_SCHEDULES:
-        raise NotImplementedError(f"schedule {name!r} is not ported to repro_torch yet "
-                                  f"(ported: {sorted(SCHEDULES)})")
     if name not in SCHEDULES:
         raise ValueError(f"unknown schedule {name!r}")
     return SCHEDULES[name](p, m)
@@ -110,8 +124,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     ap.add_argument("--arch", default="internlm2_1_8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--pipe-size", type=int, default=4)
-    ap.add_argument("--schedule", default="zb-h2",
-                    choices=sorted(SCHEDULES) + list(UNPORTED_SCHEDULES))
+    ap.add_argument("--schedule", default="zb-h2", choices=sorted(SCHEDULES))
     ap.add_argument("--microbatch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--m", type=int, default=8)

@@ -1,8 +1,11 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro``, and the serving and training
+neither ``jax`` nor the JAX package ``repro``, the serving and training
 entry points do not carry on on the CPU when the card they ask for is
-missing."""
+missing, and the training launcher takes every schedule of the JAX
+launcher when the CPU is asked for."""
 
+import functools
+import math
 import os
 import pathlib
 import re
@@ -64,9 +67,29 @@ def test_train_default_device_raises_without_cuda(monkeypatch):
         train.main(["--reduced", "--pipe-size", "1", "--m", "1", "--steps", "1"])
 
 
-@pytest.mark.parametrize("schedule", ["zb-v", "v-min", "v-half", "zb-1p", "zb-2p"])
-def test_train_unported_schedules_raise(schedule):
+def _cpu_train(schedule):
+    """Losses of the launcher's reduced CPU run (2 stages, 4 microbatches)."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match=schedule):
-        train.main(["--reduced", "--device", "cpu", "--schedule", schedule, "--steps", "1"])
+    res = train.main(["--reduced", "--device", "cpu", "--pipe-size", "2", "--m", "4",
+                      "--seq-len", "16", "--steps", "3", "--schedule", schedule])
+    return tuple(res.losses)
+
+
+_baseline_losses = functools.lru_cache(maxsize=None)(_cpu_train)
+
+
+@pytest.mark.parametrize("schedule,same_as", [("zb-v", None), ("v-min", "zb-v"),
+                                              ("v-half", "zb-v"), ("zb-1p", "1f1b"),
+                                              ("zb-2p", "1f1b")])
+def test_train_runs_the_v_and_auto_schedules(schedule, same_as, capsys):
+    """The launcher takes every schedule the JAX launcher takes: finite,
+    decreasing losses, equal bit for bit to those of another schedule of the
+    same placement (the same weights; each (stage, chunk) sums its
+    microbatches in the same order under every schedule)."""
+    losses = _cpu_train(schedule)
+    assert f"schedule={schedule}" in capsys.readouterr().out
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]
+    if same_as is not None:
+        assert losses == _baseline_losses(same_as)

@@ -10,13 +10,21 @@ numpy ``SyntheticLM`` both packages share.
     dx and W's gradients into an fp32 accumulator against the JAX split
     (``auto_fbw`` / ``ChunkFBW``); W makes exactly 7 ``wgrad_accum`` calls
     per attn+mlp block and B makes none.
-(b) loss and gradients of one pipelined step at p in {1, 2, 4} under 1F1B,
-    ZB-H1 and ZB-H2.  Reference: the JAX ``PipelineExecutor`` under a
-    one-device ``shard_map`` at p=1; ``jax.value_and_grad`` of the
-    stage-by-stage ``make_chunk_fn`` + sink at p > 1 (a p-device mesh needs
+(b) loss and gradients of one pipelined step at p in {1, 2, 4} under every
+    schedule of the launcher: 1F1B, ZB-H1, ZB-H2 at the stock reduced depth;
+    ZB-V, V-Min, V-Half (two chunks on the V placement), ZB-1p and ZB-2p at
+    ``n_layers = 2p`` (no padded group); ZB-V once more at the stock depth,
+    padded groups included.  Parameters come from the JAX ``init_params`` on
+    the schedule's placement.  Reference: the JAX ``PipelineExecutor`` under
+    a one-device ``shard_map`` at p=1; at p > 1, ``jax.value_and_grad`` of
+    ``make_chunk_fn`` + sink walking the groups in depth order (position
+    ``c*p + k`` on stage ``placement.stage_of(c, k)``; a p-device mesh needs
     fake devices set before JAX starts).
-(c) a 4-step loss trajectory of ``build_train_step`` (AdamW + post-validation)
-    against the JAX ``build_train_step`` at p=1 on a one-device mesh.
+(c) 4-step loss trajectories of ``build_train_step`` (AdamW +
+    post-validation) against the JAX ``build_train_step`` at p=1 on a
+    one-device mesh, under ZB-H1 and under ZB-V (two chunks); and at p in
+    {2, 4}, ZB-V from the linear weights relaid by layer (``chip_smoke.py``'s
+    helper) against ZB-H1 on the same model, in f32 and in bf16.
 (d) a clip-triggering step: ``amended`` is set and the parameters match the
     synchronous ``sync_step`` semantics (JAX at p=1; the port's own ``sync``
     mode at p=2, where stage 0 steps optimistically and must roll back).
@@ -30,6 +38,8 @@ through three AdamW updates of lr 3e-3).
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 
 import pytest
 
@@ -46,8 +56,13 @@ from repro.core.executor import PipelineExecutor as JaxPipelineExecutor  # noqa:
 from repro.core.passes import auto_fbw  # noqa: E402
 from repro.core.schedules import compile_plan as jax_compile_plan  # noqa: E402
 from repro.core.schedules import one_f_one_b as jax_1f1b  # noqa: E402
+from repro.core.schedules import v_half as jax_v_half  # noqa: E402
+from repro.core.schedules import v_min as jax_v_min  # noqa: E402
+from repro.core.schedules import zb_1p as jax_zb_1p  # noqa: E402
+from repro.core.schedules import zb_2p as jax_zb_2p  # noqa: E402
 from repro.core.schedules import zb_h1 as jax_zb_h1  # noqa: E402
 from repro.core.schedules import zb_h2 as jax_zb_h2  # noqa: E402
+from repro.core.schedules import zb_v as jax_zb_v  # noqa: E402
 from repro.launch.mesh import AxisBinding  # noqa: E402
 from repro.launch.steps import TrainStepConfig as JaxTrainStepConfig  # noqa: E402
 from repro.launch.steps import build_train_step as jax_build_train_step  # noqa: E402
@@ -59,11 +74,13 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.core.executor import PipelineExecutor  # noqa: E402
 from repro_torch.core.passes import autograd_fbw  # noqa: E402
 from repro_torch.core.schedules import compile_plan, one_f_one_b, zb_h1, zb_h2  # noqa: E402
+from repro_torch.core.schedules import v_half, v_min, zb_1p, zb_2p, zb_v  # noqa: E402
+from repro_torch.core.schedules.ir import Placement  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.interop import params_from_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
-from repro_torch.launch.train import side_from_batch  # noqa: E402
+from repro_torch.launch.train import make_schedule, side_from_batch  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import modules as tmod  # noqa: E402
 from repro_torch.optim import adamw, postval  # noqa: E402
@@ -75,7 +92,16 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 TRAJ_RTOL = 1e-5
 SCHEDULES = {"1f1b": (one_f_one_b, jax_1f1b), "zb-h1": (zb_h1, jax_zb_h1),
-             "zb-h2": (zb_h2, jax_zb_h2)}
+             "zb-h2": (zb_h2, jax_zb_h2), "zb-v": (zb_v, jax_zb_v), "v-min": (v_min, jax_v_min),
+             "v-half": (v_half, jax_v_half), "zb-1p": (zb_1p, jax_zb_1p),
+             "zb-2p": (zb_2p, jax_zb_2p)}
+# (schedule, p, n_layers): None keeps the stock reduced depth (2 layers, so
+# p=4 pads two stages, and the V placement at p >= 2 pads groups too)
+STEP_CASES = (
+    [(n, p, None) for n in ("1f1b", "zb-h1", "zb-h2") for p in (1, 2, 4)]
+    + [(n, p, 2 * p) for n in ("zb-v", "v-min", "v-half", "zb-1p", "zb-2p") for p in (1, 2, 4)]
+    + [("zb-v", 2, None)]
+)
 
 
 def _np(tree):
@@ -244,15 +270,23 @@ def test_bwd_w_accumulates_block_linears_in_place(wgrad_calls):
 # --------------------------------------------------------------------- #
 # (b) one pipelined step: loss and gradients
 # --------------------------------------------------------------------- #
-def _setup(p, m, b=2, s=16, seed=0):
+def _setup(p, m, b=2, s=16, seed=0, placement=None, n_layers=None):
+    """Both packages' config, spec, JAX-initialised parameters on
+    ``placement`` (the JAX one; linear by default) and numpy side inputs;
+    ``n_layers`` replaces the reduced depth in both packages."""
     from repro.core.schedules.ir import Placement as JaxPlacement
 
+    placement = placement or JaxPlacement.linear(p)
     cfg_j, cfg_t = jax_get_reduced(ARCH), get_reduced(ARCH)
-    spec_j = jlm.RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=s, m=m)
-    stacked_j, shared_j = jlm.init_params(cfg_j, spec_j, JaxPlacement.linear(p),
+    if n_layers is not None:
+        cfg_j = dataclasses.replace(cfg_j, n_layers=n_layers)
+        cfg_t = dataclasses.replace(cfg_t, n_layers=n_layers)
+    C = placement.n_chunks
+    spec_j = jlm.RunSpec(p=p, n_chunks=C, microbatch=b, seq_len=s, m=m)
+    stacked_j, shared_j = jlm.init_params(cfg_j, spec_j, placement,
                                           key=jax.random.PRNGKey(seed))
     stacked_t, shared_t = params_from_numpy(_np(stacked_j), _np(shared_j), device="cpu")
-    spec_t = tlm.RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=s, m=m)
+    spec_t = tlm.RunSpec(p=p, n_chunks=C, microbatch=b, seq_len=s, m=m)
     side_np = tlm.side_inputs(cfg_t, spec_t, seed=seed + 100)  # numpy: fed to both packages
     side_j = {k: jnp.asarray(v, jnp.int32) for k, v in side_np.items()}
     side_t = {k: torch.as_tensor(v, dtype=torch.long) for k, v in side_np.items()}
@@ -281,13 +315,15 @@ def _jax_executor_grads(cfg, spec, jax_sched, stacked, shared, side):
 _BY_STAGE_CACHE = {}
 
 
-def _jax_by_stage_grads(cfg, spec, stacked, shared, side):
-    """p>1: jax.value_and_grad of the stages applied one after another."""
-    key = (spec.p, spec.m)
+def _jax_by_stage_grads(cfg, spec, placement, stacked, shared, side):
+    """p>1: jax.value_and_grad of the groups applied in depth order: position
+    ``pos = c*p + k`` is chunk c's group on stage ``placement.stage_of(c, k)``
+    (for one linear chunk, the stages one after another)."""
+    key = (spec.p, spec.m, placement.stage_seq, cfg.n_layers)
     if key in _BY_STAGE_CACHE:
         return _BY_STAGE_CACHE[key]
     ctx = jmod.ShardCtx()
-    chunk_fn, _, _ = jlm.make_chunk_fn(cfg, spec.p, 1, ctx)
+    chunk_fn, _, _ = jlm.make_chunk_fn(cfg, spec.p, spec.n_chunks, ctx)
     src_fwd, _ = jlm.make_src(cfg, ctx)
     sink_fn = jlm.make_sink_fn(cfg, ctx, spec.m)
 
@@ -296,8 +332,10 @@ def _jax_by_stage_grads(cfg, spec, stacked, shared, side):
         for j in range(spec.m):
             side_j = jax.tree_util.tree_map(lambda a: a[j], side)
             x = src_fwd(shared, side_j)
-            for st in range(spec.p):
-                x = chunk_fn(jax.tree_util.tree_map(lambda a: a[st], stacked[0]), x, side_j)
+            for pos in range(spec.n_chunks * spec.p):
+                c, k = divmod(pos, spec.p)
+                st = placement.stage_of(c, k)
+                x = chunk_fn(jax.tree_util.tree_map(lambda a: a[st], stacked[c]), x, side_j)
             loss = loss + sink_fn(shared, x, side_j)
         return loss
 
@@ -308,16 +346,21 @@ def _jax_by_stage_grads(cfg, spec, stacked, shared, side):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(SCHEDULES))
-@pytest.mark.parametrize("p", [1, 2, 4])
-def test_pipelined_step_matches_jax(p, name):
+@pytest.mark.parametrize(
+    "name,p,n_layers", STEP_CASES,
+    ids=[f"{p}-{n}" + ("" if nl is None else f"-{nl}L") for n, p, nl in STEP_CASES])
+def test_pipelined_step_matches_jax(name, p, n_layers):
     m = 4
-    cfg_j, cfg_t, spec_j, spec_t, (st_j, sh_j, side_j), (st_t, sh_t, side_t) = _setup(p, m)
     port_sched, jax_sched = SCHEDULES[name][0](p, m), SCHEDULES[name][1](p, m)
+    cfg_j, cfg_t, spec_j, spec_t, (st_j, sh_j, side_j), (st_t, sh_t, side_t) = _setup(
+        p, m, placement=jax_sched.placement, n_layers=n_layers)
+    assert port_sched.placement.stage_seq == jax_sched.placement.stage_seq
+    assert len(st_t) == port_sched.n_chunks
     if p == 1:
         g_j, sg_j, loss_j = _jax_executor_grads(cfg_j, spec_j, jax_sched, st_j, sh_j, side_j)
     else:
-        g_j, sg_j, loss_j = _jax_by_stage_grads(cfg_j, spec_j, st_j, sh_j, side_j)
+        g_j, sg_j, loss_j = _jax_by_stage_grads(cfg_j, spec_j, jax_sched.placement, st_j, sh_j,
+                                                side_j)
     program = tlm.build_program(cfg_t, spec_t, port_sched.placement)
     grad_fn = PipelineExecutor(program, compile_plan(port_sched)).build_grad_fn()
     g_t, sg_t, loss_t = grad_fn(st_t, sh_t, side_t)
@@ -344,14 +387,12 @@ def test_wgrad_launches_per_step(wgrad_calls):
 # --------------------------------------------------------------------- #
 # (c) 4-step trajectory of the whole training step; (d) clipping
 # --------------------------------------------------------------------- #
-def _jax_train(cfg, spec, stacked, shared, batches, acfg, postval_mode):
-    from repro.core.schedules.ir import Placement as JaxPlacement
-
-    sched = jax_zb_h1(1, spec.m)
+def _jax_train(cfg, spec, stacked, shared, batches, acfg, postval_mode, sched=None):
+    sched = sched or jax_zb_h1(1, spec.m)
     mesh = jax.make_mesh((1,), ("data",))
     binding = AxisBinding(pipe="data", tp=None, dp=None)
     tcfg = JaxTrainStepConfig(adamw=acfg, postval_mode=postval_mode, donate=False)
-    make, _ = jax_build_train_step(cfg, spec, jax_compile_plan(sched), JaxPlacement.linear(1),
+    make, _ = jax_build_train_step(cfg, spec, jax_compile_plan(sched), sched.placement,
                                    mesh, binding, tcfg)
     zeros = lambda t: jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, jnp.float32), t)  # noqa
     opt = jadamw.AdamWState(t=jnp.zeros((), jnp.int32), m=zeros(stacked), v=zeros(stacked))
@@ -388,12 +429,14 @@ def _batches(cfg, spec, n):
     return [data.batch_at(k) for k in range(n)]
 
 
-def test_train_trajectory_matches_jax():
-    cfg_j, cfg_t, spec_j, spec_t, (st_j, sh_j, _), (st_t, sh_t, _) = _setup(1, 4, s=32)
+def _check_trajectory(name):
+    port_sched, jax_sched = SCHEDULES[name][0](1, 4), SCHEDULES[name][1](1, 4)
+    cfg_j, cfg_t, spec_j, spec_t, (st_j, sh_j, _), (st_t, sh_t, _) = _setup(
+        1, 4, s=32, placement=jax_sched.placement)
     batches = _batches(cfg_t, spec_t, 4)
     acfg_j, acfg_t = jadamw.AdamWConfig(lr=3e-3), adamw.AdamWConfig(lr=3e-3)
-    ref, _ = _jax_train(cfg_j, spec_j, st_j, sh_j, batches, acfg_j, "within_step")
-    got, _ = _port_train(cfg_t, spec_t, zb_h1(1, 4), st_t, sh_t, batches, acfg_t, "within_step")
+    ref, _ = _jax_train(cfg_j, spec_j, st_j, sh_j, batches, acfg_j, "within_step", jax_sched)
+    got, _ = _port_train(cfg_t, spec_t, port_sched, st_t, sh_t, batches, acfg_t, "within_step")
     losses_j = [float(r["loss"]) for r in ref]
     losses_t = [float(g["loss"]) for g in got]
     np.testing.assert_allclose(losses_t, losses_j, rtol=TRAJ_RTOL, atol=0)
@@ -401,6 +444,100 @@ def test_train_trajectory_matches_jax():
                                [float(r["grad_norm"]) for r in ref], rtol=GRAD_TOL)
     assert [bool(g["amended"]) for g in got] == [bool(r["amended"]) for r in ref]
     assert losses_t[-1] < losses_t[0]
+
+
+def test_train_trajectory_matches_jax():
+    _check_trajectory("zb-h1")
+
+
+def test_zbv_train_trajectory_matches_jax():
+    """Two chunks on the V placement (p=1: chunk 0's output is handed to
+    chunk 1 on the same stage), through AdamW and post-validation."""
+    _check_trajectory("zb-v")
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its ``relay_to_placement`` lays the
+    linear placement's weights onto the V placement for the card's run."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _placement_run(p, name, dtype, postval_mode, steps=4, m=8, decisions=None):
+    """``steps`` AdamW + post-validation steps (clip 1.0, lr 3e-3) of the
+    reduced model with ``n_layers = 2p`` under ``name``, from the seed-0
+    weights of the linear placement (relaid by layer onto the V placement);
+    returns [(loss, grad_norm)] per step.  ``decisions``, if given, gets an
+    empty list at the start of each step for the caller's hook to fill."""
+    cfg = dataclasses.replace(get_reduced(ARCH), n_layers=2 * p, dtype=dtype)
+    sched = make_schedule(name, p, m)
+    spec = tlm.RunSpec(p=p, n_chunks=sched.n_chunks, microbatch=2, seq_len=32, m=m)
+    lin_spec = tlm.RunSpec(p=p, n_chunks=1, microbatch=2, seq_len=32, m=m)
+    stacked, shared = tlm.init_params(cfg, lin_spec, Placement.linear(p), seed=0)
+    if sched.n_chunks != 1:
+        stacked = _chip_smoke().relay_to_placement(cfg, stacked, sched.placement)
+    tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=3e-3, grad_clip=1.0),
+                           postval_mode=postval_mode)
+    step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, tcfg)
+    opt, sopt = adamw.init(stacked), adamw.init(shared)
+    out = []
+    for batch in _batches(cfg, spec, steps):
+        if decisions is not None:
+            decisions.append([])
+        side = side_from_batch(batch, spec, "cpu")
+        stacked, shared, opt, sopt, met = step(stacked, shared, opt, sopt, side)
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    return out
+
+
+@pytest.mark.parametrize("postval_mode,dtype,p", [
+    ("within_step", "float32", 2), ("within_step", "float32", 4),
+    ("sync", "bfloat16", 2), ("sync", "bfloat16", 4)])
+def test_v_placement_trains_like_the_linear_one(postval_mode, dtype, p):
+    """The same model on two placements trains alike at p > 1: zb-v from the
+    linear weights relaid by layer against zb-h1, through clipping, AdamW and
+    post-validation.  Only the order in which the gradient's squares are
+    summed differs (a stage holds other layers), so the trajectories agree to
+    rounding.  In bf16 a sum that differs in its last bit moves the clip
+    scale by one ulp, which the weights' rounding amplifies (on the
+    full-width model, ``tools/placement_gap.py``); here the sums agree, and
+    bf16 runs synchronously: see
+    ``test_v_placement_bf16_gap_comes_from_rollback`` for the speculative mode."""
+    lin = _placement_run(p, "zb-h1", dtype, postval_mode)
+    v = _placement_run(p, "zb-v", dtype, postval_mode)
+    np.testing.assert_allclose(np.array(v), np.array(lin), rtol=TRAJ_RTOL, atol=0)
+
+
+def test_v_placement_bf16_gap_comes_from_rollback(monkeypatch):
+    """With bf16 weights and speculative post-validation the two placements
+    part after the step where stage 0's optimistic decision differs between
+    them: its prefix of the gradient norm covers other layers (layers 0-1
+    under the linear placement, 0 and 3 under the V), so one placement steps
+    and rolls back where the other waits, and the rollback is exact only up
+    to bf16 rounding.  Up to that step and under sync the steps are equal."""
+    decisions = []
+
+    def record(partial, cfg):
+        dec = decide_partial(partial, cfg)
+        decisions[-1].append(dec.applied)
+        return dec
+
+    decide_partial = postval.decide_partial
+    monkeypatch.setattr(postval, "decide_partial", record)
+    runs = {}
+    for name in ("zb-h1", "zb-v"):
+        decisions.clear()
+        losses = _placement_run(2, name, "bfloat16", "within_step", steps=5,
+                                decisions=decisions)
+        runs[name] = (losses, [list(d) for d in decisions])
+    (lin, dec_lin), (v, dec_v) = runs["zb-h1"], runs["zb-v"]
+    first_split = next(k for k in range(5) if dec_lin[k] != dec_v[k])
+    assert v[:first_split + 1] == lin[:first_split + 1]
+    assert v[first_split + 1:] != lin[first_split + 1:]
+    np.testing.assert_allclose(np.array(v)[:, 0], np.array(lin)[:, 0], rtol=1e-4, atol=0)
 
 
 def test_clipped_step_matches_jax_sync():
@@ -534,6 +671,76 @@ def test_executor_refuses_a_plan_of_other_chunks():
     program.chunks = list(program.chunks) * 2
     with pytest.raises(ValueError, match="chunks"):
         PipelineExecutor(program, compile_plan(zb_h1(2, 2)))
+
+
+def _v_setup(p, m, n_layers=None):
+    from repro.core.schedules.ir import Placement as JaxPlacement
+
+    _, cfg_t, _, spec_t, _, (st_t, sh_t, side_t) = _setup(
+        p, m, placement=JaxPlacement.vshape(p), n_layers=n_layers)
+    return cfg_t, spec_t, st_t, sh_t, side_t
+
+
+def test_v_plan_turns_locally_and_the_executor_follows_it():
+    """Under ZB-V the last stage hands chunk 0's output to its own chunk 1
+    (an activation) and chunk 1's input gradient to its own chunk 0 (a
+    gradient) without a channel; a plan that files the turn under the wrong
+    chunk's inbox makes the executor raise instead of computing."""
+    p, m = 2, 3
+    sched = zb_v(p, m)
+    plan = compile_plan(sched)
+    turn = p - 1
+    fwd = [t for t in range(plan.n_ticks) if plan.op_kind[turn, t] == 1
+           and plan.op_chunk[turn, t] == 0]
+    bwd = [t for t in range(plan.n_ticks) if plan.op_kind[turn, t] == 2
+           and plan.op_chunk[turn, t] == 1]
+    assert len(fwd) == len(bwd) == m
+    for t in fwd:
+        assert plan.send_local[turn, t] and plan.send_channel[turn, t] == -1
+        assert plan.local_chunk[turn, t] == 1 and not plan.local_is_grad[turn, t]
+    for t in bwd:
+        assert plan.send_local[turn, t] and plan.send_channel[turn, t] == -1
+        assert plan.local_chunk[turn, t] == 0 and plan.local_is_grad[turn, t]
+    assert int(plan.send_local.sum()) == 2 * m  # nowhere else
+    # every per-chunk inbox of the plan is used by both chunks
+    assert min(plan.n_act_slots) >= 1 and min(plan.n_grad_slots) >= 1
+
+    cfg_t, spec_t, st_t, sh_t, side_t = _v_setup(p, m)
+    program = tlm.build_program(cfg_t, spec_t, sched.placement)
+    bad = compile_plan(sched)
+    bad.local_chunk = bad.local_chunk.copy()
+    bad.local_chunk[turn, fwd[0]] = 0
+    with pytest.raises(RuntimeError, match="read before it was written|still live"):
+        PipelineExecutor(program, bad).build_grad_fn()(st_t, sh_t, side_t)
+
+
+def test_executor_refuses_a_v_plan_for_one_chunk():
+    _, cfg_t, _, spec_t, _, _ = _setup(2, 2)
+    program = tlm.build_program(cfg_t, spec_t, zb_h1(2, 2).placement)
+    with pytest.raises(ValueError, match="program has 1 chunks, plan 2"):
+        PipelineExecutor(program, compile_plan(zb_v(2, 2)))
+
+
+def test_v_step_fills_both_chunks_accumulators(wgrad_calls):
+    """Two chunks on every stage: each (chunk, stage) accumulator gets its
+    own gradient (none stays zero), and every W op of every block linear
+    reaches the wgrad dispatch once: 7 x blocks x p x 2 chunks x m."""
+    p, m = 2, 3
+    cfg_t, spec_t, st_t, sh_t, side_t = _v_setup(p, m, n_layers=2 * p)
+    sched = zb_v(p, m)
+    program = tlm.build_program(cfg_t, spec_t, sched.placement)
+    grads, _, _ = PipelineExecutor(program, compile_plan(sched)).build_grad_fn()(
+        st_t, sh_t, side_t)
+    assert len(grads) == 2
+    blocks = len(program.chunks[0].mods)
+    assert len(wgrad_calls) == 7 * blocks * p * 2 * m
+    for c in range(2):
+        for st in range(p):
+            wq = grads[c]["blocks"][0][0]["wq"][st]
+            assert float(wq.abs().sum()) > 0, (c, st)
+    # chunk 1 on stage 0 is the last group before the sink, chunk 0 on stage 0 the first:
+    # their gradients differ (a placement mix-up would swap or alias them)
+    assert not torch.equal(grads[0]["blocks"][0][0]["wq"][0], grads[1]["blocks"][0][0]["wq"][0])
 
 
 def test_train_step_leaves_no_reference_cycles():
