@@ -59,6 +59,26 @@ Phases, in order; any failed check raises and the exit code is not 0:
               phase 9: the plan's ticks and chunk ops, host spans of the
               pipeline and the optimizer, device busy share, top kernels,
               wgrad_accum's share of device time.
+12. plan    -- the HBM planner at the train phase's run shape, per-device
+              budgets from 1 to 80 GiB, under the model fidelity and under
+              the measured one (slot bytes measured on the card): each
+              point's choice and itemized breakdown; cost never rises with
+              the budget and 1 GiB is refused naming the binding term.
+13. plan-vs-card -- for each schedule of phase 9, the planner's one-card
+              prediction (per-stage peaks summed, or the global footprint,
+              plus every stage's weights and moments) under both
+              fidelities beside the card's peak; the residual is printed,
+              not gated.
+14. launch  -- ``launch.train.main`` at full width and depth under a memory
+              budget at which the planner picks a zero-bubble schedule,
+              with a checkpoint directory: losses fall, both kernels'
+              launch counts match the chosen schedule (every W op on
+              wgmma), the final checkpoint restores bit for bit; save and
+              restore seconds and bytes.
+15. replay  -- the fault-tolerant driver at full width, 2 layers a stage: a
+              failure at step 3 is restored from the step-2 checkpoint and
+              the replayed losses and grad norms equal an uninterrupted
+              run's (within 1e-6 relative: index_add_ atomics).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -67,11 +87,14 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -80,8 +103,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core.executor import PipelineExecutor  # noqa: E402
+from repro_torch.core.memory import measured_timeline, memory_timeline  # noqa: E402
+from repro_torch.core.planner import HBMPlanner, stage_program_factory  # noqa: E402
 from repro_torch.core.schedules import compile_plan  # noqa: E402
 from repro_torch.core.schedules.ir import Placement  # noqa: E402
 from repro_torch.core.simulator import TimeModel, simulate  # noqa: E402
@@ -92,7 +118,9 @@ from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
-from repro_torch.launch.train import make_schedule, side_from_batch, train  # noqa: E402
+from repro_torch.launch.train import init_state, make_data_at, make_schedule, make_step_fn  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.train import side_from_batch, train  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
     RunSpec,
     build_program,
@@ -104,6 +132,7 @@ from repro_torch.models.lm import (  # noqa: E402
 )
 from repro_torch.models.modules import ShardCtx  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import DriverConfig, TrainDriver, replan_under_budget  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores,
@@ -172,6 +201,18 @@ T_GRAD_WORST_LEAF = 1e-2
 # relative).  1e-5 on the worst leaf leaves room for that and for nothing a
 # misplaced layer or chunk would cause.
 T_V_GRAD_WORST_LEAF = 1e-5
+# the planner's sweep at the train phase's run shape, per-device budgets in GiB
+PLAN_BUDGETS_GIB = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 80)
+# the launcher under a budget, priced by the measured fidelity on the card: at
+# 16384 MiB it picks zb-v (internlm2-1.8b, p=4, m=8, 1 x 1024: 14.6 GiB a
+# device; 12 GiB gives v-flex@1.8Mb at bubble 0.45, 8 GiB nothing)
+L_BUDGET_MB, L_STEPS = 16384, 4
+# the driver's failure replay: full width, 2 layers a stage (an 8.8 GB
+# checkpoint against the full depth's 19 GB), a failure at step 3 restored
+# from the step-2 checkpoint.  On the card the step is deterministic but for
+# the embedding gradient's index_add_ atomics, which reorder fp32 sums
+# (~1e-7 relative): 1e-6 relative on the replayed losses and grad norms
+R_SCHEDULE, R_LAYERS_PER_STAGE, R_STEPS, R_EVERY, R_FAIL_AT, R_RTOL = "zb-h1", 2, 4, 2, 3, 1e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -506,6 +547,40 @@ def expected_train_launches(cfg, p, n_chunks, m):
     return wgrad, norms
 
 
+def expected_measure_launches(cfg, p):
+    """(wgrad_accum, rmsnorm) launches of the measured fidelity's slot
+    measurement (``slot_bytes``): microbatch 0's F and B through stage 0's
+    chunks and the sink, once for one and once for two chunks a stage; no W."""
+    norms = 0
+    for n_chunks in (1, 2):
+        blocks, _ = group_layout(cfg, p, n_chunks)
+        norms += n_chunks * sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds) + 1
+    return 0, norms
+
+
+def _reset_counts():
+    wgrad_kernel.launches = 0
+    wgrad_kernel.launches_by_path.update({k: 0 for k in wgrad_kernel.PATHS})
+    rms_kernel.launches = 0
+
+
+def _read_counts():
+    return wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path)
+
+
+def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0)):
+    """Both kernels' launches over ``n_steps`` training steps (plus ``extra``
+    outside them) equal the counts the port's structure implies, every W op
+    on the wgmma path."""
+    want = tuple(n_steps * n + e for n, e in zip(want_per_step, extra))
+    check(launches[:2] == want, f"{what}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
+          f"{want} implied by the port's structure")
+    want_paths = {k: (want[0] if k == "wgmma" else 0) for k in wgrad_kernel.PATHS}
+    check(launches[2] == want_paths, f"{what}: wgrad_accum launches by path {launches[2]} != "
+          f"{want_paths}: every W op of the training step should take the wgmma path")
+    return want
+
+
 def _layer_map(cfg, placement):
     """For each layer l of the model: ((stage, block) under one linear chunk
     a stage, (chunk, stage, block) on ``placement``).  Depth position pos
@@ -574,12 +649,10 @@ def _train_full(cfg, name: str, seq: int, tcfg=None):
     print(f"[train] {name}: {base_gb:.2f} GB allocated after init (bf16 weights; "
           f"{sched.n_chunks} chunk(s) a stage, {plan.n_ticks} ticks)")
     torch.cuda.reset_peak_memory_stats()
-    wgrad_kernel.launches = 0
-    wgrad_kernel.launches_by_path.update({k: 0 for k in wgrad_kernel.PATHS})
-    rms_kernel.launches = 0
+    _reset_counts()
     res = train(cfg, spec, step, stacked, shared, data, T_STEPS,
                 log=lambda s: print(f"[train] {name}: {s}"))
-    launches = (wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path))
+    launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return res, launches, peak_gb, base_gb, plan, (stacked, shared, spec, sched, step, data)
 
@@ -598,12 +671,8 @@ def phase_train(cfg):
             seq = 512
             res, launches, peak_gb, base_gb, plan, state = _train_full(cfg, name, seq)
         sched = state[3]
-        want = tuple(T_STEPS * n for n in expected_train_launches(cfg, T_P, sched.n_chunks, T_M))
-        check(launches[:2] == want, f"{name}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
-              f"{want} implied by the port's structure")
-        want_paths = {k: (want[0] if k == "wgmma" else 0) for k in wgrad_kernel.PATHS}
-        check(launches[2] == want_paths, f"{name}: wgrad_accum launches by path {launches[2]} != "
-              f"{want_paths}: every W op of the training step should take the wgmma path")
+        want = _check_counts(name, launches, expected_train_launches(cfg, T_P, sched.n_chunks, T_M),
+                             T_STEPS)
         for k, (loss, gn) in enumerate(zip(res.losses, res.grad_norms)):
             check(np.isfinite(loss) and np.isfinite(gn), f"{name} step {k}: non-finite loss/norm")
         med = float(np.median(res.step_s))
@@ -621,7 +690,11 @@ def phase_train(cfg):
               f"{act + wctx:g} (units of one stage's activations, summed over stages); op-count "
               f"profile summed over stages {profile:g} M_B; {plan.n_ticks} ticks, simulated "
               f"bubble rate {bubble:.4f} (unit times, several cards)")
-        out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb)
+        out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb, base_gb=base_gb,
+                         sched=sched, plan=plan, n_params=sum(
+                             t.numel() for t in tree_leaves((state[0], state[1]))),
+                         param_bytes=sum(t.numel() * t.element_size()
+                                         for t in tree_leaves((state[0], state[1]))))
         if name in T_PROFILED:
             phase_profile_train(name, plan, state)
         del state
@@ -850,6 +923,231 @@ def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 4):
         print(f"[profile] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
 
 
+def _gib(x: float) -> str:
+    return f"{x / 2**30:.3f}"
+
+
+def phase_plan(cfg):
+    """The HBM planner at full width under both fidelities, over a budget
+    sweep; the measured fidelity's slot bytes are taken on the card."""
+    run = dict(p=T_P, m=T_M, microbatch=T_B, seq_len=T_SEQ)
+    t0 = time.perf_counter()
+    planners = {"model": HBMPlanner(cfg, **run),
+                "measured": HBMPlanner(cfg, program_factory=stage_program_factory(
+                    cfg, T_P, T_M, T_B, T_SEQ, DEV), **run)}
+    for n_chunks in (1, 2):
+        t1 = time.perf_counter()
+        _, sl = planners["measured"].slot_bytes(n_chunks)
+        bm = planners["model"].bytes_1c if n_chunks == 1 else planners["model"].bytes_2c
+        print(f"[plan] measured slot bytes on the card, {n_chunks} chunk(s) a stage "
+              f"({time.perf_counter() - t1:.2f}s with init): residual {[_gib(b) for b in sl['res']]} "
+              f"GiB, W-context {[_gib(b) for b in sl['wctx']]} GiB (shared with the residual "
+              f"{[_gib(b) for b in sl['res_wctx_shared']]}), sink {_gib(sl['sink'])} + W-context "
+              f"{_gib(sl['sink_wctx'])} GiB; per stage unit M_B {_gib(sum(sl['res']))} / M_W "
+              f"{_gib(sum(sl['wctx']))} GiB against the byte model's {_gib(bm.m_b_bytes)} / "
+              f"{_gib(bm.m_w_bytes)} GiB")
+    for fid, planner in planners.items():
+        prev = None
+        for gib in PLAN_BUDGETS_GIB:
+            r = planner.plan(gib * 2**30)
+            if not r.feasible:
+                print(f"[plan] {fid} {gib} GiB: infeasible, cheapest plan needs "
+                      f"{_gib(r.min_required_bytes)} GiB")
+                continue
+            c = r.chosen
+            items = " ".join(f"{k}={_gib(v)}" for k, v in c.breakdown.items().items())
+            print(f"[plan] {fid} {gib} GiB -> {c.name} cost {c.cost:g} bubble "
+                  f"{c.bubble_rate:.4f} total {_gib(c.total_bytes)} GiB ({items})")
+            check(prev is None or c.cost <= prev, f"{fid}: cost rose with the budget at {gib} GiB")
+            prev = c.cost
+        low = PLAN_BUDGETS_GIB[0]
+        try:
+            replan_under_budget(cfg, T_P, T_M, T_B, T_SEQ, low * 2**30, program_factory=(
+                planner.program_factory if fid == "measured" else None))
+        except RuntimeError as e:
+            msg = str(e)
+            check("binding term: " in msg, f"{fid}: the {low} GiB refusal names no binding term")
+            print(f"[plan] {fid} {low} GiB refused: {msg.splitlines()[0]}")
+        else:
+            check(False, f"{fid}: {low} GiB did not raise RuntimeError")
+    print(f"[plan] sweep of {len(PLAN_BUDGETS_GIB)} budgets under both fidelities in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return planners
+
+
+def _one_card_bytes(cfg, sched, plan, slots):
+    """What the planner's per-stage accounting says one card holding all p
+    stages needs for act + wctx + inbox + sink: the sum over stages of each
+    stage's peak tick, and the peak over time of all stages' live act +
+    wctx (``global_footprint`` on the tick grid)."""
+    spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+    mt = measured_timeline(PipelineExecutor(build_program(cfg, spec, sched.placement), plan),
+                           slots=slots)
+    per_stage = float(mt.peak_total.sum())
+    m_b, m_w = sum(slots["res"]), sum(slots["wctx"])
+    tl = memory_timeline(sched, tick_times=True, m_b=m_b, m_w=m_w)
+    glob = max(tl.global_footprint(t) for series in tl.events for t, _, _ in series)
+    return per_stage, glob
+
+
+def phase_plan_vs_card(cfg, runs, planners):
+    """Each trained schedule's measured peak beside the planner's one-card
+    prediction under both fidelities; the residual is what a CUDA temp
+    term would have to cover."""
+    model = planners["model"]
+    sink_res, sink_wctx = model._sink_slot_bytes()
+    rows = {}
+    for name, r in runs.items():
+        if r["seq"] != T_SEQ:
+            print(f"[plan-vs-card] {name} ran at seq {r['seq']}: not compared")
+            continue
+        sched, plan = r["sched"], r["plan"]
+        C = sched.n_chunks
+        bm = model.bytes_1c if C == 1 else model.bytes_2c
+        fixed = r["param_bytes"] + 8.0 * r["n_params"]  # all stages' bf16 weights, fp32 m and v
+        acc = 4.0 * r["n_params"]  # fp32 grad accumulators, not a planner term
+        model_slots = dict(res=(bm.m_b_bytes / C,) * C, wctx=(bm.m_w_bytes / C,) * C,
+                          sink=sink_res, sink_wctx=sink_wctx,
+                          res_wctx_shared=(0.0,) * C, sink_shared=0.0)
+        _, meas_slots = planners["measured"].slot_bytes(C)
+        pred = {fid: _one_card_bytes(cfg, sched, plan, sl)
+                for fid, sl in (("model", model_slots), ("measured", meas_slots))}
+        peak = r["peak_gb"] * 1e9
+        above = (r["peak_gb"] - r["base_gb"]) * 1e9
+        rows[name] = {f"{fid}{how}": peak - (fixed + p[k]) for fid, p in pred.items()
+                      for k, how in ((0, ""), (1, " (global footprint)"))}
+        print(f"[plan-vs-card] {name}: one-card prediction (per-stage peaks summed + weights and "
+              f"moments {_gib(fixed)}) model {_gib(fixed + pred['model'][0])} / measured "
+              f"{_gib(fixed + pred['measured'][0])} GiB; from global_footprint model "
+              f"{_gib(fixed + pred['model'][1])} / measured {_gib(fixed + pred['measured'][1])} "
+              f"GiB; card peak {_gib(peak)} GiB, above the after-init base {_gib(above)} GiB; "
+              f"measured - predicted: " + ", ".join(f"{k} {_gib(v)}" for k, v in rows[name].items())
+              + f" GiB (the fp32 grad accumulators, {_gib(acc)} GiB and not a planner term, are "
+              f"in it)")
+    for fid in ("model", "measured", "model (global footprint)", "measured (global footprint)"):
+        res = [v[fid] for v in rows.values()]
+        if res:
+            print(f"[plan-vs-card] residual under the {fid} fidelity over {len(res)} schedules: "
+                  f"min {_gib(min(res))} max {_gib(max(res))} mean {_gib(float(np.mean(res)))} GiB")
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*") if f.is_file())
+
+
+def phase_launch_budget(cfg):
+    """``launch.train.main`` at full width and depth under a memory budget
+    at which the planner picks a zero-bubble schedule, checkpointing into a
+    temporary directory; the final checkpoint restores bit for bit.  The
+    launches are the steps' plus those of the planner's slot measurement on
+    the card."""
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = train_main(["--arch", ARCH, "--pipe-size", str(T_P), "--m", str(T_M),
+                          "--microbatch", str(T_B), "--seq-len", str(T_SEQ), "--steps",
+                          str(L_STEPS), "--lr", "1e-3", "--memory-budget-mb", str(L_BUDGET_MB),
+                          "--ckpt-dir", ckpt, "--device", DEV])
+        launches = _read_counts()
+        sched = res.schedule
+        check(sched.name not in ("1f1b", "1f1b-interleaved"),
+              f"the planner picked {sched.name} at {L_BUDGET_MB} MiB, not a zero-bubble schedule")
+        want = _check_counts(f"launcher {sched.name}", launches,
+                             expected_train_launches(cfg, T_P, sched.n_chunks, T_M), L_STEPS,
+                             extra=expected_measure_launches(cfg, T_P))
+        check(res.losses[-1] < res.losses[0], f"launcher losses did not fall: {res.losses}")
+        step = store.latest_step(ckpt)
+        check(step == L_STEPS, f"newest checkpoint is step {step}, not {L_STEPS}")
+        nbytes = _dir_bytes(pathlib.Path(ckpt) / f"step_{step:08d}")
+        spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+        proto = init_state(*init_params(cfg, spec, sched.placement, seed=1, device=DEV))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = store.restore(ckpt, step, proto)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        leaves = list(zip(tree_leaves(got), tree_leaves(res.state)))
+        exact = sum(torch.equal(a, b) for a, b in leaves)
+        print(f"[launch] {sched.name} ({sched.n_chunks} chunk(s) a stage) under "
+              f"{L_BUDGET_MB} MiB: losses {res.losses}, ms per step "
+              f"{[round(t * 1e3, 1) for t in res.step_s]}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches wgrad_accum "
+              f"{launches[0]} {launches[2]} rmsnorm {launches[1]} (expected {want}); checkpoint "
+              f"step {step}: {nbytes / 1e9:.2f} GB, save {res.save_s} s, restore {restore_s:.2f} s "
+              f"({nbytes / 1e9 / restore_s:.2f} GB/s); {exact} of {len(leaves)} leaves restored "
+              f"bit for bit")
+        check(exact == len(leaves), "the final checkpoint did not restore bit for bit")
+        del got, proto, leaves, res
+        return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_replay(cfg):
+    """The driver's failure replay at full width, depth cut to
+    R_LAYERS_PER_STAGE layers a stage: a failure at step R_FAIL_AT restores
+    the step-R_EVERY checkpoint; the replayed losses and grad norms must
+    equal an uninterrupted run's."""
+    cut = dataclasses.replace(cfg, n_layers=R_LAYERS_PER_STAGE * T_P)
+    sched = make_schedule(R_SCHEDULE, T_P, T_M)
+    spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+    step, _ = build_train_step(cut, spec, compile_plan(sched), sched.placement, TrainStepConfig())
+    data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=T_SEQ, vocab=cut.vocab))
+    step_fn, data_at = make_step_fn(step), make_data_at(data, spec, DEV)
+
+    def fresh():
+        return init_state(*init_params(cut, spec, sched.placement, seed=0, device=DEV))
+
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_replay_")
+    failed = []
+
+    def fail_once(k):
+        if k == R_FAIL_AT and not failed:
+            failed.append(k)
+            raise RuntimeError("simulated node failure")
+
+    try:
+        _reset_counts()
+        clean_state, clean_log = TrainDriver(DriverConfig(ckpt_dir=None), step_fn, fresh,
+                                             data_at).run(R_STEPS)
+        del clean_state
+        torch.cuda.empty_cache()
+        driver = TrainDriver(DriverConfig(ckpt_dir=ckpt, ckpt_every=R_EVERY, max_retries=1),
+                             step_fn, fresh, data_at)
+        _, log = driver.run(R_STEPS, fail_hook=fail_once)
+        launches = _read_counts()
+        ran = [k for k, _ in log]
+        resumed = R_FAIL_AT // R_EVERY * R_EVERY  # the newest checkpoint at the failure
+        check(failed == [R_FAIL_AT] and ran == list(range(R_FAIL_AT)) + list(range(resumed, R_STEPS)),
+              f"replay ran steps {ran}")
+        _check_counts("replay", launches, expected_train_launches(cut, T_P, sched.n_chunks, T_M),
+                      R_STEPS + len(ran))
+        clean = dict(clean_log)
+        gaps, exact = [], 0
+        for k, met in log:
+            for key in ("loss", "grad_norm"):
+                gaps.append(abs(met[key] - clean[k][key]) / abs(clean[k][key]))
+                exact += met[key] == clean[k][key]
+        print(f"[replay] {R_SCHEDULE} {cut.n_layers} layers ({R_LAYERS_PER_STAGE} a stage, depth cut "
+              f"to keep checkpoints small), full width: {R_STEPS} steps, checkpoint every "
+              f"{R_EVERY}, failure at step {R_FAIL_AT}; steps run {ran}; losses clean "
+              f"{[clean[k]['loss'] for k in range(R_STEPS)]} replayed "
+              f"{[m['loss'] for _, m in log]}; grad norms clean "
+              f"{[clean[k]['grad_norm'] for k in range(R_STEPS)]} replayed "
+              f"{[m['grad_norm'] for _, m in log]}; {exact} of {len(gaps)} equal bit for bit, "
+              f"max rel gap {max(gaps):.3g} (limit {R_RTOL}: the embedding gradient's index_add_ "
+              f"sums colliding rows with atomics in no fixed order); checkpoint "
+              f"{_dir_bytes(pathlib.Path(ckpt) / f'step_{R_STEPS:08d}') / 1e9:.2f} GB, saves "
+              f"{[round(t, 2) for t in driver.save_times]} s")
+        check(max(gaps) <= R_RTOL, "the replayed steps differ from the uninterrupted run")
+        return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
     return {
         "name": name,
@@ -891,13 +1189,20 @@ def main() -> int:
     runs = phase_train(cfg_full)
     phase_train_checks(cfg_full, runs)
     phase_train_noclip(cfg_full, runs)
+    print(f"[time] training phases done at {time.perf_counter() - t_start:.1f}s")
+    planners = phase_plan(cfg_full)
+    phase_plan_vs_card(cfg_full, runs, planners)
+    del planners
+    print(f"[time] planner phases done at {time.perf_counter() - t_start:.1f}s")
+    more = {"launcher": phase_launch_budget(cfg_full)}
+    print(f"[time] launcher phase done at {time.perf_counter() - t_start:.1f}s")
+    more["replay"] = phase_replay(cfg_full)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
-    wgrad_by_run = {f"train-{n}": r["launches"][0] for n, r in runs.items()}
-    wgrad_by_path = {k: sum(r["launches"][2][k] for r in runs.values())
-                     for k in wgrad_kernel.PATHS}
-    rms_by_run = {"serve": serve_launches, **{f"train-{n}": r["launches"][1]
-                                              for n, r in runs.items()}}
+    counted = {**{f"train-{n}": r["launches"] for n, r in runs.items()}, **more}
+    wgrad_by_run = {n: c[0] for n, c in counted.items()}
+    wgrad_by_path = {k: sum(c[2][k] for c in counted.values()) for k in wgrad_kernel.PATHS}
+    rms_by_run = {"serve": serve_launches, **{n: c[1] for n, c in counted.items()}}
     print(json.dumps({"kernels": [
         _kernel_row("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:29", sum(rms_by_run.values()), rms_by_run,

@@ -26,17 +26,25 @@ this one is re-designed for one device:
     gradient is added at ``op_is_last_b`` and the sink's at ``op_is_loss``
     W.  The loss is the sum of the sink's per-microbatch ``loss / m``.
 
+Byte accounting (the JAX executor's ``_tree_bytes``, ``state_shapes``,
+``channel_message_bytes``, ``buffer_bytes``): the port holds no explicit
+buffers, so :func:`slot_bytes` measures what one slot of
+each pool holds by running one microbatch through F and B on the
+parameters' device, and :meth:`PipelineExecutor.buffer_bytes` multiplies
+those by the plan's slot counts, as the JAX executor sizes its pools.
+
 One process per stage with NCCL point-to-point sends is a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence, Tuple
+import math
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 from .passes import FBWModule, loss_seed
 from .schedules.ir import (
     CHANNEL_BWD_DOWN,
@@ -48,7 +56,7 @@ from .schedules.ir import (
     OpKind,
 )
 
-__all__ = ["PipelineProgram", "PipelineExecutor"]
+__all__ = ["PipelineProgram", "PipelineExecutor", "slot_bytes"]
 
 PyTree = Any
 
@@ -94,6 +102,93 @@ def _take(pool: Dict, key, what: str):
     return pool.pop(key)
 
 
+def _storage_bytes(tensors: Iterable[Any], skip: set) -> Dict[int, int]:
+    """{storage address: bytes} of the tensors among ``tensors``, each
+    storage once, leaving out the storages in ``skip``."""
+    out: Dict[int, int] = {}
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            continue
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip and st.nbytes():
+            out[st.data_ptr()] = st.nbytes()
+    return out
+
+
+@torch.no_grad()
+def slot_bytes(prog: PipelineProgram, stage_params, shared, side_all) -> Dict[str, Any]:
+    """Bytes that one slot of each pool holds, measured.
+
+    The JAX executor's ``state_shapes`` evaluates the slots' shapes; the
+    port cannot (the RMSNorm function and the CUDA kernels do not run on
+    ``meta``), so this runs microbatch 0 through F and B of every chunk
+    and the sink with ``stage_params`` (per chunk, one stage's
+    parameters, no stage axis) on their device: 1/(p*m) of a step's F
+    and B work, no W.  Each slot counts the storages it keeps alive,
+    each once, and none of the parameters or side inputs:
+
+      * residual (per chunk): the chunk's input, its output and every
+        tensor its F graph saved (``saved_tensors_hooks``).  The output
+        is the next chunk's input, or the sink's: per device each holds
+        its own copy, but the sink shares its input with the last
+        chunk's residual on one stage, so that residual owns it;
+      * W-context (per chunk): the deferred linears' ``(a, g)`` pairs
+        and the cheap grads.  ``a`` is also saved by the F graph until B
+        frees it: the residual owns it from F to B, the W-context from
+        B to W, and the two slots never hold it at one tick's end;
+      * sink and sink W-context: the same at the loss position.
+
+    ``res_wctx_shared`` (per chunk) and ``sink_shared`` are the bytes a
+    W-context shares with its residual: in B's tick both slots are live
+    and hold them once (``core/memory.py::measured_timeline`` counts them
+    once there; the pool sizes of :meth:`PipelineExecutor.buffer_bytes`,
+    like the JAX executor's separate buffers, count them in both).
+    """
+    C = prog.n_chunks()
+    side_mb = tree_map(lambda a: a[0], side_all)
+    skip = {t.untyped_storage().data_ptr() for t in tree_leaves((stage_params, shared, side_all))}
+
+    def fwd_saving(fn, *args):
+        saved = []
+
+        def pack(t):
+            saved.append(t)
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y, r = fn(*args)
+        return y, r, saved
+
+    x = prog.src_fwd(shared, side_mb).to(prog.act_dtype)
+    res, res_b = [], []
+    for c in range(C):
+        y, r, saved = fwd_saving(prog.chunks[c].fwd, stage_params[c], x, side_mb)
+        res.append(r)
+        res_b.append(_storage_bytes([x, y] + saved, skip))
+        x = y.to(prog.act_dtype)
+    lj, sr, saved = fwd_saving(prog.sink.fwd, shared, y, side_mb)
+    sink_b = _storage_bytes([lj] + saved, skip | set(res_b[-1]))
+    del saved
+    dy, sw = prog.sink.bwd_x(shared, sr, loss_seed(lj), side_mb)
+    sink_wctx_b = _storage_bytes(tree_leaves(sw), skip)
+    del sr, sw
+    wctx_b = [None] * C
+    for c in reversed(range(C)):
+        dy, w = prog.chunks[c].bwd_x(stage_params[c], res.pop(), dy.to(prog.act_dtype),
+                                     side_mb)
+        wctx_b[c] = _storage_bytes(tree_leaves(w), skip)
+    total = lambda d: float(sum(d.values()))  # noqa: E731
+    shared_b = lambda a, b: float(sum(n for k, n in a.items() if k in b))  # noqa: E731
+    return dict(
+        res=tuple(total(d) for d in res_b),
+        wctx=tuple(total(d) for d in wctx_b),
+        sink=total(sink_b),
+        sink_wctx=total(sink_wctx_b),
+        res_wctx_shared=tuple(shared_b(w, r) for w, r in zip(wctx_b, res_b)),
+        sink_shared=shared_b(sink_wctx_b, sink_b),
+    )
+
+
 class PipelineExecutor:
     """Turns (program, plan) into a pipelined grads-and-loss function."""
 
@@ -103,13 +198,62 @@ class PipelineExecutor:
         self.program = program
         self.plan = plan
 
-    def build_grad_fn(self):
+    # ------------------------------------------------------------------ #
+    # measured buffer accounting
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _tree_bytes(tree) -> int:
+        """Bytes of a tree's leaves (tensors, fake or meta tensors alike)."""
+        return int(sum(math.prod(t.shape) * t.element_size() for t in tree_leaves(tree)))
+
+    def channel_message_bytes(self) -> float:
+        """Bytes of one inbox slot (one inter-stage message)."""
+        prog = self.program
+        return float(math.prod(prog.act_shape) * torch.empty((), dtype=prog.act_dtype).element_size())
+
+    def buffer_bytes(self, stage_params=None, shared=None, side_all=None, *,
+                     slots: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Bytes one stage's pools hold at their fullest, by family, as the
+        JAX executor allocates them: the plan's slot counts (from the
+        interval analysis; residuals and W-contexts in the joint cross-chunk
+        pools the executor keys them by) times the measured bytes of one
+        slot.  Pass the result of :func:`slot_bytes` as ``slots`` to reuse a
+        measurement (the slots depend on the program alone, not on the
+        plan)."""
+        plan = self.plan
+        if slots is None:
+            slots = slot_bytes(self.program, stage_params, shared, side_all)
+        res_slot, wctx_slot = slots["res"], slots["wctx"]
+        res_total = plan.n_res_slots_joint * max(res_slot)
+        wctx_total = plan.n_wctx_slots_joint * max(wctx_slot)
+        inbox_total = plan.inbox_slot_total() * self.channel_message_bytes()
+        sink_total = plan.n_sink_slots * slots["sink"]
+        sink_wctx_total = plan.n_sink_wctx_slots * slots["sink_wctx"]
+        return dict(
+            res=float(res_total),
+            wctx=float(wctx_total),
+            inbox=float(inbox_total),
+            sink=float(sink_total),
+            sink_wctx=float(sink_wctx_total),
+            total=float(res_total + wctx_total + inbox_total + sink_total + sink_wctx_total),
+            res_slot_bytes=tuple(res_slot),
+            wctx_slot_bytes=tuple(wctx_slot),
+            res_wctx_shared=slots["res_wctx_shared"],
+            sink_shared=slots["sink_shared"],
+        )
+
+    # ------------------------------------------------------------------ #
+    def build_grad_fn(self, on_tick: Optional[Callable[[int, Dict[str, list]], None]] = None):
         """``grad_fn(stacked, shared, side_all) -> (grads, shared_grads, loss)``.
 
         ``stacked``: per chunk, parameter trees whose leaves carry a leading
         (p,) stage axis; ``side_all``: leaves with a leading (m,) microbatch
         axis.  ``grads`` are stacked like ``stacked``, ``shared_grads`` like
         ``shared``, both in ``acc_dt``; ``loss`` is an fp32 scalar.
+        ``on_tick(t, pools)``, if given, sees the pools after each tick's
+        hand-offs: ``pools[name][s]`` is stage s's slot dict for ``name`` in
+        act_in, grad_in, res, wctx, sink_res, sink_wctx (a byte tally reads
+        them; it must not change them).
         """
         prog, plan = self.program, self.plan
         p, C = plan.p, plan.n_chunks
@@ -193,6 +337,9 @@ class PipelineExecutor:
                         box = act_in if d in _ACT_CHANNELS else grad_in
                         key = (int(plan.recv_chunk[s, t, d]), int(plan.recv_slot[s, t, d]))
                         _put(box[s], key, sends[src], "inbox")
+                if on_tick is not None:
+                    on_tick(t, dict(act_in=act_in, grad_in=grad_in, res=res, wctx=wctx,
+                                    sink_res=sink_res, sink_wctx=sink_wctx))
 
             for pools, what in ((act_in, "act inbox"), (grad_in, "grad inbox"), (res, "residual"),
                                 (wctx, "wctx"), (sink_res, "sink residual"),

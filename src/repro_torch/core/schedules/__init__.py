@@ -2,8 +2,8 @@
 the V-shaped ZB-V / V-Min / V-Half and the automatic ZB-1p / ZB-2p search.
 
 The same names as ``src/repro/core/schedules/__init__.py`` apart from the
-channel constants, ``interleaved_1f1b`` and ``local_search``, which no caller
-of the port needs yet.
+channel constants and ``local_search``, which no caller of the port needs
+yet.
 """
 
 from .ir import (
@@ -15,7 +15,7 @@ from .ir import (
     Schedule,
     compile_plan,
 )
-from .baselines import gpipe, one_f_one_b
+from .baselines import gpipe, interleaved_1f1b, one_f_one_b
 from .handcrafted import zb_h1, zb_h2
 from .zbv import zb_v, zb_v_handcrafted
 from .vflex import (
@@ -39,6 +39,7 @@ __all__ = [
     "Schedule",
     "compile_plan",
     "gpipe",
+    "interleaved_1f1b",
     "one_f_one_b",
     "zb_h1",
     "zb_h2",

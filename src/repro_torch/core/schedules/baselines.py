@@ -1,18 +1,18 @@
-"""Baseline pipeline schedules: GPipe and 1F1B.
+"""Baseline pipeline schedules: GPipe, 1F1B, interleaved 1F1B.
 
-Translated from ``src/repro/core/schedules/baselines.py`` (the interleaved
-1F1B builder is not ported yet).  In the IR every backward is split into B
-and W; in these baselines each W directly follows its B, the classic fused
-backward.
+Translated from ``src/repro/core/schedules/baselines.py``.  In the IR every
+backward is split into B and W; in these baselines each W directly follows
+its B, the classic fused backward (the planner simulates them with
+``TimeModel(grouped_w=True)``).
 """
 
 from __future__ import annotations
 
 from typing import List
 
-from .ir import Op, OpKind, Schedule
+from .ir import Op, OpKind, Placement, Schedule
 
-__all__ = ["gpipe", "one_f_one_b"]
+__all__ = ["gpipe", "one_f_one_b", "interleaved_1f1b"]
 
 
 def gpipe(p: int, m: int) -> Schedule:
@@ -42,3 +42,41 @@ def one_f_one_b(p: int, m: int) -> Schedule:
             ops += [Op(OpKind.B, j), Op(OpKind.W, j)]
         stage_ops.append(ops)
     return Schedule(p, m, stage_ops, name="1f1b")
+
+
+def interleaved_1f1b(p: int, m: int, v: int = 2) -> Schedule:
+    """Megatron interleaved 1F1B with ``v`` chunks per stage.
+
+    Requires ``m % p == 0`` (Megatron's constraint).  Virtual microbatches are
+    walked in groups of ``p``: group g covers chunk ``g % v`` of microbatches
+    ``(g // v) * p .. (g // v) * p + p - 1``.
+    """
+    if m % p != 0:
+        raise ValueError(f"interleaved 1F1B requires m % p == 0 (m={m}, p={p})")
+    if v < 2:
+        raise ValueError("interleaved needs v >= 2 chunks")
+    total = m * v
+
+    def fwd_virtual(k: int) -> Op:
+        g, r = divmod(k, p)
+        return Op(OpKind.F, (g // v) * p + r, g % v)
+
+    def bwd_virtual(k: int) -> Op:
+        g, r = divmod(k, p)
+        return Op(OpKind.B, (g // v) * p + r, v - 1 - (g % v))
+
+    stage_ops: List[List[Op]] = []
+    for s in range(p):
+        warm = min((p - s - 1) * 2 + (v - 1) * p, total)
+        ops: List[Op] = [fwd_virtual(k) for k in range(warm)]
+        nf, nb = warm, 0
+        while nb < total:
+            if nf < total:
+                ops.append(fwd_virtual(nf))
+                nf += 1
+            b = bwd_virtual(nb)
+            ops += [b, Op(OpKind.W, b.mb, b.chunk)]
+            nb += 1
+        stage_ops.append(ops)
+    return Schedule(p, m, stage_ops, placement=Placement.linear(p, v),
+                    name=f"1f1b-interleaved-v{v}")

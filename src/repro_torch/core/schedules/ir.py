@@ -437,6 +437,13 @@ class ExecutionPlan:
     def bubble_fraction(self) -> float:
         return 1.0 - self.total_ops / (self.p * self.n_ticks)
 
+    def inbox_slot_total(self) -> int:
+        """Inbox slots of one stage (act + grad families), as the JAX
+        executor allocates them: flat (C, max-slots) buffers, so C * max(per
+        chunk slots) per family.  The planner's inbox term and
+        ``PipelineExecutor.buffer_bytes`` both read it."""
+        return self.n_chunks * (max(self.n_act_slots) + max(self.n_grad_slots))
+
 
 def compile_plan(schedule: Schedule) -> ExecutionPlan:
     """Compile a validated Schedule into an ExecutionPlan table grid."""

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters over to the port, leaf for leaf.
+"""Carry the JAX package's parameters and AdamW state over to the port,
+leaf for leaf.
 
 The port keeps the JAX layout (linear weights ``(in, out)``, stage-stacked
 leaves with their leading ``(p,)`` axis, the ``mask`` leaf), so the carry-over
@@ -13,9 +14,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .optim.adamw import AdamWState
 from .tree import tree_map
 
-__all__ = ["params_from_numpy", "to_torch"]
+__all__ = ["params_from_numpy", "adamw_from_numpy", "to_torch"]
 
 
 def to_torch(a: np.ndarray, *, device="cpu", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -46,3 +48,15 @@ def params_from_numpy(stacked, shared, *, device, dtype: Optional[torch.dtype] =
         for chunk in stacked
     )
     return out_stacked, tree_map(conv, dict(shared))
+
+
+def adamw_from_numpy(state, *, device) -> AdamWState:
+    """A JAX ``AdamWState`` (``t``, ``m``, ``v``; stacked or shared trees,
+    leaves as numpy) -> the port's: int32 ``t``, fp32 moments."""
+    t, m, v = state
+
+    def conv(a):
+        return to_torch(a, device=device, dtype=torch.float32)
+
+    return AdamWState(t=to_torch(t, device=device, dtype=torch.int32), m=tree_map(conv, m),
+                      v=tree_map(conv, v))

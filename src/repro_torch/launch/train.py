@@ -1,16 +1,26 @@
 """Pipelined zero-bubble training launcher of the port.
 
   python -m repro_torch.launch.train --arch internlm2_1_8b \\
-      --pipe-size 4 --schedule zb-h1 --microbatch 1 --seq-len 1024 --m 8 --steps 3
+      --pipe-size 4 --schedule zb-h1 --microbatch 1 --seq-len 1024 --m 8 --steps 3 \\
+      [--memory-budget-mb 10240] [--ckpt-dir DIR]
 
 All p stages sit on one device.  Runs on the CUDA card by default and raises
 when there is none; it never carries on on the CPU unless ``--device cpu``
 asks for it.  Weights are random, drawn from ``--seed``; batches come from the
 seeded synthetic stream (``data.SyntheticLM``).  Schedules: every one the JAX
 launcher accepts -- 1f1b, zb-h1, zb-h2, zb-v, v-min, v-half, zb-1p, zb-2p; the
-V-shaped ones (zb-v, v-min, v-half) run two chunks a stage.  Checkpointing,
-the fault-tolerant driver, the executor modes and the memory-budget planner
-of the JAX launcher are not ported yet.
+V-shaped ones (zb-v, v-min, v-half) run two chunks a stage.
+``--memory-budget-mb`` replaces ``--schedule`` by the HBM planner's choice:
+the fastest schedule of any family whose per-device bytes (one stage's
+parameters and AdamW moments, activations, W-contexts, inboxes, sink) fit
+the budget, with the activation, W-context, inbox and sink slots measured
+on the run's device (the planner's measured fidelity).  The fp32 gradient
+accumulators and the allocator's scratch are not priced yet (the planner's
+``temp`` term is 0); the launcher prints what that leaves out.  The steps run under the fault-tolerant driver
+(``runtime/driver.py``): with ``--ckpt-dir`` it checkpoints every
+max(steps // 2, 10) steps and at the last, resumes from the newest
+checkpoint there and retries a failed step from it; without, nothing is
+saved.  The JAX launcher's executor modes are not ported.
 """
 
 from __future__ import annotations
@@ -18,12 +28,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs import get_config, get_reduced
+from ..core.planner import stage_program_factory
 from ..core.schedules import (
     compile_plan,
     one_f_one_b,
@@ -38,10 +49,12 @@ from ..core.schedules import (
 from ..data import DataConfig, SyntheticLM
 from ..models.lm import ArchConfig, RunSpec, init_params
 from ..optim import adamw
-from .serve import resolve_device
+from ..runtime import DriverConfig, TrainDriver, replan_under_budget
+from .serve import _sync, resolve_device
 from .steps import TrainStepConfig, build_train_step
 
-__all__ = ["SCHEDULES", "TrainResult", "build_everything", "side_from_batch", "train", "main"]
+__all__ = ["SCHEDULES", "TrainResult", "build_everything", "side_from_batch", "init_state",
+           "make_step_fn", "make_data_at", "train", "main"]
 
 SCHEDULES = {
     "1f1b": one_f_one_b,
@@ -62,10 +75,27 @@ def make_schedule(name: str, p: int, m: int):
 
 
 def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, microbatch: int,
-                     seq_len: int, m: int, tcfg: TrainStepConfig):
-    """-> (cfg, spec, schedule, step) for the given run."""
+                     seq_len: int, m: int, tcfg: TrainStepConfig,
+                     memory_budget_bytes: Optional[float] = None, device="cpu", seed: int = 0):
+    """-> (cfg, spec, schedule, step) for the given run.  With a budget, the
+    schedule is the HBM planner's choice and ``schedule`` is not read: the
+    planner prices the slots it measures on ``device`` (one microbatch's F
+    and B of each chunk count, with stage 0 of the ``seed`` weights)."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
-    sched = make_schedule(schedule, pipe_size, m)
+    if memory_budget_bytes is not None:
+        factory = stage_program_factory(cfg, pipe_size, m, microbatch, seq_len, device, seed)
+        sched, report = replan_under_budget(cfg, pipe_size, m, microbatch, seq_len,
+                                            memory_budget_bytes, program_factory=factory)
+        bd = report.chosen.breakdown
+        print(f"HBM planner: {report.summary()}")
+        print("per-device HBM breakdown (slots measured on the run's device):")
+        print(bd.report())
+        # AdamW keeps m and v in fp32 (optim); the executor's gradient
+        # accumulators are at most one more fp32 copy of the same leaves
+        print(f"not priced (temp 0: no CUDA-allocator calibration yet): the fp32 gradient "
+              f"accumulators, up to {bd.optim / 2 / 2**20:.1f} MiB, and the allocator's scratch")
+    else:
+        sched = make_schedule(schedule, pipe_size, m)
     spec = RunSpec(p=pipe_size, n_chunks=sched.n_chunks, microbatch=microbatch,
                    seq_len=seq_len, m=m)
     step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, tcfg)
@@ -87,36 +117,66 @@ class TrainResult:
     losses: List[float]
     grad_norms: List[float]
     amended: List[bool]
-    step_s: List[float]  # host seconds per step, each ending in a device synchronise
+    step_s: List[float]  # host seconds per step, from an idle card to the metrics on the host
+    state: Optional[Dict[str, Any]] = None  # the driver's final state (main only)
+    schedule: Any = None  # the schedule that ran (main only)
+    save_s: List[float] = dataclasses.field(default_factory=list)  # checkpoint saves (main only)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def init_state(stacked, shared) -> Dict[str, Any]:
+    """The driver's state: the parameters and a fresh AdamW state beside
+    them, on the parameters' device."""
+    return dict(params=stacked, shared=shared, opt=adamw.init(stacked),
+                shared_opt=adamw.init(shared))
+
+
+def make_step_fn(step: Callable) -> Callable:
+    """The driver's ``step_fn(state, side) -> (state, metrics)`` over the
+    training step; it updates the state's tensors in place."""
+
+    def step_fn(state, side):
+        stacked, shared, opt, shared_opt, metrics = step(
+            state["params"], state["shared"], state["opt"], state["shared_opt"], side)
+        return dict(params=stacked, shared=shared, opt=opt, shared_opt=shared_opt), metrics
+
+    return step_fn
+
+
+def make_data_at(data: SyntheticLM, spec: RunSpec, device) -> Callable[[int], Dict]:
+    """The driver's ``data_at(step)``: that step's side inputs on ``device``,
+    the copy finished, so the driver's step time starts on an idle card."""
+    device = torch.device(device)
+
+    def data_at(k: int):
+        side = side_from_batch(data.batch_at(k), spec, device)
+        _sync(device)
+        return side
+
+    return data_at
+
+
+def _result(driver: TrainDriver, metrics_log, log: Optional[Callable[[str], None]]) -> TrainResult:
+    res = TrainResult([], [], [], list(driver.step_times))
+    for (k, met), dt in zip(metrics_log, driver.step_times):
+        res.losses.append(met["loss"])
+        res.grad_norms.append(met["grad_norm"])
+        res.amended.append(bool(met["amended"]))
+        if log:
+            log(f"step {k}: loss={met['loss']:.6f} grad_norm={met['grad_norm']:.6f} "
+                f"amended={bool(met['amended'])} {dt:.3f}s")
+    return res
 
 
 def train(cfg: ArchConfig, spec: RunSpec, step: Callable, stacked, shared, data: SyntheticLM,
           steps: int, *, log: Optional[Callable[[str], None]] = None) -> TrainResult:
-    """Run ``steps`` training steps on batches 0, 1, ...; parameters and a
-    fresh AdamW state live on the device of ``shared`` and are updated in
-    place."""
+    """Run ``steps`` training steps on batches 0, 1, ... through the driver,
+    without checkpoints or retries; ``stacked`` and ``shared`` and a fresh
+    AdamW state beside them are updated in place."""
     device = shared["embed"].device
-    opt, shared_opt = adamw.init(stacked), adamw.init(shared)
-    res = TrainResult([], [], [], [])
-    for k in range(steps):
-        side = side_from_batch(data.batch_at(k), spec, device)
-        _sync(device)
-        t0 = time.perf_counter()
-        stacked, shared, opt, shared_opt, met = step(stacked, shared, opt, shared_opt, side)
-        _sync(device)
-        res.step_s.append(time.perf_counter() - t0)
-        res.losses.append(float(met["loss"]))
-        res.grad_norms.append(float(met["grad_norm"]))
-        res.amended.append(bool(met["amended"]))
-        if log:
-            log(f"step {k}: loss={res.losses[-1]:.6f} grad_norm={res.grad_norms[-1]:.6f} "
-                f"amended={res.amended[-1]} {res.step_s[-1]:.3f}s")
-    return res
+    driver = TrainDriver(DriverConfig(ckpt_dir=None, max_retries=0), make_step_fn(step),
+                         lambda: init_state(stacked, shared), make_data_at(data, spec, device))
+    _, metrics_log = driver.run(steps)
+    return _result(driver, metrics_log, log)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
@@ -133,22 +193,46 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     ap.add_argument("--postval", default="within_step", choices=["within_step", "sync"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory: save every max(steps // 2, 10) steps and at "
+                    "the last, resume from the newest checkpoint in it (default: none)")
+    ap.add_argument("--memory-budget-mb", type=float, default=None,
+                    help="per-device HBM budget: params + AdamW moments + inbox/sink + "
+                    "schedule memory, its slots measured on --device; runs the fastest "
+                    "schedule of any family that fits (overrides --schedule); the fp32 "
+                    "gradient accumulators and allocator scratch are not priced")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=args.lr), postval_mode=args.postval)
+    budget = None if args.memory_budget_mb is None else args.memory_budget_mb * 2**20
     cfg, spec, sched, step = build_everything(args.arch, args.reduced, args.pipe_size,
                                               args.schedule, args.microbatch, args.seq_len,
-                                              args.m, tcfg)
+                                              args.m, tcfg, memory_budget_bytes=budget,
+                                              device=device, seed=args.seed)
     data = SyntheticLM(DataConfig(global_batch=spec.m * spec.microbatch, seq_len=spec.seq_len,
                                   vocab=cfg.vocab, seed=args.seed))
-    stacked, shared = init_params(cfg, spec, sched.placement, seed=args.seed, device=device)
+
+    def fresh_state():
+        stacked, shared = init_params(cfg, spec, sched.placement, seed=args.seed, device=device)
+        return init_state(stacked, shared)
+
+    driver = TrainDriver(DriverConfig(ckpt_dir=args.ckpt_dir, ckpt_every=max(args.steps // 2, 10)),
+                         make_step_fn(step), fresh_state, make_data_at(data, spec, device))
     t0 = time.perf_counter()
-    res = train(cfg, spec, step, stacked, shared, data, args.steps, log=print)
+    state, metrics_log = driver.run(args.steps)
     dt = time.perf_counter() - t0
-    print(f"steps={len(res.losses)} wall={dt:.1f}s steps/s={len(res.losses) / dt:.3f} "
+    res = _result(driver, metrics_log, print)
+    res.state, res.schedule, res.save_s = state, sched, list(driver.save_times)
+    if not res.losses:
+        print(f"steps=0: the checkpoint in {args.ckpt_dir} is at step {args.steps} already")
+        return res
+    tput = driver.throughput()
+    tput_s = f" steps/s={tput:.3f}" if tput else ""
+    print(f"steps={len(res.losses)} wall={dt:.1f}s{tput_s} "
           f"loss[0]={res.losses[0]:.4f} loss[-1]={res.losses[-1]:.4f} schedule={sched.name}")
-    assert res.losses[-1] < res.losses[0], "loss must decrease on the synthetic stream"
+    if len(res.losses) > 1 and not res.losses[-1] < res.losses[0]:
+        raise RuntimeError("loss must decrease on the synthetic stream")
     return res
 
 

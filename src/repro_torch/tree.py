@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_map", "tree_leaves", "tree_flatten", "tree_unflatten"]
+__all__ = ["tree_map", "tree_leaves", "tree_flatten", "tree_unflatten", "keyed_leaves"]
 
 
 def _rebuild(cls, kids):
@@ -59,3 +59,28 @@ def tree_unflatten(structure: Any, leaves) -> Any:
 
 def tree_leaves(tree: Any) -> List[Any]:
     return tree_flatten(tree)[0]
+
+
+def _keyed(t, prefix: str, out: List[Tuple[str, Any]]) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _keyed(t[k], f"{prefix}[{k!r}]", out)
+    elif isinstance(t, tuple) and hasattr(t, "_fields"):  # NamedTuple
+        for name, x in zip(t._fields, t):
+            _keyed(x, f"{prefix}.{name}", out)
+    elif isinstance(t, (tuple, list)):
+        for i, x in enumerate(t):
+            _keyed(x, f"{prefix}[{i}]", out)
+    else:
+        out.append((prefix, t))
+
+
+def keyed_leaves(tree: Any) -> List[Tuple[str, Any]]:
+    """``(key, leaf)`` in :func:`tree_leaves` order, each key formatted as
+    ``jax.tree_util.keystr`` formats the leaf's path: ``['k']`` for a dict
+    key, ``[i]`` for a sequence index, ``.name`` for a NamedTuple field (so
+    ``AdamWState.m``'s leaves read ``.m[0]['blocks']...``).  The checkpoint
+    store keys its arrays by it, as the JAX store does."""
+    out: List[Tuple[str, Any]] = []
+    _keyed(tree, "", out)
+    return out

@@ -1,5 +1,7 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro``, the serving and training
+neither ``jax`` nor the JAX package ``repro`` (the planner, the driver and
+the checkpoint store included, also once the planner has shape-evaluated a
+model), the serving and training
 entry points do not carry on on the CPU when the card they ask for is
 missing, and the training launcher takes every schedule of the JAX
 launcher when the CPU is asked for."""
@@ -25,7 +27,11 @@ def test_imports_pull_in_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.interop, chip_smoke\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.core.planner, repro_torch.core.memory\n"
+        "import repro_torch.runtime, repro_torch.checkpoint, repro_torch.optim.sharding\n"
+        "from repro_torch.core.planner import fixed_state_bytes\n"
+        "from repro_torch.configs import get_reduced\n"
+        "fixed_state_bytes(get_reduced('internlm2_1_8b'), 4, 2)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

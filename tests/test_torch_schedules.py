@@ -2,8 +2,8 @@
 
 Every builder of ``repro_torch.core.schedules`` -- ZB-V (searched and
 handcrafted), V-Min, V-Half, the stable-pattern V schedules, ``v_flex`` at
-two limits, ZB-1p, ZB-2p and one greedy configuration on each placement --
-gives the JAX package's op list on every stage, the same tick assignment and
+two limits, interleaved 1F1B, ZB-1p, ZB-2p and one greedy configuration on
+each placement -- gives the JAX package's op list on every stage, the same tick assignment and
 every ``compile_plan`` table equal array for array, over a (p, m) grid with
 p in {2, 3, 4, 6}, a few m < 2p and one p=8 case.  Where the JAX builder
 raises, the port raises the same exception type.  The simulator's costs
@@ -55,6 +55,7 @@ BUILDERS = {
     "stable-v-half": lambda mod, p, m: mod.stable_v_schedule(p, m, "v-half"),
     "v-flex-2": lambda mod, p, m: mod.v_flex(p, m, 2.0),
     "v-flex-p": lambda mod, p, m: mod.v_flex(p, m, float(p)),
+    "interleaved": lambda mod, p, m: mod.interleaved_1f1b(p, m),
     "zb-1p": lambda mod, p, m: mod.zb_1p(p, m),
     "zb-2p": lambda mod, p, m: mod.zb_2p(p, m),
     "greedy-linear": lambda mod, p, m: _greedy(mod, p, m, vshape=False),

@@ -80,6 +80,7 @@ def assert_same_plan(mine, ref):
             assert a == b, f.name
     # the port keeps every table the JAX executor reads
     assert mine_fields == {f.name for f in dataclasses.fields(ref)}
+    assert mine.inbox_slot_total() == ref.inbox_slot_total()
     assert mine.total_ops == ref.total_ops
     assert mine.bubble_fraction == ref.bubble_fraction
 
