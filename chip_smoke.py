@@ -71,14 +71,35 @@ Phases, in order; any failed check raises and the exit code is not 0:
               not gated.
 14. launch  -- ``launch.train.main`` at full width and depth under a memory
               budget at which the planner picks a zero-bubble schedule,
-              with a checkpoint directory: losses fall, both kernels'
-              launch counts match the chosen schedule (every W op on
-              wgmma), the final checkpoint restores bit for bit; save and
-              restore seconds and bytes.
-15. replay  -- the fault-tolerant driver at full width, 2 layers a stage: a
-              failure at step 3 is restored from the step-2 checkpoint and
+              with a checkpoint directory; on the card the launcher
+              runs the graph executor (its last line says
+              ``executor=graph``):
+              losses fall, both kernels' launch counts match the chosen
+              schedule's one capture (every W op on wgmma), the final
+              checkpoint restores bit for bit; save and restore seconds
+              and bytes.
+15. replay  -- the fault-tolerant driver at full width, 2 layers a stage,
+              under the eager and then the graph executor: a failure at
+              step 3 is restored from the step-2 checkpoint onto fresh
+              tensors at other addresses (the failed state is held until
+              they exist), which in graph mode forces one more capture;
               the replayed losses and grad norms equal an uninterrupted
-              run's (within 1e-6 relative: index_add_ atomics).
+              run's of the same mode, and the uninterrupted graph run the
+              eager one's (within 1e-6 relative: index_add_ atomics).
+16. train-graph -- phase 9's run under every schedule again, with the
+              pipeline captured once into a CUDA graph and replayed
+              (``executor_mode="graph"``): the step-0 gradient equals a
+              fresh eager walk's bit for bit (the embedding's within 1e-6
+              relative), the step-0 loss equals phase 9's bit for bit, the
+              losses and grad norms of phase 9's later steps within 1e-6
+              relative, over 8 steps (7 replayed); each capture
+              launches both kernels as often as one eager step (all W ops
+              on wgmma) and the replays launch nothing from Python; capture
+              seconds, replay step time (median of 7) beside phase 9's
+              eager one (median of 2),
+              tokens/s, allocated and reserved peaks; for zb-h1 and zb-v a
+              profiled replayed step (host spans, device busy share, kernel
+              counts, the two kernels' among them).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -87,8 +108,10 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import pathlib
 import shutil
@@ -133,7 +156,8 @@ from repro_torch.models.lm import (  # noqa: E402
 from repro_torch.models.modules import ShardCtx  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import DriverConfig, TrainDriver, replan_under_budget  # noqa: E402
-from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten  # noqa: E402
+from repro_torch.tree import keyed_leaves, tree_flatten, tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import tree_unflatten  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores,
 # dense bf16 tensor-core rate
@@ -207,6 +231,12 @@ PLAN_BUDGETS_GIB = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 80)
 # 16384 MiB it picks zb-v (internlm2-1.8b, p=4, m=8, 1 x 1024: 14.6 GiB a
 # device; 12 GiB gives v-flex@1.8Mb at bubble 0.45, 8 GiB nothing)
 L_BUDGET_MB, L_STEPS = 16384, 4
+# the graph executor against phase 9's eager runs: step-0 gradients and loss
+# bit for bit but the embedding gradient (index_add_ atomics, ~1e-7
+# relative), and every later loss and grad norm, within 1e-6 relative; it
+# runs G_STEPS steps, the first T_STEPS against phase 9, and its step time is
+# the median of the G_STEPS - 1 replayed steps after the capturing one
+G_RTOL, G_STEPS = 1e-6, 8
 # the driver's failure replay: full width, 2 layers a stage (an 8.8 GB
 # checkpoint against the full depth's 19 GB), a failure at step 3 restored
 # from the step-2 checkpoint.  On the card the step is deterministic but for
@@ -633,17 +663,24 @@ def plan_units(sched, plan):
     return float(act[t]), float(wctx[t]), profile
 
 
-def _train_full(cfg, name: str, seq: int, tcfg=None):
-    sched = make_schedule(name, T_P, T_M)
+def _init_full(cfg, sched, seq: int):
+    """(stacked, shared, spec, data) of the train cell under ``sched``: every
+    schedule starts from the seed-0 model of the linear placement, relaid
+    layer by layer onto its own placement."""
     spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=seq, m=T_M)
-    plan = compile_plan(sched)
-    step, _ = build_train_step(cfg, spec, plan, sched.placement, tcfg or TrainStepConfig())
-    # every schedule starts from the seed-0 model of the linear placement
     lin_spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
     stacked, shared = init_params(cfg, lin_spec, Placement.linear(T_P), seed=0, device=DEV)
     if sched.n_chunks != 1:
         stacked = relay_to_placement(cfg, stacked, sched.placement)
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
+    return stacked, shared, spec, data
+
+
+def _train_full(cfg, name: str, seq: int, tcfg=None):
+    sched = make_schedule(name, T_P, T_M)
+    plan = compile_plan(sched)
+    stacked, shared, spec, data = _init_full(cfg, sched, seq)
+    step, _ = build_train_step(cfg, spec, plan, sched.placement, tcfg or TrainStepConfig())
     torch.cuda.synchronize()
     base_gb = torch.cuda.memory_allocated() / 1e9
     print(f"[train] {name}: {base_gb:.2f} GB allocated after init (bf16 weights; "
@@ -670,6 +707,7 @@ def phase_train(cfg):
             torch.cuda.empty_cache()
             seq = 512
             res, launches, peak_gb, base_gb, plan, state = _train_full(cfg, name, seq)
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9  # the same window as peak_gb
         sched = state[3]
         want = _check_counts(name, launches, expected_train_launches(cfg, T_P, sched.n_chunks, T_M),
                              T_STEPS)
@@ -680,6 +718,7 @@ def phase_train(cfg):
         print(f"[train] {name} p={T_P} m={T_M} b={T_B} seq={seq}: ms_per_step "
               f"median={med * 1e3:.1f} all={[round(t * 1e3, 1) for t in res.step_s]} "
               f"tokens_per_s={tokens / med:.0f} max_memory_allocated_GB={peak_gb:.2f} "
+              f"max_memory_reserved_GB={reserved_gb:.2f} "
               f"losses={res.losses} grad_norms={res.grad_norms} amended={res.amended} "
               f"launches wgrad_accum={launches[0]} {launches[2]} rmsnorm={launches[1]} "
               f"(expected {want})")
@@ -691,6 +730,7 @@ def phase_train(cfg):
               f"profile summed over stages {profile:g} M_B; {plan.n_ticks} ticks, simulated "
               f"bubble rate {bubble:.4f} (unit times, several cards)")
         out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb, base_gb=base_gb,
+                         reserved_gb=reserved_gb,
                          sched=sched, plan=plan, n_params=sum(
                              t.numel() for t in tree_leaves((state[0], state[1]))),
                          param_bytes=sum(t.numel() * t.element_size()
@@ -839,8 +879,10 @@ def _check_v_grads(cfg, stacked, shared, side, g_lin, sg_lin, loss_lin):
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(name, plan, state):
-    """Device busy share of one full-width training step under ``name``."""
+def phase_profile_train(name, plan, state, tag="profile-train"):
+    """Device busy share of one full-width training step under ``name``;
+    returns {kernel name: launches} of that step as the profiler saw them
+    (empty when it recorded no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked, shared, spec, sched, step, data = state
@@ -856,25 +898,27 @@ def phase_profile_train(name, plan, state):
     for e in prof.events():
         if e.name.startswith("train_step.") and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    print(f"[profile-train] {name} host spans: " + ", ".join(
+    print(f"[{tag}] {name} host spans: " + ", ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in sorted(spans.items())))
     # the spans show up on the device timeline too, as annotations: not kernels
     iv = [x for x in _device_intervals(prof) if not x[2].startswith("train_step.")]
     if not iv:
-        print("[profile-train] the profiler recorded no device activity: busy share not measured")
-        return
+        print(f"[{tag}] the profiler recorded no device activity: busy share not measured")
+        return {}
     busy = _union_us(iv)
-    by_name = {}
+    by_name, n_by_name = {}, {}
     for s_, e_, kernel in iv:
         by_name[kernel] = by_name.get(kernel, 0.0) + (e_ - s_)
+        n_by_name[kernel] = n_by_name.get(kernel, 0) + 1
     total = sum(by_name.values())
     wg = sum(us for kernel, us in by_name.items() if "wgrad" in kernel)
-    print(f"[profile-train] {name} step ({plan.n_ticks} ticks, {plan.total_ops} chunk ops of "
+    print(f"[{tag}] {name} step ({plan.n_ticks} ticks, {plan.total_ops} chunk ops of "
           f"{plan.n_chunks} chunk(s) a stage): wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f}); wgrad_accum kernels "
-          f"{wg / 1e3:.1f} ms = {wg / total:.1%} of device time")
+          f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f}); {len(iv)} device "
+          f"activities; wgrad_accum kernels {wg / 1e3:.1f} ms = {wg / total:.1%} of device time")
     for kernel, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile-train] {us / total:6.1%} {us / 1e3:9.2f} ms  {kernel[:100]}")
+        print(f"[{tag}] {us / total:6.1%} {us / 1e3:9.2f} ms {n_by_name[kernel]:6d}x  {kernel[:100]}")
+    return n_by_name
 
 
 def _device_intervals(prof):
@@ -1038,23 +1082,35 @@ def _dir_bytes(path) -> int:
 def phase_launch_budget(cfg):
     """``launch.train.main`` at full width and depth under a memory budget
     at which the planner picks a zero-bubble schedule, checkpointing into a
-    temporary directory; the final checkpoint restores bit for bit.  The
-    launches are the steps' plus those of the planner's slot measurement on
+    temporary directory, on the card under the graph executor; the
+    final checkpoint restores bit for bit.  The launches are those of the
+    one capture (a warm-up walk and the captured one: the replays launch
+    nothing from Python) plus those of the planner's slot measurement on
     the card."""
     ckpt = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    out = io.StringIO()
     try:
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        res = train_main(["--arch", ARCH, "--pipe-size", str(T_P), "--m", str(T_M),
-                          "--microbatch", str(T_B), "--seq-len", str(T_SEQ), "--steps",
-                          str(L_STEPS), "--lr", "1e-3", "--memory-budget-mb", str(L_BUDGET_MB),
-                          "--ckpt-dir", ckpt, "--device", DEV])
+        try:
+            with contextlib.redirect_stdout(out):
+                res = train_main(["--arch", ARCH, "--pipe-size", str(T_P), "--m", str(T_M),
+                                  "--microbatch", str(T_B), "--seq-len", str(T_SEQ), "--steps",
+                                  str(L_STEPS), "--lr", "1e-3", "--memory-budget-mb",
+                                  str(L_BUDGET_MB), "--ckpt-dir", ckpt, "--device", DEV])
+        finally:
+            print(out.getvalue(), end="")
         launches = _read_counts()
+        lines = out.getvalue().splitlines()
+        check(lines[-1].endswith(" executor=graph"),
+              f"the launcher's last line does not say executor=graph: {lines[-1]!r}")
+        check(any("graph's memory pool; max_memory_reserved" in ln for ln in lines),
+              "the launcher printed no graph pool bytes after its first step")
         sched = res.schedule
         check(sched.name not in ("1f1b", "1f1b-interleaved"),
               f"the planner picked {sched.name} at {L_BUDGET_MB} MiB, not a zero-bubble schedule")
         want = _check_counts(f"launcher {sched.name}", launches,
-                             expected_train_launches(cfg, T_P, sched.n_chunks, T_M), L_STEPS,
+                             expected_train_launches(cfg, T_P, sched.n_chunks, T_M), 2,
                              extra=expected_measure_launches(cfg, T_P))
         check(res.losses[-1] < res.losses[0], f"launcher losses did not fall: {res.losses}")
         step = store.latest_step(ckpt)
@@ -1073,7 +1129,8 @@ def phase_launch_budget(cfg):
               f"{L_BUDGET_MB} MiB: losses {res.losses}, ms per step "
               f"{[round(t * 1e3, 1) for t in res.step_s]}, peak "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches wgrad_accum "
-              f"{launches[0]} {launches[2]} rmsnorm {launches[1]} (expected {want}); checkpoint "
+              f"{launches[0]} {launches[2]} rmsnorm {launches[1]} (expected {want}: the "
+              f"planner's measurement and one capture's warm-up and captured walks); checkpoint "
               f"step {step}: {nbytes / 1e9:.2f} GB, save {res.save_s} s, restore {restore_s:.2f} s "
               f"({nbytes / 1e9 / restore_s:.2f} GB/s); {exact} of {len(leaves)} leaves restored "
               f"bit for bit")
@@ -1087,18 +1144,68 @@ def phase_launch_budget(cfg):
 
 def phase_replay(cfg):
     """The driver's failure replay at full width, depth cut to
-    R_LAYERS_PER_STAGE layers a stage: a failure at step R_FAIL_AT restores
-    the step-R_EVERY checkpoint; the replayed losses and grad norms must
-    equal an uninterrupted run's."""
+    R_LAYERS_PER_STAGE layers a stage, under each executor mode: a failure
+    at step R_FAIL_AT restores the step-R_EVERY checkpoint onto fresh
+    tensors (in graph mode they must be captured again); the replayed
+    losses and grad norms must equal an uninterrupted run's of the same
+    mode, and the graph's uninterrupted run the eager one's.  Returns both
+    kernels' launches over the four runs."""
     cut = dataclasses.replace(cfg, n_layers=R_LAYERS_PER_STAGE * T_P)
     sched = make_schedule(R_SCHEDULE, T_P, T_M)
     spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
-    step, _ = build_train_step(cut, spec, compile_plan(sched), sched.placement, TrainStepConfig())
+    plan = compile_plan(sched)
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=T_SEQ, vocab=cut.vocab))
-    step_fn, data_at = make_step_fn(step), make_data_at(data, spec, DEV)
+    data_at = make_data_at(data, spec, DEV)
+    per_step = expected_train_launches(cut, T_P, sched.n_chunks, T_M)
+    total = (0, 0, {k: 0 for k in wgrad_kernel.PATHS})
+    clean_by_mode = {}
+    for mode in ("eager", "graph"):
+        launches, clean_by_mode[mode] = _replay_one_mode(cut, sched, spec, plan, data_at, mode,
+                                                        per_step)
+        total = (total[0] + launches[0], total[1] + launches[1],
+                 {k: total[2][k] + launches[2][k] for k in total[2]})
+    gaps = [abs(g[key] - e[key]) / abs(e[key])
+            for g, e in zip(clean_by_mode["graph"], clean_by_mode["eager"])
+            for key in ("loss", "grad_norm")]
+    print(f"[replay] uninterrupted graph run vs eager run: max rel gap {max(gaps):.3g} (limit "
+          f"{R_RTOL})")
+    check(max(gaps) <= R_RTOL, "the graph executor's uninterrupted run differs from the eager one")
+    return total
+
+
+def _replay_one_mode(cut, sched, spec, plan, data_at, mode, per_step):
+    """Phase 15 under one executor mode: an uninterrupted run and one that
+    fails once; returns both kernels' launches and the uninterrupted run's
+    metrics by step."""
+
+    def make_step():
+        step, _ = build_train_step(cut, spec, plan, sched.placement,
+                                   TrainStepConfig(executor_mode=mode))
+        return step
+
+    held = []
 
     def fresh():
-        return init_state(*init_params(cut, spec, sched.placement, seed=0, device=DEV))
+        # the state this one replaces stays alive until it exists, so a
+        # restore always lands at other addresses and a graph must capture
+        # again (the allocator could otherwise hand back the same blocks)
+        state = init_state(*init_params(cut, spec, sched.placement, seed=0, device=DEV))
+        held[:] = [state]
+        return state
+
+    def tracked(step):
+        """make_step_fn(step), logging the parameters' addresses at every step."""
+        step_fn, ptrs = make_step_fn(step), []
+
+        def fn(state, side):
+            ptrs.append(tuple(t.data_ptr() for t in tree_leaves((state["params"],
+                                                                 state["shared"]))))
+            return step_fn(state, side)
+
+        return fn, ptrs
+
+    def moves(ptrs):
+        return sum(a != b for a, b in zip(ptrs, ptrs[1:]))
 
     ckpt = tempfile.mkdtemp(prefix="repro_torch_replay_")
     failed = []
@@ -1110,29 +1217,50 @@ def phase_replay(cfg):
 
     try:
         _reset_counts()
-        clean_state, clean_log = TrainDriver(DriverConfig(ckpt_dir=None), step_fn, fresh,
-                                             data_at).run(R_STEPS)
-        del clean_state
+        step = make_step()
+        fn, clean_ptrs = tracked(step)
+        _, clean_log = TrainDriver(DriverConfig(ckpt_dir=None), fn, fresh, data_at).run(R_STEPS)
+        clean_captures = getattr(step.grad_fn, "captures", None)
+        held.clear()
+        del step, fn  # the uninterrupted run's state, graph and pool
         torch.cuda.empty_cache()
-        driver = TrainDriver(DriverConfig(ckpt_dir=ckpt, ckpt_every=R_EVERY, max_retries=1),
-                             step_fn, fresh, data_at)
+        step = make_step()
+        fn, ptrs = tracked(step)
+        driver = TrainDriver(DriverConfig(ckpt_dir=ckpt, ckpt_every=R_EVERY, max_retries=1), fn,
+                             fresh, data_at)
         _, log = driver.run(R_STEPS, fail_hook=fail_once)
+        captures = getattr(step.grad_fn, "captures", None)
+        held.clear()
+        del step, fn
         launches = _read_counts()
         ran = [k for k, _ in log]
         resumed = R_FAIL_AT // R_EVERY * R_EVERY  # the newest checkpoint at the failure
         check(failed == [R_FAIL_AT] and ran == list(range(R_FAIL_AT)) + list(range(resumed, R_STEPS)),
-              f"replay ran steps {ran}")
-        _check_counts("replay", launches, expected_train_launches(cut, T_P, sched.n_chunks, T_M),
-                      R_STEPS + len(ran))
+              f"{mode} replay ran steps {ran}")
+        check(moves(clean_ptrs) == 0 and moves(ptrs) == 1,
+              f"{mode}: the parameters moved {moves(clean_ptrs)} time(s) uninterrupted and "
+              f"{moves(ptrs)} with the failure; want 0 and 1 (the restore onto fresh tensors)")
+        if mode == "graph":
+            check(clean_captures == 1 + moves(clean_ptrs) and captures == 1 + moves(ptrs),
+                  f"captures: {clean_captures} uninterrupted, {captures} with the failure; want "
+                  f"one and one more for each move of the parameters")
+            # two walks (warm-up and captured) a capture; replays launch nothing from Python
+            walks = 2 * (clean_captures + captures)
+        else:
+            walks = R_STEPS + len(log)  # one walk a step
+        _check_counts(f"{mode} replay", launches, per_step, walks)
         clean = dict(clean_log)
         gaps, exact = [], 0
         for k, met in log:
             for key in ("loss", "grad_norm"):
                 gaps.append(abs(met[key] - clean[k][key]) / abs(clean[k][key]))
                 exact += met[key] == clean[k][key]
+        graphs = (f" ({clean_captures} capture uninterrupted, {captures} with the failure)"
+                  if mode == "graph" else "")
         print(f"[replay] {R_SCHEDULE} {cut.n_layers} layers ({R_LAYERS_PER_STAGE} a stage, depth cut "
-              f"to keep checkpoints small), full width: {R_STEPS} steps, checkpoint every "
-              f"{R_EVERY}, failure at step {R_FAIL_AT}; steps run {ran}; losses clean "
+              f"to keep checkpoints small), full width, executor {mode}{graphs}: {R_STEPS} steps, "
+              f"checkpoint every {R_EVERY}, failure at step {R_FAIL_AT}; steps run {ran}; "
+              f"parameters moved {moves(ptrs)} time(s); losses clean "
               f"{[clean[k]['loss'] for k in range(R_STEPS)]} replayed "
               f"{[m['loss'] for _, m in log]}; grad norms clean "
               f"{[clean[k]['grad_norm'] for k in range(R_STEPS)]} replayed "
@@ -1141,11 +1269,162 @@ def phase_replay(cfg):
               f"sums colliding rows with atomics in no fixed order); checkpoint "
               f"{_dir_bytes(pathlib.Path(ckpt) / f'step_{R_STEPS:08d}') / 1e9:.2f} GB, saves "
               f"{[round(t, 2) for t in driver.save_times]} s")
-        check(max(gaps) <= R_RTOL, "the replayed steps differ from the uninterrupted run")
-        return launches
+        check(max(gaps) <= R_RTOL, f"{mode}: the replayed steps differ from the uninterrupted run")
+        return launches, [clean[k] for k in range(R_STEPS)]
     finally:
+        held.clear()
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def _count_walks(grad_fn):
+    """Wrap a graph-mode ``grad_fn``'s eager walk; the returned list gets,
+    for each walk it runs (warm-up, capture, warm-up, capture, ...), both
+    kernels' launches during it and its host seconds."""
+    walk, log = grad_fn.walk, []
+
+    def counted(*args):
+        before, t0 = _read_counts(), time.perf_counter()
+        out = walk(*args)
+        after = _read_counts()
+        log.append(((after[0] - before[0], after[1] - before[1],
+                     {k: after[2][k] - before[2][k] for k in after[2]}), time.perf_counter() - t0))
+        return out
+
+    grad_fn.walk = counted
+    return log
+
+
+def _kernel_launches(n_by_name, needle):
+    return sum(n for kernel, n in n_by_name.items() if needle in kernel)
+
+
+def _profile_replay(name, grad_fn, stacked, shared, side):
+    """The pipeline alone under torch.profiler: one graph-mode ``grad_fn``
+    call (the side-input copies, the replay, the loss's clone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grad_fn(stacked, shared, side)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    iv = _device_intervals(prof)
+    if not iv:
+        print(f"[profile-graph] {name} pipeline alone: no device activity recorded, not measured")
+        return
+    busy = _union_us(iv)
+    print(f"[profile-graph] {name} pipeline alone (one grad_fn call: side copies, replay, loss "
+          f"clone): {len(iv)} device activities, wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f})")
+
+
+def phase_train_graph(cfg, runs):
+    """Phase 9's runs again under ``executor_mode="graph"``, schedule by
+    schedule from the same seed-0 weights, against phase 9 and a fresh
+    eager walk; returns {schedule: both kernels' launches over its walks}."""
+    out = {}
+    for name in T_SCHEDULES:
+        eager = runs[name]
+        seq, sched, plan = eager["seq"], eager["sched"], eager["plan"]
+        per_step = expected_train_launches(cfg, T_P, sched.n_chunks, T_M)
+        stacked, shared, spec, data = _init_full(cfg, sched, seq)
+        side0 = side_from_batch(data.batch_at(0), spec, DEV)
+        # the step-0 gradient of a fresh eager walk, kept on the host; the
+        # walk must not wait for the device (a capture would refuse it)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g_e, sg_e, loss_e = PipelineExecutor(build_program(cfg, spec, sched.placement),
+                                                 plan).build_grad_fn()(stacked, shared, side0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref = [(k, t.cpu()) for k, t in keyed_leaves((g_e, sg_e))]
+        loss_e = float(loss_e)
+        del g_e, sg_e
+        step, _ = build_train_step(cfg, spec, plan, sched.placement,
+                                   TrainStepConfig(executor_mode="graph"))
+        walks = _count_walks(step.grad_fn)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g_g, sg_g, loss_g = step.grad_fn(stacked, shared, side0)  # capture, then replay
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        exact, embed_gap = 0, None
+        for (k, want), (k2, got) in zip(ref, keyed_leaves((g_g, sg_g))):
+            check(k == k2, f"{name}: gradient leaves {k} and {k2} out of order")
+            got = got.cpu()
+            if k == "[1]['embed']":  # index_add_ atomics: no fixed order of the fp32 sums
+                embed_gap = float((got - want).double().norm() / want.double().norm())
+                check(embed_gap <= G_RTOL, f"{name}: graph embedding gradient off by {embed_gap}")
+            else:
+                check(torch.equal(got, want), f"{name}: graph gradient leaf {k} differs from eager")
+                exact += 1
+        check(embed_gap is not None, f"{name}: no embedding gradient leaf")
+        check(float(loss_g) == loss_e, f"{name}: graph step-0 loss {float(loss_g)!r} != eager "
+              f"{loss_e!r}")
+        del g_g, sg_g, ref
+        _reset_counts()
+        res = train(cfg, spec, step, stacked, shared, data, G_STEPS,
+                    log=lambda s: print(f"[train-graph] {name}: {s}"))
+        replay_launches = _read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        gf = step.grad_fn
+        check(gf.captures == 1 and len(walks) == 2,
+              f"{name}: {gf.captures} captures and {len(walks)} walks, want 1 and 2")
+        for what, (launches, _) in zip(("warm-up", "capture"), walks):
+            want = _check_counts(f"{name} {what}", launches, per_step, 1)
+        check(replay_launches == (0, 0, {k: 0 for k in wgrad_kernel.PATHS}),
+              f"{name}: the replayed steps launched {replay_launches} from Python")
+        e_res = eager["res"]
+        check(res.losses[0] == e_res.losses[0] == loss_e,
+              f"{name}: graph step-0 loss {res.losses[0]!r} != phase 9's {e_res.losses[0]!r}")
+        gaps_l = [abs(a - b) / abs(b) for a, b in zip(res.losses[1:T_STEPS], e_res.losses[1:])]
+        gaps_g = [abs(a - b) / abs(b) for a, b in zip(res.grad_norms[:T_STEPS], e_res.grad_norms)]
+        check(len(gaps_l) == T_STEPS - 1 and len(gaps_g) == T_STEPS,
+              f"{name}: {len(e_res.losses)} eager steps to compare, want {T_STEPS}")
+        check(all(np.isfinite(res.losses + res.grad_norms)), f"{name}: non-finite graph metrics")
+        check(max(gaps_l + gaps_g) <= G_RTOL,
+              f"{name}: graph losses/grad norms differ from phase 9's by {max(gaps_l + gaps_g)}")
+        med, e_med = float(np.median(res.step_s[1:])), float(np.median(e_res.step_s[1:]))
+        tokens = T_M * T_B * seq
+        print(f"[train-graph] {name} p={T_P} m={T_M} b={T_B} seq={seq}: capture "
+              f"{gf.capture_s[0]:.2f} s (host: warm-up walk {walks[0][1]:.2f} s, captured walk "
+              f"{walks[1][1]:.2f} s), first call {first_s:.2f} s; ms_per_step replay median(steps "
+              f"1-{G_STEPS - 1})={med * 1e3:.1f} all={[round(t * 1e3, 1) for t in res.step_s]} | "
+              f"eager (phase 9) median(steps 1-{T_STEPS - 1})={e_med * 1e3:.1f} median="
+              f"{float(np.median(e_res.step_s)) * 1e3:.1f}; tokens_per_s graph={tokens / med:.0f} "
+              f"eager={tokens / e_med:.0f}; peak GB graph allocated={peak_gb:.2f} reserved="
+              f"{reserved_gb:.2f} | eager allocated={eager['peak_gb']:.2f} reserved="
+              f"{eager['reserved_gb']:.2f}; launches per capture and per warm-up "
+              f"wgrad_accum={walks[1][0][0]} {walks[1][0][2]} rmsnorm={walks[1][0][1]} (expected "
+              f"{want}), from Python during the replayed steps {replay_launches[:2]}")
+        print(f"[train-graph] {name} checks: step-0 loss {res.losses[0]!r} == eager walk == "
+              f"phase 9; step-0 gradient {exact} of {exact + 1} leaves bit for bit, embedding "
+              f"rel_l2 {embed_gap:.3g} (limit {G_RTOL}); later losses rel gaps "
+              f"{[f'{e:.3g}' for e in gaps_l]}, grad norms {[f'{e:.3g}' for e in gaps_g]} (limit "
+              f"{G_RTOL}); losses {res.losses} grad_norms {res.grad_norms} amended {res.amended}")
+        if name in T_PROFILED:
+            n_by_name = phase_profile_train(name, plan, (stacked, shared, spec, sched, step, data),
+                                            tag="profile-graph")
+            if n_by_name:
+                got = (_kernel_launches(n_by_name, "wgrad_wgmma_kernel"),
+                       _kernel_launches(n_by_name, "rmsnorm_fwd_kernel"))
+                check(got == per_step, f"{name}: a profiled replay ran (wgrad_wgmma, rmsnorm) "
+                      f"kernels {got}, the structure implies {per_step}")
+                print(f"[profile-graph] {name}: one replayed step ran {got[0]} wgrad_wgmma_kernel "
+                      f"and {got[1]} rmsnorm_fwd_kernel (expected {per_step}); "
+                      f"{gf.captures} capture(s) in all")
+            _profile_replay(name, gf, stacked, shared, side_from_batch(data.batch_at(G_STEPS),
+                                                                      spec, DEV))
+        out[name] = (sum(w[0][0] for w in walks), sum(w[0][1] for w in walks),
+                     {k: sum(w[0][2][k] for w in walks) for k in wgrad_kernel.PATHS})
+        del step, gf, stacked, shared, res
+        torch.cuda.empty_cache()
+    return out
 
 
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
@@ -1197,9 +1476,12 @@ def main() -> int:
     more = {"launcher": phase_launch_budget(cfg_full)}
     print(f"[time] launcher phase done at {time.perf_counter() - t_start:.1f}s")
     more["replay"] = phase_replay(cfg_full)
+    print(f"[time] replay phase done at {time.perf_counter() - t_start:.1f}s")
+    graph_runs = phase_train_graph(cfg_full, runs)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
-    counted = {**{f"train-{n}": r["launches"] for n, r in runs.items()}, **more}
+    counted = {**{f"train-{n}": r["launches"] for n, r in runs.items()}, **more,
+               **{f"train-graph-{n}": c for n, c in graph_runs.items()}}
     wgrad_by_run = {n: c[0] for n, c in counted.items()}
     wgrad_by_path = {k: sum(c[2][k] for c in counted.values()) for k in wgrad_kernel.PATHS}
     rms_by_run = {"serve": serve_launches, **{n: c[1] for n, c in counted.items()}}

@@ -20,11 +20,21 @@ this one is re-designed for one device:
   * outputs are handed on only after every stage of the tick ran, as
     ``send_local``/``send_channel``/``recv_*`` say -- the JAX version's
     end-of-tick ``ppermute`` (the serving executor follows the same rule);
-  * gradients accumulate in fp32 (``acc_dt``): W adds each block's products
-    through the wgrad-accumulation kernel (the JAX default ``fuse_wgrad``,
-    the only mode here); the embedding
+  * gradients accumulate in fp32 (``acc_dt``) in one (p, ...) tensor per
+    leaf and chunk, allocated once a step, stage s in its view [s]: W adds
+    each block's products through the wgrad-accumulation kernel (the JAX
+    default ``fuse_wgrad``, the only mode here); the embedding
     gradient is added at ``op_is_last_b`` and the sink's at ``op_is_loss``
     W.  The loss is the sum of the sink's per-microbatch ``loss / m``.
+
+The JAX executor's modes (``scan`` / ``unroll`` / ``specialized``): the
+host walk above already dispatches each tick on host constants and hands
+on only what the plan sends (the JAX ``specialized`` trace's per-tick
+column, run op by op).  :class:`GraphedGradFn` wraps that walk as the JAX
+``specialized`` program's counterpart, compiled once and run once a step:
+the walk recorded into a CUDA graph and replayed (``launch/steps.py``
+wraps it under ``executor_mode="graph"``).  The generic ``lax.scan`` tick
+body has no counterpart: the port has no traced tick body.
 
 Byte accounting (the JAX executor's ``_tree_bytes``, ``state_shapes``,
 ``channel_message_bytes``, ``buffer_bytes``): the port holds no explicit
@@ -40,11 +50,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map
 from .passes import FBWModule, loss_seed
 from .schedules.ir import (
     CHANNEL_BWD_DOWN,
@@ -56,7 +67,7 @@ from .schedules.ir import (
     OpKind,
 )
 
-__all__ = ["PipelineProgram", "PipelineExecutor", "slot_bytes"]
+__all__ = ["PipelineProgram", "PipelineExecutor", "GraphedGradFn", "slot_bytes"]
 
 PyTree = Any
 
@@ -261,9 +272,13 @@ class PipelineExecutor:
         @torch.no_grad()  # each F builds its own graph (passes.autograd_fbw)
         def grad_fn(stacked, shared, side_all):
             local = [[tree_map(lambda a: a[s], stacked[c]) for s in range(p)] for c in range(C)]
-            acc = [[tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
-                                                   device=a.device), local[c][s])
-                    for s in range(p)] for c in range(C)]
+            # one (p, ...) fp32 accumulator per leaf and chunk, allocated once;
+            # stage s adds into its contiguous view [s], and the stacked
+            # tensors are the step's gradients
+            grads = tuple(tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
+                                                         device=a.device), stacked[c])
+                          for c in range(C))
+            acc = [[tree_map(lambda a: a[s], grads[c]) for s in range(p)] for c in range(C)]
             shared_acc = tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
                                                         device=a.device), shared)
             loss = torch.zeros((), dtype=torch.float32, device=shared["embed"].device)
@@ -314,8 +329,14 @@ class PipelineExecutor:
                             sends[s] = dx.to(prog.act_dtype)
                     else:  # W: the W-context alone, no residuals
                         w = _take(wctx[s], int(plan.op_wctx_slot_joint[s, t]), "wctx")
-                        acc[c][s] = prog.chunks[c].bwd_w(params, w, side_mb, acc=acc[c][s])
+                        out = prog.chunks[c].bwd_w(params, w, side_mb, acc=acc[c][s])
                         del w
+                        # the block linears come back in place; the rest (norm
+                        # gains, masks) is added out of place: into the view
+                        for dst, src in zip(tree_leaves(acc[c][s]), tree_leaves(out)):
+                            if src is not dst:
+                                dst.copy_(src)
+                        del out
                         if is_loss:
                             sw = _take(sink_wctx[s], int(plan.op_sink_wctx_slot[s, t]), "sink wctx")
                             shared_acc = prog.sink.bwd_w(shared, sw, side_mb, acc=shared_acc)
@@ -347,9 +368,84 @@ class PipelineExecutor:
                 left = [s for s in range(p) if pools[s]]
                 if left:
                     raise RuntimeError(f"{what} slots still live after the last tick on stages {left}")
-            grads = tuple(
-                tree_map(lambda *leaves: torch.stack(leaves), *acc[c]) for c in range(C)
-            )
             return grads, shared_acc, loss
 
         return grad_fn
+
+
+class GraphedGradFn:
+    """A pipeline walk (:meth:`PipelineExecutor.build_grad_fn`) recorded
+    once into a ``torch.cuda.CUDAGraph`` and replayed on every later call:
+    the ``grad_fn`` of ``executor_mode="graph"``, with the same signature.
+
+    The graph reads the parameters at the addresses it saw at capture, so
+    the graph is keyed on the ``(data_ptr, shape, stride, dtype)`` of every
+    parameter leaf and the shape and dtype of every side input.  The
+    training step updates the parameters in place, so their addresses stay;
+    fresh tensors (the driver's ``init_state`` after a failure) change the
+    key, and the call drops the old graph and its memory pool before it
+    captures again.  It never runs the walk eagerly in place of a replay,
+    and raises on tensors that are not on a CUDA device.
+
+    A capture copies the side inputs into static buffers it owns, runs one
+    eager walk on its own stream as warm-up (the walk writes no parameter;
+    it loads the kernels, makes their first-call settings and sets up
+    cuBLAS for that stream), then records one walk on that stream into a
+    private memory pool: every tensor the walk allocates, the accumulators
+    and the returned gradients included, stays there at a fixed address.
+    Each call copies the side inputs into the static buffers and replays.
+    ``grads`` and ``shared_grads`` are the graph's static outputs, which
+    the next call overwrites; ``loss`` is a clone.  ``captures`` counts the
+    captures and ``capture_s`` holds the host seconds of each, warm-up
+    included; ``walk`` is the eager walk the captures run.
+    """
+
+    def __init__(self, walk: Callable):
+        self.walk = walk
+        self.captures = 0
+        self.capture_s: List[float] = []
+        self._key = None
+        self._graph = None
+        self._side = None
+        self._out = None
+        self._stream = None
+
+    def __call__(self, stacked, shared, side_all):
+        leaves, struct = tree_flatten((stacked, shared))
+        side, side_struct = tree_flatten(side_all)
+        off = sorted({str(t.device) for t in leaves + side if t.device.type != "cuda"})
+        if off:
+            raise ValueError(f"a CUDA graph of the walk needs CUDA tensors; got tensors on {off}")
+        key = (struct, side_struct,
+               tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in leaves),
+               tuple((tuple(t.shape), t.dtype) for t in side))
+        if key != self._key:
+            self._capture(stacked, shared, side_all, key)
+        else:
+            for dst, src in zip(tree_leaves(self._side), side):
+                dst.copy_(src)
+        self._graph.replay()
+        grads, shared_grads, loss = self._out
+        return grads, shared_grads, loss.clone()
+
+    def _capture(self, stacked, shared, side_all, key) -> None:
+        if self._graph is not None:  # two pools of a full-width step do not fit one card
+            self._graph = self._out = self._side = self._key = None
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dev = tree_leaves(shared)[0].device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        side = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype, device=a.device).copy_(a),
+                        side_all)
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            self.walk(stacked, shared, side)  # warm-up; its results are dropped
+        graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph synchronizes and empties the allocator's cache first
+        with torch.cuda.graph(graph, stream=self._stream):
+            out = self.walk(stacked, shared, side)
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        self._graph, self._out, self._side, self._key = graph, out, side, key
+        self.captures += 1
+        self.capture_s.append(time.perf_counter() - t0)

@@ -12,8 +12,10 @@ backward; a CUDA one is later work.
 accumulator in place and returns it, where the JAX reference returns a new
 array (and updates the donated buffer in place under ``jit``).  That is safe
 on the training path: the accumulators are fresh zeros made per step by
-``core/executor.py`` (one per block leaf), W is the only writer, nothing
-reads them before the step's gradients are returned, and
+``core/executor.py`` (one stacked fp32 tensor per block leaf and chunk,
+each stage writing its own view; in graph mode the same buffers at the
+addresses of capture, zeroed by every replay), W is the only writer,
+nothing reads them before the step's gradients are returned, and
 ``optim/postval.py``'s rollback and redo read only those returned
 gradients, never a W-pass intermediate.
 """

@@ -10,7 +10,16 @@ address, ``"mma_sync"`` for other bfloat16 shapes, ``"fma"`` for float32.
 It is a dispatch by shape, not a fallback: a launch that fails raises.
 :func:`wgrad_accum_cuda` launches on CUDA tensors only and counts each
 launch in the module-level integer ``launches`` and, per path, in
-``launches_by_path``.
+``launches_by_path``: Python calls, so under a CUDA graph
+(``core/executor.py::GraphedGradFn``) they move while the graph is
+captured and not when it is replayed.
+
+The ``wgmma`` path encodes its TMA tensor maps on the host from the raw
+addresses of a, g and acc at each launch, and passes them by value, so a
+captured launch replays with the maps of capture time.  That is right only
+while every a, g and acc sits at its captured address.  On the training
+path all three are allocated by the captured walk, so the graph's private
+memory pool holds them at those addresses on every replay.
 """
 
 from __future__ import annotations

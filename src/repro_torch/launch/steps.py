@@ -3,10 +3,12 @@
 Counterpart of ``src/repro/launch/steps.py``.  No ``shard_map`` and no
 ``jit``: one device holds all p pipeline stages and the host drives the
 executors (``core/executor.py`` for training, ``core/infer_executor.py`` for
-serving).  The training step mirrors the JAX one: grads of the pipelined
-step, the frozen ``mask`` leaves zeroed, per-stage gradient statistics with
-the shared parameters counted on stage 0, then AdamW under optimizer
-post-validation (``within_step``) or the blocking baseline (``sync``).
+serving); under ``executor_mode="graph"`` the training walk is captured
+once into a CUDA graph and replayed.  The training step mirrors the JAX
+one: grads of the pipelined step, the frozen ``mask`` leaves zeroed,
+per-stage gradient statistics with the shared parameters counted on stage
+0, then AdamW under optimizer post-validation (``within_step``) or the
+blocking baseline (``sync``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..core.executor import PipelineExecutor
+from ..core.executor import GraphedGradFn, PipelineExecutor
 from ..core.infer_executor import InferExecutor, compile_infer_plan
 from ..core.schedules.ir import ExecutionPlan, Placement
 from ..models.lm import ArchConfig, RunSpec, build_program
@@ -33,6 +35,11 @@ __all__ = ["TrainStepConfig", "build_train_step", "build_serve_step"]
 class TrainStepConfig:
     adamw: adamw.AdamWConfig = dataclasses.field(default_factory=adamw.AdamWConfig)
     postval_mode: str = "within_step"  # "within_step" | "sync" (baseline)
+    # the pipeline's executor mode: "eager" walks the ticks from the host
+    # every step, "graph" replays a CUDA graph of that walk
+    # (core/executor.py::GraphedGradFn); the optimizer runs eagerly under
+    # both (its rollback and redo decisions read the card)
+    executor_mode: str = "eager"
 
 
 def _freeze_filter(tree, frozen: bool = False):
@@ -61,12 +68,19 @@ def build_train_step(cfg: ArchConfig, spec: RunSpec, plan: ExecutionPlan, placem
     are updated in place, as the JAX step donates them, and returned;
     ``metrics`` has ``loss``, ``grad_norm`` (0-d tensors) and ``amended``
     (bool: some stage's optimistic step was rolled back or redone).
+    ``step.grad_fn`` is the pipeline's ``grad_fn`` (in graph mode a
+    :class:`~repro_torch.core.executor.GraphedGradFn`, which counts its
+    captures).
     """
     tcfg = tcfg or TrainStepConfig()
     if tcfg.postval_mode not in ("within_step", "sync"):
         raise ValueError(f"unknown postval_mode {tcfg.postval_mode!r}")
+    if tcfg.executor_mode not in ("eager", "graph"):
+        raise ValueError(f"unknown executor_mode {tcfg.executor_mode!r}")
     program = build_program(cfg, spec, placement)
     grad_fn = PipelineExecutor(program, plan).build_grad_fn()
+    if tcfg.executor_mode == "graph":
+        grad_fn = GraphedGradFn(grad_fn)
     acfg = tcfg.adamw
     p = plan.p
 
@@ -76,6 +90,8 @@ def build_train_step(cfg: ArchConfig, spec: RunSpec, plan: ExecutionPlan, placem
             grads, shared_grads, loss = grad_fn(stacked, shared, side)
         with torch.profiler.record_function("train_step.optimizer"):
             return _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss)
+
+    step.grad_fn = grad_fn
 
     def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss):
         grads = tree_map(lambda g, f: torch.zeros_like(g) if f else g, grads,

@@ -15,12 +15,19 @@ the fastest schedule of any family whose per-device bytes (one stage's
 parameters and AdamW moments, activations, W-contexts, inboxes, sink) fit
 the budget, with the activation, W-context, inbox and sink slots measured
 on the run's device (the planner's measured fidelity).  The fp32 gradient
-accumulators and the allocator's scratch are not priced yet (the planner's
-``temp`` term is 0); the launcher prints what that leaves out.  The steps run under the fault-tolerant driver
+accumulators, the allocator's scratch and the CUDA graph's pool are not
+priced yet (the planner's ``temp`` term is 0); the launcher prints what
+that leaves out.  The steps run under the fault-tolerant driver
 (``runtime/driver.py``): with ``--ckpt-dir`` it checkpoints every
 max(steps // 2, 10) steps and at the last, resumes from the newest
 checkpoint there and retries a failed step from it; without, nothing is
-saved.  The JAX launcher's executor modes are not ported.
+saved.  The device picks the pipeline's executor mode (the JAX
+launcher's ``--executor``): on the card the step's pipeline walk is
+captured once into a CUDA graph and replayed every step (``graph``, as the
+JAX launcher defaults to its compiled ``specialized`` mode); on the CPU the
+host walks the ticks every step (``eager``).  The optimizer runs eagerly
+under both.  The JAX launcher's persistent compile cache has no
+counterpart: a CUDA graph cannot outlive its process.
 """
 
 from __future__ import annotations
@@ -92,8 +99,11 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
         print(bd.report())
         # AdamW keeps m and v in fp32 (optim); the executor's gradient
         # accumulators are at most one more fp32 copy of the same leaves
+        graph = (", and the CUDA graph's memory pool (printed after the first step)"
+                 if tcfg.executor_mode == "graph" else "")
         print(f"not priced (temp 0: no CUDA-allocator calibration yet): the fp32 gradient "
-              f"accumulators, up to {bd.optim / 2 / 2**20:.1f} MiB, and the allocator's scratch")
+              f"accumulators, up to {bd.optim / 2 / 2**20:.1f} MiB, and the allocator's "
+              f"scratch{graph}")
     else:
         sched = make_schedule(schedule, pipe_size, m)
     spec = RunSpec(p=pipe_size, n_chunks=sched.n_chunks, microbatch=microbatch,
@@ -140,6 +150,23 @@ def make_step_fn(step: Callable) -> Callable:
         return dict(params=stacked, shared=shared, opt=opt, shared_opt=shared_opt), metrics
 
     return step_fn
+
+
+def _print_pool_after_first_step(step_fn: Callable, device) -> Callable:
+    """``step_fn`` that prints the card's reserved bytes after its first
+    step: the CUDA graph's pool, which the planner does not price, is in
+    them."""
+    done = []
+
+    def fn(state, side):
+        out = step_fn(state, side)
+        if not done:
+            done.append(True)
+            print(f"not priced: the CUDA graph's memory pool; max_memory_reserved after the "
+                  f"first step {torch.cuda.max_memory_reserved(device) / 2**20:.1f} MiB")
+        return out
+
+    return fn
 
 
 def make_data_at(data: SyntheticLM, spec: RunSpec, device) -> Callable[[int], Dict]:
@@ -200,11 +227,14 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                     help="per-device HBM budget: params + AdamW moments + inbox/sink + "
                     "schedule memory, its slots measured on --device; runs the fastest "
                     "schedule of any family that fits (overrides --schedule); the fp32 "
-                    "gradient accumulators and allocator scratch are not priced")
+                    "gradient accumulators, allocator scratch and, on the card, the CUDA "
+                    "graph's pool are not priced")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=args.lr), postval_mode=args.postval)
+    executor = "graph" if device.type == "cuda" else "eager"
+    tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=args.lr), postval_mode=args.postval,
+                           executor_mode=executor)
     budget = None if args.memory_budget_mb is None else args.memory_budget_mb * 2**20
     cfg, spec, sched, step = build_everything(args.arch, args.reduced, args.pipe_size,
                                               args.schedule, args.microbatch, args.seq_len,
@@ -217,8 +247,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
         stacked, shared = init_params(cfg, spec, sched.placement, seed=args.seed, device=device)
         return init_state(stacked, shared)
 
+    step_fn = make_step_fn(step)
+    if executor == "graph":
+        step_fn = _print_pool_after_first_step(step_fn, device)
     driver = TrainDriver(DriverConfig(ckpt_dir=args.ckpt_dir, ckpt_every=max(args.steps // 2, 10)),
-                         make_step_fn(step), fresh_state, make_data_at(data, spec, device))
+                         step_fn, fresh_state, make_data_at(data, spec, device))
     t0 = time.perf_counter()
     state, metrics_log = driver.run(args.steps)
     dt = time.perf_counter() - t0
@@ -230,7 +263,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     tput = driver.throughput()
     tput_s = f" steps/s={tput:.3f}" if tput else ""
     print(f"steps={len(res.losses)} wall={dt:.1f}s{tput_s} "
-          f"loss[0]={res.losses[0]:.4f} loss[-1]={res.losses[-1]:.4f} schedule={sched.name}")
+          f"loss[0]={res.losses[0]:.4f} loss[-1]={res.losses[-1]:.4f} schedule={sched.name} "
+          f"executor={executor}")
     if len(res.losses) > 1 and not res.losses[-1] < res.losses[0]:
         raise RuntimeError("loss must decrease on the synthetic stream")
     return res

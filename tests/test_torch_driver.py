@@ -254,7 +254,7 @@ def test_launcher_plans_under_a_budget_and_resumes(tmp_path, capsys):
     for term in ("params", "optim", "act", "wctx", "sink", "total"):
         assert f"\n  {term} " in out
     assert "not priced (temp 0" in out and "fp32 gradient accumulators" in out
-    assert f"schedule={chosen}" in out and len(res.losses) == 3
+    assert f"schedule={chosen} executor=eager" in out and len(res.losses) == 3
     assert store.latest_step(ckpt) == 3
     proto = init_state(*init_params(get_reduced(ARCH), RunSpec(p=4, n_chunks=res.schedule.n_chunks,
                                                               microbatch=2, seq_len=32, m=8),

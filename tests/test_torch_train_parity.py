@@ -350,7 +350,13 @@ def _jax_by_stage_grads(cfg, spec, placement, stacked, shared, side):
     "name,p,n_layers", STEP_CASES,
     ids=[f"{p}-{n}" + ("" if nl is None else f"-{nl}L") for n, p, nl in STEP_CASES])
 def test_pipelined_step_matches_jax(name, p, n_layers):
-    m = 4
+    check_pipelined_step(name, p, n_layers)
+
+
+def check_pipelined_step(name, p, n_layers, m=4):
+    """One pipelined step of the port's eager walk under ``name`` against the
+    JAX package: loss within LOSS_TOL, every gradient leaf (fp32) within
+    GRAD_TOL.  Returns the port's (grads, shared_grads, loss)."""
     port_sched, jax_sched = SCHEDULES[name][0](p, m), SCHEDULES[name][1](p, m)
     cfg_j, cfg_t, spec_j, spec_t, (st_j, sh_j, side_j), (st_t, sh_t, side_t) = _setup(
         p, m, placement=jax_sched.placement, n_layers=n_layers)
@@ -370,6 +376,7 @@ def test_pipelined_step_matches_jax(name, p, n_layers):
     _close_trees(sg_t, sg_j, GRAD_TOL)
     for leaf in tree_leaves((g_t, sg_t)):
         assert leaf.dtype == torch.float32
+    return g_t, sg_t, loss_t
 
 
 def test_wgrad_launches_per_step(wgrad_calls):
