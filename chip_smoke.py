@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failed check raises and the exit code is not 0:
+Phases, in order, but 18-19 run first, after 2, in a child process of
+their own (gpt3-1.5b's graph runs need the card to themselves), and 17
+after 7; any failed check raises and the exit code is not 0:
 
 1. build   -- compile every CUDA source of ``src/repro_torch/kernels/csrc/``
               with nvcc (sm_90a) into ``build/repro_torch/``, all at once.
@@ -14,14 +16,19 @@ Phases, in order; any failed check raises and the exit code is not 0:
               version and one PyTorch library call, and the bound: RMSNorm
               at the serving shapes, wgrad_accum at the four (H, F) shapes
               of the training step's W ops (N = 1024, bf16 a/g, fp32 acc),
-              plus a ragged N, fp32 and ragged shapes.  wgrad_accum adds
+              plus a ragged N, fp32 and ragged shapes; and the shapes of
+              gpt3-1.5b training (RMSNorm at 1024 x 2304, W ops at
+              (2304, 2304), (2304, 9216), (9216, 2304), all on wgmma) and
+              of gemma2-2b serving (RMSNorm at 4100 x 2304 and 1 x 2304).
+              wgrad_accum adds
               into a clone of acc in place and is held against the plain
               version on the original; its path (wgmma / mma_sync / fma) is
               printed per shape, kernel and library are timed in
               turns (kernel, library, library, kernel), and the wrapper's
               eager host time per call is measured.
-4. reduced -- reduced internlm2 (float32) served on cuda and on cpu: logits
-              within 1e-4 and identical greedy tokens.
+4. reduced -- reduced internlm2, gpt3-1.5b and gemma2-2b (float32) served
+              on cuda and on cpu: logits within 1e-4 and identical greedy
+              tokens (gemma2's 19-token prompt rolls its ring of 8).
 5. serve   -- internlm2-1.8b at full width and depth (bf16, random weights
               from a seed): 4 pipeline stages on the one card, 8 request
               groups of 2, 512-token prompts, 16 greedy tokens.  Kernel
@@ -30,7 +37,8 @@ Phases, in order; any failed check raises and the exit code is not 0:
               last position of a prefill of s + 1 tokens, at full width.
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
-8. train-reduced -- reduced internlm2 (float32), p=2, m=4: 3 training steps
+8. train-reduced -- reduced internlm2, gpt3-1.5b and gemma2-2b (float32),
+              p=2, m=4: 3 training steps
               (AdamW + post-validation) on cuda and on cpu under zb-h1 and
               under zb-v (two chunks on the V placement); losses within
               1e-5 relative, grad norms within 1e-4.
@@ -100,6 +108,35 @@ Phases, in order; any failed check raises and the exit code is not 0:
               tokens/s, allocated and reserved peaks; for zb-h1 and zb-v a
               profiled replayed step (host spans, device busy share, kernel
               counts, the two kernels' among them).
+17. serve-gemma2 -- gemma2-2b at full width and depth (26 layers alternating
+              attn_local, window 4096, and attn; softcap 50; bf16, random
+              weights from a seed): 4 stages on the one card, 4 request
+              groups of 1, 4100-token prompts (past the window and not a
+              multiple of it, so each local layer's ring holds a rolled
+              tail), 16 greedy tokens: prefill and decode ms, RMSNorm
+              launches == the structure's count, and decoding token 4100
+              against a prefill of 4101 tokens within a stated limit.
+18. train-gpt3 -- gpt3-1.5b, the paper's model and the launcher's default
+              arch, at full width and depth (22 layers, d 2304, 24 heads of
+              96, d_ff 9216, vocab 50257; bf16, random weights from a seed):
+              the step-0 gradient of the eager zb-h1 walk against plain
+              torch.autograd; then 4 stages on the one card, 8 microbatches
+              of 1 x 1024 tokens, 4 steps under all eight schedules with the
+              pipeline captured in a CUDA graph (the AdamW state allocated
+              first, as the launcher's driver does): step-0 loss in band and
+              equal across schedules, later losses within 1e-4 among the
+              schedules of one placement, and zb-v's within 1e-4 of
+              zb-h1's with the clip off (phase 10's reason); under zb-h1
+              the graph's step-0 gradient equals the eager walk's bit for
+              bit but the embedding's; launches per capture, replay ms,
+              allocated and reserved peaks (a schedule that runs out of
+              memory at seq 1024 runs again at seq 512, and says so); a
+              profiled replayed zb-h1 step, and the LM head's three GEMMs
+              at the odd vocabulary beside a vocabulary padded to 64.
+19. launch-gpt3 -- ``launch.train.main`` with the default ``--arch`` at full
+              width, 4 steps of zb-h1: it trains gpt3-1.5b, its losses
+              fall, one capture's launches, the last line says
+              ``executor=graph``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -111,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import pathlib
@@ -141,6 +179,7 @@ from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
+from repro_torch.launch.steps import build_serve_step  # noqa: E402
 from repro_torch.launch.train import init_state, make_data_at, make_schedule, make_step_fn  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import side_from_batch, train  # noqa: E402
@@ -176,12 +215,34 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
 # max bound catches a gross error in a few logits.
 CONSIST_REL_L2 = 3e-2
 CONSIST_MAX_ABS = 0.25
-# norm launches of each ported kind per call: one rmsnorm in attn and mlp,
-# in prefill (the port reuses the forward's k/v), in decode and in a
-# training forward alike (the norm's backward is plain torch, no kernel)
-NORMS_PER_KIND = {"attn": 1, "mlp": 1}
+# norm launches of each ported kind per call: one rmsnorm in attn,
+# attn_local and mlp, in prefill (the port reuses the forward's k/v), in
+# decode and in a training forward alike (the norm's backward is plain
+# torch, no kernel)
+NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mlp": 1}
 # deferred linears (W ops, one wgrad_accum launch each) of each kind
-LINEARS_PER_KIND = {"attn": 4, "mlp": 3}
+LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mlp": 3}
+# the other dense archs of phases 4, 8 and 17-19, and their reduced prompts
+# in phase 4 (gemma2's is 2W + 3 for its window W = 8: a rolled ring tail)
+GPT3, GEMMA2 = "gpt3_1_5b", "gemma2_2b"
+RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19}
+# gemma2 serving at full width: p stages, m groups of b, prompts past the
+# 4096 window and not a multiple of it, new greedy tokens
+GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
+# its decode-vs-prefill limit, derived as CONSIST_REL_L2 is, before any run
+# of it: phase 6's rule (twice a random walk of one bf16 ulp, 2^-9, per
+# sublayer) gives 2 * sqrt(52) * 2^-9 = 2.8e-2 for gemma2's 52 sublayers,
+# but phase 6's own reading, 0.0283 at 48 sublayers (H100, 700 W, every run),
+# puts the card's step per sublayer at 0.0283 / sqrt(48) = 4.1e-3, two
+# ulps; at that step 52 sublayers walk to sqrt(52) * 4.1e-3 = 2.9e-2, and
+# twice that is the limit.  A misplaced ring slot moves the logits by
+# O(1) of their norm.
+GS_CONSIST_REL_L2 = 6e-2
+# gpt3-1.5b training: phase 9's run shape, GPT3_STEPS steps a schedule, and
+# the LM head's GEMMs timed at the odd vocabulary and padded ones
+GPT3_STEPS = 4
+GPT3_HEAD_VOCABS = (50257, 50264, 50304)
+GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq
 T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 3
@@ -193,6 +254,9 @@ TR_P, TR_M, TR_B, TR_SEQ, TR_STEPS = 2, 4, 2, 32, 3
 # the W products of the training step: (H, F) of wq/wo, wk/wv, wu/wg, wd
 WGRAD_MAIN = (("wq,wo", 2048, 2048), ("wk,wv", 2048, 1024), ("wu,wg", 2048, 8192),
               ("wd", 8192, 2048))
+# ... and of gpt3-1.5b's (multi-head: wk and wv are as wide as wq)
+WGRAD_GPT3 = (("gpt3 wq,wk,wv,wo", 2304, 2304), ("gpt3 wu,wg", 2304, 9216),
+              ("gpt3 wd", 9216, 2304))
 # later full-width losses across schedules: the embedding gradient is a
 # CUDA index_add_ (atomics, no fixed order), so it differs between runs by
 # fp32 rounding (~1e-7 relative); AdamW's first steps are nearly
@@ -331,14 +395,20 @@ def rmsnorm_bound_ms(n: int, h: int, x_dtype, g_dtype):
 
 
 def phase_kernels(cfg_full, cfg_red):
-    """RMSNorm on the card at the shapes the serving path gives it."""
+    """RMSNorm on the card at the shapes the serving path gives it, and at
+    gpt3-1.5b's training rows and gemma2-2b's serving rows."""
     bf16, f32 = torch.bfloat16, torch.float32
     d = cfg_full.d_model
+    d2 = get_config(GPT3).d_model
+    check(get_config(GEMMA2).d_model == d2, "gpt3-1.5b and gemma2-2b differ in width")
     shapes = [  # (label, N rows, H, x dtype, g dtype)
         ("prefill", B * PROMPT, d, bf16, bf16),
         ("decode", B, d, bf16, bf16),
         ("reduced", B * RED_PROMPT, cfg_red.d_model, f32, f32),
         ("ragged", 1000, d, bf16, bf16),
+        ("gpt3-train", T_B * T_SEQ, d2, bf16, bf16),
+        ("gemma2-prefill", GS_B * GS_PROMPT, d2, bf16, bf16),
+        ("gemma2-decode", GS_B, d2, bf16, bf16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -372,10 +442,10 @@ def phase_kernels(cfg_full, cfg_red):
     return rows
 
 
-def phase_reduced(cfg):
-    spec = RunSpec(p=RED_P, n_chunks=1, microbatch=RED_B, seq_len=RED_PROMPT, m=RED_M)
+def phase_reduced(cfg, prompt=RED_PROMPT):
+    spec = RunSpec(p=RED_P, n_chunks=1, microbatch=RED_B, seq_len=prompt, m=RED_M)
     stacked, shared = init_params(cfg, spec, Placement.linear(RED_P), seed=1, device="cpu")
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (RED_M, RED_B, RED_PROMPT))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (RED_M, RED_B, prompt))
     on_cpu = serve(cfg, stacked, shared, prompts, p=RED_P, new_tokens=RED_NEW)
     to_cuda = lambda a: a.to("cuda")  # noqa: E731
     on_gpu = serve(cfg, tree_map(to_cuda, stacked), tree_map(to_cuda, shared), prompts,
@@ -385,7 +455,7 @@ def phase_reduced(cfg):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
         errs.append(float((a.cpu() - b).abs().max()))
     check(torch.equal(on_gpu.tokens.cpu(), on_cpu.tokens), "reduced greedy tokens differ")
-    print(f"[reduced] p={RED_P} m={RED_M} b={RED_B} prompt={RED_PROMPT} new={RED_NEW} f32: "
+    print(f"[reduced] {cfg.name} p={RED_P} m={RED_M} b={RED_B} prompt={prompt} new={RED_NEW} f32: "
           f"cuda vs cpu logits max_abs_err per step {[f'{e:.3g}' for e in errs]} (tol 1e-4), "
           f"tokens identical ({on_gpu.tokens.numel()})")
 
@@ -434,18 +504,21 @@ def phase_serve(cfg):
     return stacked, shared, prompts, res, launches
 
 
-def phase_consistency(cfg, stacked, shared, prompts, res):
+def phase_consistency(cfg, stacked, shared, prompts, res, p=P, limit=CONSIST_REL_L2,
+                      tag="consistency"):
+    s = prompts.shape[-1]
     longer = np.concatenate([prompts, res.tokens[..., :1].cpu().numpy()], axis=-1)
-    res2 = serve(cfg, stacked, shared, longer, p=P, new_tokens=0)
+    res2 = serve(cfg, stacked, shared, longer, p=p, new_tokens=0)
     dec, ref = res.logits[1].float(), res2.logits[0].float()
     rel = float((dec - ref).norm() / ref.norm())
     mx = float((dec - ref).abs().max())
     control = float((res.logits[0].float() - ref).norm() / ref.norm())  # one position off
     agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"[consistency] decode@{PROMPT} vs prefill of {PROMPT + 1}: rel_l2={rel:.3g} "
-          f"(limit {CONSIST_REL_L2}) max_abs={mx:.3g} (limit {CONSIST_MAX_ABS}) "
-          f"top1_agree={agree:.3f}; control, prefill@{PROMPT - 1} vs it: rel_l2={control:.3g}")
-    check(rel <= CONSIST_REL_L2 and mx <= CONSIST_MAX_ABS, "prefill->decode consistency")
+    print(f"[{tag}] decode@{s} vs prefill of {s + 1}: rel_l2={rel:.3g} "
+          f"(limit {limit}) max_abs={mx:.3g} (limit {CONSIST_MAX_ABS}) "
+          f"top1_agree={agree:.3f}; control, prefill@{s - 1} vs it: rel_l2={control:.3g}; "
+          f"prefill of {s + 1}: {res2.prefill_s * 1e3:.1f} ms")
+    check(rel <= limit and mx <= CONSIST_MAX_ABS, f"{cfg.name}: prefill->decode consistency")
 
 
 def wgrad_bound_ms(n: int, h: int, f: int, in_dtype):
@@ -482,7 +555,7 @@ def phase_kernels_wgrad(cfg_red):
     ragged N, fp32 (the reduced model's path) and ragged shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     n = T_B * T_SEQ
-    shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN] + [
+    shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN + WGRAD_GPT3] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -496,6 +569,8 @@ def phase_kernels_wgrad(cfg_red):
         g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
+        if label.startswith("gpt3"):
+            check(path == "wgmma", f"gpt3-1.5b's W op {label} takes the {path} path, not wgmma")
         ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
         out = acc.clone()
         got = wgrad_kernel.wgrad_accum_cuda(a, g, out)  # the kernel, in place on a clone
@@ -556,7 +631,7 @@ def phase_train_reduced(cfg):
         cpu, gpu = runs["cpu"], runs[DEV]
         l_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.losses, cpu.losses)]
         g_rel = [abs(a - b) / abs(b) for a, b in zip(gpu.grad_norms, cpu.grad_norms)]
-        print(f"[train-reduced] p={TR_P} m={TR_M} b={TR_B} seq={TR_SEQ} f32 {name} "
+        print(f"[train-reduced] {cfg.name} p={TR_P} m={TR_M} b={TR_B} seq={TR_SEQ} f32 {name} "
               f"({sched.n_chunks} chunk(s) a stage), {TR_STEPS} steps: losses cuda={gpu.losses} "
               f"cpu={cpu.losses} rel_err={[f'{e:.3g}' for e in l_rel]} (tol 1e-5); grad_norm "
               f"rel_err={[f'{e:.3g}' for e in g_rel]} (tol 1e-4)")
@@ -612,17 +687,20 @@ def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0)):
 
 
 def _layer_map(cfg, placement):
-    """For each layer l of the model: ((stage, block) under one linear chunk
-    a stage, (chunk, stage, block) on ``placement``).  Depth position pos
-    holds layers pos*g .. pos*g + g - 1 and is chunk c's position k, with
-    (c, k) = divmod(pos, p), on stage placement.stage_of(c, k)."""
+    """For each layer slot l of the model, padded ones included: ((stage,
+    block) under one linear chunk a stage, (chunk, stage, block) on
+    ``placement``).  Depth position pos holds slots pos*g .. pos*g + g - 1
+    and is chunk c's position k, with (c, k) = divmod(pos, p), on stage
+    placement.stage_of(c, k); slot l holds a layer when l < n_layers, in
+    either layout."""
     p, C = placement.p, placement.n_chunks
     _, g_lin = group_layout(cfg, p, 1)
     _, g = group_layout(cfg, p, C)
-    check(cfg.n_layers == g_lin * p == g * C * p,
-          f"{cfg.n_layers} layers do not fill {p} x 1 and {p} x {C} groups without padding")
+    check(g_lin * p == g * C * p,
+          f"{cfg.n_layers} layers take {g_lin * p} slots in {p} x 1 groups but {g * C * p} in "
+          f"{p} x {C}")
     out = []
-    for layer in range(cfg.n_layers):
+    for layer in range(g_lin * p):
         c, k = divmod(layer // g, p)
         out.append((divmod(layer, g_lin), (c, placement.stage_of(c, k), layer % g)))
     return out
@@ -630,8 +708,9 @@ def _layer_map(cfg, placement):
 
 def relay_to_placement(cfg, stacked_lin, placement):
     """The linear placement's stacked parameters (one chunk a stage), laid
-    out for ``placement`` layer by layer: the same model, so every schedule
-    starts from the same weights."""
+    out for ``placement`` slot by slot, the padded slots and their masks
+    included: the same model, so every schedule starts from the same
+    weights."""
     p, C = placement.p, placement.n_chunks
     _, g = group_layout(cfg, p, C)
     where = {(c, s, bi): lin for lin, (c, s, bi) in _layer_map(cfg, placement)}
@@ -639,13 +718,13 @@ def relay_to_placement(cfg, stacked_lin, placement):
     mask = stacked_lin[0]["mask"]
     out = []
     for c in range(C):
-        blocks = []
+        blocks, masks = [], []
         for bi in range(g):
-            per_stage = [tree_map(lambda a, st=where[(c, s, bi)][0]: a[st],
-                                  lin_blocks[where[(c, s, bi)][1]]) for s in range(p)]
+            src = [where[(c, s, bi)] for s in range(p)]
+            per_stage = [tree_map(lambda a, st=st: a[st], lin_blocks[lb]) for st, lb in src]
             blocks.append(tree_map(lambda *xs: torch.stack(xs), *per_stage))
-        out.append({"mask": torch.ones((p, g), dtype=mask.dtype, device=mask.device),
-                    "blocks": tuple(blocks)})
+            masks.append(torch.stack([mask[st, lb] for st, lb in src]))
+        out.append({"mask": torch.stack(masks, dim=1), "blocks": tuple(blocks)})
     return tuple(out)
 
 
@@ -791,6 +870,15 @@ def phase_train_checks(cfg, runs):
               f"so no cross-schedule equality check")
 
     # step-0 gradient: the B/W-split pipeline against plain autograd
+    _pipeline_vs_plain(cfg, "train-checks", v_check=True)
+
+
+def _pipeline_vs_plain(cfg, tag, v_check=False, keep=False):
+    """The step-0 gradient of the B/W-split pipeline (an eager zb-h1 walk,
+    seed-0 weights, batch 0) against plain autograd through the same model;
+    with ``v_check`` zb-v's (relaid weights) against the walk's as well.
+    With ``keep`` returns the walk's gradient leaves, keyed, on the host,
+    and its loss."""
     sched = make_schedule("zb-h1", T_P, T_M)
     spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=T_SEQ, m=T_M)
     stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
@@ -799,7 +887,9 @@ def phase_train_checks(cfg, runs):
     grad_fn = PipelineExecutor(build_program(cfg, spec, sched.placement),
                                compile_plan(sched)).build_grad_fn()
     g_pipe, sg_pipe, loss_pipe = grad_fn(stacked, shared, side)
-    _check_v_grads(cfg, stacked, shared, side, g_pipe, sg_pipe, loss_pipe)
+    if v_check:
+        _check_v_grads(cfg, stacked, shared, side, g_pipe, sg_pipe, loss_pipe)
+    kept = [(k, t.cpu()) for k, t in keyed_leaves((g_pipe, sg_pipe))] if keep else None
     pipe = tree_leaves((g_pipe, sg_pipe))
     del g_pipe, sg_pipe
     plain_tree, loss_plain = _plain_grads(cfg, spec, stacked, shared, side)
@@ -809,15 +899,18 @@ def phase_train_checks(cfg, runs):
     rel = (diff2 / ref2) ** 0.5
     worst_leaf = max(float((a - b).double().norm()) / max(float(b.double().norm()), 1e-30)
                      for a, b in zip(pipe, plain))
-    print(f"[train-checks] step-0 gradient, pipeline (zb-h1, wgrad_accum) vs plain autograd: "
+    print(f"[{tag}] {cfg.name} step-0 gradient, pipeline (zb-h1, wgrad_accum) vs plain autograd: "
           f"rel_l2 over {len(plain)} leaves = {rel:.3g} (limit {T_GRAD_REL_L2}); worst leaf "
           f"rel_l2 {worst_leaf:.3g} (limit {T_GRAD_WORST_LEAF}); loss {float(loss_pipe):.6f} vs "
           f"{loss_plain:.6f}")
-    check(rel <= T_GRAD_REL_L2, "pipeline gradient disagrees with plain autograd")
-    check(worst_leaf <= T_GRAD_WORST_LEAF, "a gradient leaf disagrees with plain autograd")
-    check(abs(float(loss_pipe) - loss_plain) <= 1e-3 * abs(loss_plain), "step-0 loss differs")
+    check(rel <= T_GRAD_REL_L2, f"{cfg.name}: pipeline gradient disagrees with plain autograd")
+    check(worst_leaf <= T_GRAD_WORST_LEAF,
+          f"{cfg.name}: a gradient leaf disagrees with plain autograd")
+    check(abs(float(loss_pipe) - loss_plain) <= 1e-3 * abs(loss_plain),
+          f"{cfg.name}: step-0 loss differs")
     del pipe, plain, plain_tree, stacked, shared
     torch.cuda.empty_cache()
+    return kept, float(loss_pipe)
 
 
 def phase_train_noclip(cfg, runs):
@@ -1320,6 +1413,24 @@ def _profile_replay(name, grad_fn, stacked, shared, side):
           f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f})")
 
 
+def _graph_vs_eager(name, ref, got_keyed):
+    """The graph's gradient leaves against an eager walk's (``ref``, keyed,
+    on the host): bit for bit, but the embedding's within G_RTOL relative
+    (index_add_ atomics).  Returns (leaves equal bit for bit, embedding gap)."""
+    exact, embed_gap = 0, None
+    for (k, want), (k2, got) in zip(ref, got_keyed):
+        check(k == k2, f"{name}: gradient leaves {k} and {k2} out of order")
+        got = got.cpu()
+        if k == "[1]['embed']":  # index_add_ atomics: no fixed order of the fp32 sums
+            embed_gap = float((got - want).double().norm() / want.double().norm())
+            check(embed_gap <= G_RTOL, f"{name}: graph embedding gradient off by {embed_gap}")
+        else:
+            check(torch.equal(got, want), f"{name}: graph gradient leaf {k} differs from eager")
+            exact += 1
+    check(embed_gap is not None, f"{name}: no embedding gradient leaf")
+    return exact, embed_gap
+
+
 def phase_train_graph(cfg, runs):
     """Phase 9's runs again under ``executor_mode="graph"``, schedule by
     schedule from the same seed-0 weights, against phase 9 and a fresh
@@ -1352,17 +1463,7 @@ def phase_train_graph(cfg, runs):
         g_g, sg_g, loss_g = step.grad_fn(stacked, shared, side0)  # capture, then replay
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        exact, embed_gap = 0, None
-        for (k, want), (k2, got) in zip(ref, keyed_leaves((g_g, sg_g))):
-            check(k == k2, f"{name}: gradient leaves {k} and {k2} out of order")
-            got = got.cpu()
-            if k == "[1]['embed']":  # index_add_ atomics: no fixed order of the fp32 sums
-                embed_gap = float((got - want).double().norm() / want.double().norm())
-                check(embed_gap <= G_RTOL, f"{name}: graph embedding gradient off by {embed_gap}")
-            else:
-                check(torch.equal(got, want), f"{name}: graph gradient leaf {k} differs from eager")
-                exact += 1
-        check(embed_gap is not None, f"{name}: no embedding gradient leaf")
+        exact, embed_gap = _graph_vs_eager(name, ref, keyed_leaves((g_g, sg_g)))
         check(float(loss_g) == loss_e, f"{name}: graph step-0 loss {float(loss_g)!r} != eager "
               f"{loss_e!r}")
         del g_g, sg_g, ref
@@ -1427,6 +1528,280 @@ def phase_train_graph(cfg, runs):
     return out
 
 
+def phase_serve_gemma2(cfg):
+    """Phase 17: gemma2-2b served at full width and depth with prompts past
+    its window; returns the RMSNorm launches of the timed run."""
+    window = cfg.extras_dict()["window"]
+    check(GS_PROMPT > window and GS_PROMPT % window != 0,
+          f"the prompt ({GS_PROMPT}) must pass the window ({window}) and not be a multiple of it")
+    spec = RunSpec(p=GS_P, n_chunks=1, microbatch=GS_B, seq_len=GS_PROMPT, m=GS_M)
+    placement = Placement.linear(GS_P)
+    S = GS_PROMPT + GS_NEW
+    _, _, cache_init = build_serve_step(cfg, spec, placement, "prefill")
+    blocks, g = group_layout(cfg, GS_P, 1)
+    meta = cache_init(GS_B, S, device="meta", lead=(GS_P, GS_M))
+    slots = {kinds[0]: tuple(c[0]["k"].shape)[-3] for kinds, c in zip(blocks, meta)}
+    check(slots == {"attn_local": window, "attn": S},
+          f"cache slots {slots}: want the ring of {window} and the global {S}")
+    t0 = time.perf_counter()
+    stacked, shared = init_params(cfg, spec, placement, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"[serve-gemma2] init {cfg.name} ({cfg.n_layers} layers in {GS_P} groups of {g}, "
+          f"{GS_P * g - cfg.n_layers} padded; kinds {[k[0] for k in blocks[:2]]} alternating; "
+          f"d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_model // cfg.n_heads}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}) on {DEV} in {time.perf_counter() - t0:.1f}s; cache "
+          f"slots a layer: ring {slots['attn_local']}, global {slots['attn']}")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (GS_M, GS_B, GS_PROMPT))
+    serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=1)  # warm-up (cuBLAS, allocator)
+
+    torch.cuda.reset_peak_memory_stats()
+    rms_kernel.launches = 0
+    res = serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=GS_NEW,
+                log=lambda s: print(f"[serve-gemma2] {s}"))
+    launches = rms_kernel.launches
+    want = expected_norm_launches(cfg, GS_P, GS_M, 1 + GS_NEW)
+    check(launches == want and launches > 0,
+          f"gemma2 rmsnorm launches {launches} != {want} implied by the port's structure")
+    for lg in res.logits:
+        check(lg.shape == (GS_M, GS_B, cfg.vocab), f"gemma2 logits shape {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg.float()).all()), "gemma2: non-finite logits")
+    check(res.tokens.shape == (GS_M, GS_B, GS_NEW + 1), f"tokens shape {tuple(res.tokens.shape)}")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
+    decode_ms = [s * 1e3 for s in res.decode_s]
+    print(f"[serve-gemma2] p={GS_P} m={GS_M} b={GS_B} prompt={GS_PROMPT} new={GS_NEW}: "
+          f"prefill_ms={res.prefill_s * 1e3:.1f} "
+          f"decode_ms_per_step mean={np.mean(decode_ms):.2f} median={np.median(decode_ms):.2f} "
+          f"min={min(decode_ms):.2f} max={max(decode_ms):.2f} "
+          f"generated_tok_per_s={GS_M * GS_B * GS_NEW / sum(res.decode_s):.1f} "
+          f"max_memory_allocated_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}; "
+          f"rmsnorm launches {launches} == expected {want}")
+    phase_consistency(cfg, stacked, shared, prompts, res, p=GS_P, limit=GS_CONSIST_REL_L2,
+                      tag="serve-gemma2")
+    del stacked, shared, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
+    """One schedule of phase 18 at ``seq``: the seed-0 model (relaid onto the
+    V placement where it has two chunks), the AdamW state allocated, the
+    pipeline captured in a CUDA graph at the first call, then GPT3_STEPS
+    training steps through the driver, all replays (``clip`` False: the
+    optimizer's global-norm clip off).  With ``ref`` (keyed host leaves of
+    an eager walk) the step-0 gradient is held to it."""
+    sched = make_schedule(name, T_P, T_M)
+    plan = compile_plan(sched)
+    per_step = expected_train_launches(cfg, T_P, sched.n_chunks, T_M)
+    stacked, shared, spec, data = _init_full(cfg, sched, seq)
+    acfg = adamw.AdamWConfig() if clip else adamw.AdamWConfig(grad_clip=None)
+    step, _ = build_train_step(cfg, spec, plan, sched.placement,
+                               TrainStepConfig(adamw=acfg, executor_mode="graph"))
+    if not clip:
+        name = f"{name} (clip off)"
+    walks = _count_walks(step.grad_fn)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(stacked, shared)  # the moments exist at capture, as in the launcher
+    side0 = side_from_batch(data.batch_at(0), spec, DEV)
+    t0 = time.perf_counter()
+    g, sg, loss0 = step.grad_fn(stacked, shared, side0)  # capture, then replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    loss0 = float(loss0)
+    gap = ""
+    if ref is not None:
+        exact, embed_gap = _graph_vs_eager(f"gpt3 {name}", ref, keyed_leaves((g, sg)))
+        check(loss0 == loss_ref, f"gpt3 {name}: graph step-0 loss {loss0!r} != eager {loss_ref!r}")
+        gap = (f"; step-0 gradient against the eager walk: {exact} of {exact + 1} leaves bit for "
+               f"bit, embedding rel_l2 {embed_gap:.3g} (limit {G_RTOL}), loss equal")
+    del g, sg, state
+    _reset_counts()
+    res = train(cfg, spec, step, stacked, shared, data, GPT3_STEPS,
+                log=lambda s: print(f"[train-gpt3] {name}: {s}"))
+    replay_launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    gf = step.grad_fn
+    check(gf.captures == 1 and len(walks) == 2,
+          f"gpt3 {name}: {gf.captures} captures and {len(walks)} walks, want 1 and 2")
+    for what, (launches, _) in zip(("warm-up", "capture"), walks):
+        want = _check_counts(f"gpt3 {name} {what}", launches, per_step, 1)
+    check(replay_launches == (0, 0, {k: 0 for k in wgrad_kernel.PATHS}),
+          f"gpt3 {name}: the replayed steps launched {replay_launches} from Python")
+    check(res.losses[0] == loss0, f"gpt3 {name}: step-0 loss {res.losses[0]!r} != {loss0!r}")
+    check(all(np.isfinite(res.losses + res.grad_norms)), f"gpt3 {name}: non-finite metrics")
+    med = float(np.median(res.step_s[1:]))
+    tokens = T_M * T_B * seq
+    print(f"[train-gpt3] {name} p={T_P} m={T_M} b={T_B} seq={seq} ({sched.n_chunks} chunk(s) a "
+          f"stage, {plan.n_ticks} ticks): {base_gb:.2f} GB after init; capture "
+          f"{gf.capture_s[0]:.2f} s (host: warm-up walk {walks[0][1]:.2f} s, captured walk "
+          f"{walks[1][1]:.2f} s), first call {first_s:.2f} s; ms_per_step replay median(steps "
+          f"1-{GPT3_STEPS - 1})={med * 1e3:.1f} all={[round(x * 1e3, 1) for x in res.step_s]}; "
+          f"tokens_per_s={tokens / med:.0f}; peak GB allocated={peak_gb:.2f} "
+          f"reserved={reserved_gb:.2f}; launches per capture and per warm-up "
+          f"wgrad_accum={walks[1][0][0]} {walks[1][0][2]} rmsnorm={walks[1][0][1]} (expected "
+          f"{want}), from Python during the steps {replay_launches[:2]}; losses {res.losses} "
+          f"grad_norms {res.grad_norms} amended {res.amended}{gap}")
+    if name == T_PROFILED[0] and clip:
+        n_by_name = phase_profile_train(name, plan, (stacked, shared, spec, sched, step, data),
+                                        tag="profile-gpt3")
+        if n_by_name:
+            got = (_kernel_launches(n_by_name, "wgrad_wgmma_kernel"),
+                   _kernel_launches(n_by_name, "rmsnorm_fwd_kernel"))
+            check(got == per_step, f"gpt3 {name}: a profiled replay ran (wgrad_wgmma, rmsnorm) "
+                  f"kernels {got}, the structure implies {per_step}")
+            print(f"[profile-gpt3] {name}: one replayed step ran {got[0]} wgrad_wgmma_kernel and "
+                  f"{got[1]} rmsnorm_fwd_kernel (expected {per_step})")
+    out = dict(res=res, seq=seq, chunks=sched.n_chunks, peak_gb=peak_gb,
+               reserved_gb=reserved_gb, ms=med * 1e3,
+               launches=(sum(w[0][0] for w in walks), sum(w[0][1] for w in walks),
+                         {k: sum(w[0][2][k] for w in walks) for k in wgrad_kernel.PATHS}))
+    del step, gf, stacked, shared, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gpt3_schedule(cfg, name, ref, loss_ref):
+    """``_gpt3_graph_run`` at seq T_SEQ, or, when that runs out of card
+    memory, at seq 512 (PERF.md §2's rule), saying so; ``ref`` is held
+    against the seq-T_SEQ run only."""
+    oom = None
+    try:
+        return _gpt3_graph_run(cfg, name, T_SEQ, ref, loss_ref)
+    except torch.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0][:300]
+    gc.collect()  # the failed run's tensors, held by the traceback until here
+    torch.cuda.empty_cache()
+    print(f"[train-gpt3] {name}: out of memory at seq {T_SEQ} ({oom}); running it again at seq "
+          f"512")
+    return _gpt3_graph_run(cfg, name, 512)
+
+
+def _head_gemms(cfg):
+    """The LM head's three products for one microbatch of the train cell
+    (bf16, n = 1024 tokens, d = d_model, V columns), as the sink runs them:
+    F ``yn @ head``, B ``dlogits @ head^T``, W ``acc + (yn^T @ dlogits)`` in
+    fp32; at the arch's vocabulary and at padded ones, beside the bound
+    (operations at the bf16 tensor rate, or bytes)."""
+    n, d = T_B * T_SEQ, cfg.d_model
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rows = {}
+    for v in GPT3_HEAD_VOCABS:
+        yn = torch.randn(n, d, generator=gen, device=DEV).to(torch.bfloat16)
+        head = (torch.randn(d, v, generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+        dl = (torch.randn(n, v, generator=gen, device=DEV) * 1e-4).to(torch.bfloat16)
+        acc = torch.zeros(d, v, device=DEV)
+        fns = {"F": lambda: yn @ head, "B": lambda: dl @ head.t(),
+               "W": lambda: acc + (yn.t() @ dl).to(acc.dtype)}
+        # bytes each reads once and writes once: F yn, head -> logits; B
+        # dlogits, head -> dx; W yn, dlogits, acc -> acc (fp32)
+        moved = {"F": 2 * (n * d + d * v + n * v), "B": 2 * (n * v + d * v + n * d),
+                 "W": 2 * (n * d + n * v) + 8 * d * v}
+        ms = {k: device_ms(fn, iters=10) for k, fn in fns.items()}
+        bound = {k: max(2 * n * d * v / BF16_OPS_PER_S, moved[k] / HBM_BYTES_PER_S) * 1e3
+                 for k in fns}
+        rows[v] = ms
+        print(f"[head-gpt3] V={v} (row of {2 * v} bytes, {'' if 2 * v % 16 == 0 else 'not '}a "
+              f"multiple of 16): device ms F={ms['F']:.4f} B={ms['B']:.4f} W={ms['W']:.4f} "
+              f"(sum {sum(ms.values()):.4f}; x {T_M} microbatches a step = "
+              f"{T_M * sum(ms.values()):.2f} ms); bound F={bound['F']:.4f} B={bound['B']:.4f} "
+              f"W={bound['W']:.4f}")
+        del yn, head, dl, acc, fns
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_gpt3(cfg):
+    """Phase 18: gpt3-1.5b at full width under every schedule, graph
+    executor; returns {schedule: run}."""
+    t0 = time.perf_counter()
+    ref, loss_ref = _pipeline_vs_plain(cfg, "train-gpt3", keep=True)
+    print(f"[train-gpt3] eager zb-h1 walk and plain autograd in {time.perf_counter() - t0:.1f}s")
+    runs = {name: _gpt3_schedule(cfg, name, ref if name == "zb-h1" else None, loss_ref)
+            for name in T_SCHEDULES}
+    del ref
+    band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
+    for seq in sorted({r["seq"] for r in runs.values()}, reverse=True):
+        group = {n: r["res"] for n, r in runs.items() if r["seq"] == seq}
+        first = {n: r.losses[0] for n, r in group.items()}
+        for n, l0 in first.items():
+            check(band[0] < l0 < band[1], f"gpt3 {n}: step-0 loss {l0} outside {band}")
+        check(len(set(first.values())) == 1, f"gpt3 step-0 losses differ at seq {seq}: {first}")
+        # later losses: within a placement (one or two chunks a stage); across
+        # the two, with the clip on, the clip scale's last f32 bit parts them
+        # (T_LATER_LOSS_RTOL's comment), so they are held with the clip off
+        worst, across = 0.0, {}
+        for chunks in (1, 2):
+            part = [r for n, r in group.items() if runs[n]["chunks"] == chunks]
+            for r in part:
+                worst = max([worst] + [abs(a - b) / abs(b)
+                                       for a, b in zip(r.losses[1:], part[0].losses[1:])])
+            across[chunks] = part[0].losses if part else None
+        check(worst <= T_LATER_LOSS_RTOL,
+              f"gpt3 later losses differ across the schedules of one placement by {worst}")
+        gap = ""
+        if None not in across.values():
+            apart = max(abs(a - b) / abs(b) for a, b in zip(across[2][1:], across[1][1:]))
+            gap = f"; across the placements, clip on, {apart:.3g}"
+        print(f"[train-gpt3] seq {seq}: step-0 loss {list(first.values())[0]} in band "
+              f"({band[0]:.3f}, {band[1]:.3f}) and identical across {list(first)}; later losses "
+              f"max rel diff within a placement {worst:.3g} (limit {T_LATER_LOSS_RTOL}){gap}")
+    seq = runs["zb-h1"]["seq"]
+    if runs["zb-v"]["seq"] == seq:
+        noclip = {n: _gpt3_graph_run(cfg, n, seq, clip=False)["res"] for n in ("zb-h1", "zb-v")}
+        gaps = [abs(a - b) / abs(b) for a, b in zip(
+            noclip["zb-v"].losses + noclip["zb-v"].grad_norms,
+            noclip["zb-h1"].losses + noclip["zb-h1"].grad_norms)]
+        print(f"[train-gpt3] zb-v vs zb-h1 with the clip off: losses and grad norms max rel gap "
+              f"{max(gaps):.3g} (limit {T_LATER_LOSS_RTOL})")
+        check(max(gaps) <= T_LATER_LOSS_RTOL, "gpt3: with the clip off zb-v and zb-h1 still part")
+    else:
+        print("[train-gpt3] zb-h1 and zb-v ran at other seq lengths: no placement check")
+    _head_gemms(cfg)
+    return runs
+
+
+def phase_launch_gpt3(cfg, runs):
+    """Phase 19: ``launch.train.main`` with its default ``--arch`` (zb-h1 at
+    the seq phase 18 ran it at); returns both kernels' launches."""
+    name = "zb-h1"
+    seq = runs[name]["seq"]
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = train_main(["--pipe-size", str(T_P), "--m", str(T_M), "--microbatch", str(T_B),
+                              "--seq-len", str(seq), "--steps", str(GPT3_STEPS), "--lr", "1e-3",
+                              "--schedule", name, "--device", DEV])
+    finally:
+        print(out.getvalue(), end="")
+    launches = _read_counts()
+    lines = out.getvalue().splitlines()
+    check(lines[-1].endswith(" executor=graph"),
+          f"the launcher's last line does not say executor=graph: {lines[-1]!r}")
+    embed = tuple(res.state["shared"]["embed"].shape)
+    check(embed == (cfg.vocab, cfg.d_model), f"the default arch's embedding is {embed}, not "
+          f"gpt3-1.5b's {(cfg.vocab, cfg.d_model)}")
+    want = _check_counts("launcher gpt3", launches, expected_train_launches(cfg, T_P, 1, T_M), 2)
+    check(res.losses[-1] < res.losses[0], f"launcher losses did not fall: {res.losses}")
+    ref = runs[name]["res"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(res.losses + res.grad_norms,
+                                                ref.losses + ref.grad_norms)]
+    print(f"[launch-gpt3] default arch, {name}, seq {seq}: losses {res.losses}, ms per step "
+          f"{[round(x * 1e3, 1) for x in res.step_s]}, peak GB allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} reserved "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f}; launches wgrad_accum {launches[0]} "
+          f"{launches[2]} rmsnorm {launches[1]} (expected {want}: one capture's warm-up and "
+          f"captured walks); losses and grad norms against phase 18's {name} run: max rel gap "
+          f"{max(gaps):.3g} (limit {G_RTOL})")
+    check(max(gaps) <= G_RTOL, "the launcher's gpt3 run differs from phase 18's")
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
     return {
         "name": name,
@@ -1455,16 +1830,21 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     phase_card()
+    more = run_gpt3_child()
+    print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     wrows = phase_kernels_wgrad(cfg_red)
-    phase_reduced(cfg_red)
+    for arch in (ARCH, GPT3, GEMMA2):
+        phase_reduced(get_reduced(arch), RED_PROMPTS[arch])
     stacked, shared, prompts, res, serve_launches = phase_serve(cfg_full)
     phase_consistency(cfg_full, stacked, shared, prompts, res)
     phase_profile(cfg_full, stacked, shared, prompts)
     del stacked, shared, res
     torch.cuda.empty_cache()
+    gemma2_launches = phase_serve_gemma2(get_config(GEMMA2))
     print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f}s")
-    phase_train_reduced(cfg_red)
+    for arch in (ARCH, GPT3, GEMMA2):
+        phase_train_reduced(get_reduced(arch))
     runs = phase_train(cfg_full)
     phase_train_checks(cfg_full, runs)
     phase_train_noclip(cfg_full, runs)
@@ -1473,7 +1853,7 @@ def main() -> int:
     phase_plan_vs_card(cfg_full, runs, planners)
     del planners
     print(f"[time] planner phases done at {time.perf_counter() - t_start:.1f}s")
-    more = {"launcher": phase_launch_budget(cfg_full)}
+    more["launcher"] = phase_launch_budget(cfg_full)
     print(f"[time] launcher phase done at {time.perf_counter() - t_start:.1f}s")
     more["replay"] = phase_replay(cfg_full)
     print(f"[time] replay phase done at {time.perf_counter() - t_start:.1f}s")
@@ -1484,14 +1864,21 @@ def main() -> int:
                **{f"train-graph-{n}": c for n, c in graph_runs.items()}}
     wgrad_by_run = {n: c[0] for n, c in counted.items()}
     wgrad_by_path = {k: sum(c[2][k] for c in counted.values()) for k in wgrad_kernel.PATHS}
-    rms_by_run = {"serve": serve_launches, **{n: c[1] for n, c in counted.items()}}
+    rms_by_run = {"serve": serve_launches, "serve-gemma2": gemma2_launches,
+                  **{n: c[1] for n, c in counted.items()}}
+
+    def by_shape(table):
+        return {label: {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
+                for label, r in table.items()}
+
     print(json.dumps({"kernels": [
         _kernel_row("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:29", sum(rms_by_run.values()), rms_by_run,
-                    rows["prefill"]),
+                    rows["prefill"], by_shape=by_shape(rows)),
         _kernel_row("wgrad_accum", "src/repro_torch/kernels/csrc/wgrad_accum.cu",
                     "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_run.values()),
-                    wgrad_by_run, wrows["wu,wg"], launches_by_kernel_path=wgrad_by_path),
+                    wgrad_by_run, wrows["wu,wg"], launches_by_kernel_path=wgrad_by_path,
+                    by_shape=by_shape(wrows)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1501,5 +1888,37 @@ def main() -> int:
     return 0
 
 
+def gpt3_child_main() -> int:
+    """Phases 18 and 19, alone in this process; the last line is a JSON
+    object with both kernels' launches of each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()  # the parent built them: this only loads the cached libraries
+    t0 = time.perf_counter()
+    cfg = get_config(GPT3)
+    runs = phase_train_gpt3(cfg)
+    print(f"[time] gpt3 training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    counts = {f"train-gpt3-{n}": r["launches"] for n, r in runs.items()}
+    counts["launcher-gpt3"] = phase_launch_gpt3(cfg, runs)
+    print(json.dumps({"gpt3_launches": counts}))
+    return 0
+
+
+def run_gpt3_child():
+    """Phases 18-19 in a child process with the card to itself: gpt3-1.5b's
+    graph runs reserve up to ~80 GB of the card's 85, and after the
+    internlm2 phases in this process they came within 1.1 GB of it (H100,
+    700 W); this process has allocated nothing on the card yet.  Returns the
+    child's launch counts by run."""
+    out = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), GPT3_CHILD],
+                         capture_output=True, text=True, timeout=900)
+    print(out.stdout, end="", flush=True)
+    print(out.stderr, end="", file=sys.stderr, flush=True)
+    check(out.returncode == 0, f"phases 18-19 failed in their child process (exit "
+          f"{out.returncode})")
+    counts = json.loads(out.stdout.strip().splitlines()[-1])["gpt3_launches"]
+    return {run: tuple(c) for run, c in counts.items()}
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(gpt3_child_main() if sys.argv[1:] == [GPT3_CHILD] else main())

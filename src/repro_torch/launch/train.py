@@ -1,6 +1,6 @@
 """Pipelined zero-bubble training launcher of the port.
 
-  python -m repro_torch.launch.train --arch internlm2_1_8b \\
+  python -m repro_torch.launch.train --arch gpt3_1_5b \\
       --pipe-size 4 --schedule zb-h1 --microbatch 1 --seq-len 1024 --m 8 --steps 3 \\
       [--memory-budget-mb 10240] [--ckpt-dir DIR]
 
@@ -208,7 +208,7 @@ def train(cfg: ArchConfig, spec: RunSpec, step: Callable, stacked, shared, data:
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="internlm2_1_8b")
+    ap.add_argument("--arch", default="gpt3_1_5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--pipe-size", type=int, default=4)
     ap.add_argument("--schedule", default="zb-h2", choices=sorted(SCHEDULES))

@@ -1,4 +1,5 @@
-"""Layer library of the port: the dense GQA kinds ``attn`` and ``mlp`` at tp=1.
+"""Layer library of the port: the dense GQA kinds ``attn``, ``attn_local`` and
+``mlp`` at tp=1.
 
 Counterpart of ``src/repro/models/modules.py``: the same functions, names,
 parameter layouts (linear weights ``(in, out)``, applied as ``x @ w``) and
@@ -8,7 +9,9 @@ seven weight products of a block go through ``core.passes.linear``: plain
 ``x @ w`` when serving, the deferred linear of the B/W split when a training
 block collects its W-context.  Attention stays plain tensor code, as the JAX
 package leaves it to XLA: einsum products, the ``-1e30`` mask, softmax in
-fp32.  Every other layer kind raises ``NotImplementedError`` naming the kind.
+fp32; ``attn_local`` adds the sliding window (a key is seen by the queries
+less than ``window`` positions after it).  Every other layer kind raises
+``NotImplementedError`` naming the kind.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ __all__ = [
 ]
 
 # kinds of the JAX layer library that this port does not carry yet
-UNPORTED_KINDS = ("attn_local", "mla", "moe", "slstm", "mlstm", "rglru", "encdec")
-PORTED_KINDS = ("attn", "mlp")
+UNPORTED_KINDS = ("mla", "moe", "slstm", "mlstm", "rglru", "encdec")
+PORTED_KINDS = ("attn", "attn_local", "mlp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,11 @@ def _check_kind(kind: str) -> None:
 
 def _head_dim(cfg) -> int:
     return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
+
+
+def _window(kind: str, cfg) -> Optional[int]:
+    """The sliding window of an attention kind (None: global)."""
+    return cfg.get("window", 4096) if kind == "attn_local" else None
 
 
 # --------------------------------------------------------------------- #
@@ -113,8 +121,9 @@ def _softcap(x, cap):
 # --------------------------------------------------------------------- #
 # attention (dense for short sequences, a loop over query blocks beyond)
 # --------------------------------------------------------------------- #
-def _attend_dense(q, k, v, softcap, q_offset=0):
-    """Causal.  q: (b, sq, hq, d); k/v: (b, sk, hq, d) head-matched -> (b, sq, hq, d)."""
+def _attend_dense(q, k, v, softcap, window=None, q_offset=0):
+    """Causal, within ``window`` when given.  q: (b, sq, hq, d); k/v: (b, sk,
+    hq, d) head-matched -> (b, sq, hq, d)."""
     sq, sk = q.shape[1], k.shape[1]
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
@@ -122,18 +131,20 @@ def _attend_dense(q, k, v, softcap, q_offset=0):
     qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
     mask = kpos[None, :] <= qpos[:, None]
+    if window is not None and window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
     logits = torch.where(mask[None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _attend_chunked(q, k, v, softcap, block=1024):
+def _attend_chunked(q, k, v, softcap, window=None, block=1024):
     """Query blocks one at a time, so the scores stay (block, sk) per head.
     Serving keeps no residuals, so the JAX version's remat has no part there;
     a training step at s > 2 * block keeps every block's scores for B."""
     s = q.shape[1]
     outs = [
-        _attend_dense(q[:, i : i + block], k, v, softcap, q_offset=i)
+        _attend_dense(q[:, i : i + block], k, v, softcap, window, q_offset=i)
         for i in range(0, s, block)
     ]
     return torch.cat(outs, dim=1)
@@ -148,11 +159,12 @@ def _match_kv_heads(q_heads_local, k, v, cfg, ctx: ShardCtx):
     return k, v
 
 
-def attention(q, k, v, *, softcap=None, block=1024):
-    """Causal attention: dense up to 2 * block queries, query blocks beyond."""
+def attention(q, k, v, *, window=None, softcap=None, block=1024):
+    """Causal attention (within ``window`` when given): dense up to 2 * block
+    queries, query blocks beyond."""
     if q.shape[1] <= 2 * block:
-        return _attend_dense(q, k, v, softcap)
-    return _attend_chunked(q, k, v, softcap, block)
+        return _attend_dense(q, k, v, softcap, window)
+    return _attend_chunked(q, k, v, softcap, window, block)
 
 
 # --------------------------------------------------------------------- #
@@ -172,7 +184,7 @@ def init_attn(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
     }
 
 
-def attn_forward(p, x, positions, cfg, ctx: ShardCtx):
+def attn_forward(p, x, positions, cfg, ctx: ShardCtx, *, window=None):
     """``apply_attn`` that also returns the roped k and the v it attended
     with, before the kv-head repeat: (y, k, v), k/v (b, s, hk, dh)."""
     b, s, _ = x.shape
@@ -184,13 +196,13 @@ def attn_forward(p, x, positions, cfg, ctx: ShardCtx):
     v = linear(xin, p["wv"]).reshape(b, s, hk, dh)
     q, k = rope(q, positions), rope(k, positions)
     km, vm = _match_kv_heads(hq, k, v, cfg, ctx)
-    o = attention(q, km, vm, softcap=cfg.get("attn_softcap"))
+    o = attention(q, km, vm, window=window, softcap=cfg.get("attn_softcap"))
     o = linear(o.reshape(b, s, hq * dh), p["wo"])
     return x + o, k, v
 
 
-def apply_attn(p, x, positions, cfg, ctx: ShardCtx):
-    return attn_forward(p, x, positions, cfg, ctx)[0]
+def apply_attn(p, x, positions, cfg, ctx: ShardCtx, *, window=None):
+    return attn_forward(p, x, positions, cfg, ctx, window=window)[0]
 
 
 def init_mlp(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
@@ -216,6 +228,12 @@ def apply_mlp(p, x, cfg, ctx: ShardCtx):
 # --------------------------------------------------------------------- #
 LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
     "attn": (init_attn, lambda p, x, pos, cfg, ctx: apply_attn(p, x, pos, cfg, ctx)),
+    "attn_local": (
+        init_attn,
+        lambda p, x, pos, cfg, ctx: apply_attn(
+            p, x, pos, cfg, ctx, window=_window("attn_local", cfg)
+        ),
+    ),
     "mlp": (init_mlp, lambda p, x, pos, cfg, ctx: apply_mlp(p, x, cfg, ctx)),
 }
 

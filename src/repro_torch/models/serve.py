@@ -1,12 +1,16 @@
 """Serving path of the port: prefill (cache build) and decode (one token)
-for the dense kinds ``attn`` and ``mlp``.
+for the dense kinds ``attn``, ``attn_local`` and ``mlp``.
 
 Counterpart of ``src/repro/models/serve.py``.  Where the JAX version is
 pure and returns updated caches, the port writes each group's cache slice in
 place: ``cache`` leaves are views into the stacked ``(p, m, ...)`` cache
 buffers (``core/infer_executor.py`` hands them out), and the slice
-assignments below write through those views.  Every other kind raises
-``NotImplementedError`` naming the kind.
+assignments below write through those views.  ``attn_local`` keeps a ring
+of ``min(S, window)`` slots: position P lives in slot ``P % Sc``, after a
+prefill as after a decode step (the JAX prefill of a prompt longer than the
+ring stores its tail from slot 0 instead, which its decode then misreads
+unless the prompt length is a multiple of the ring).  Every other kind
+raises ``NotImplementedError`` naming the kind.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from .modules import (
     _head_dim,
     _match_kv_heads,
     _softcap,
+    _window,
     apply_mlp,
     attn_forward,
     pad_to_multiple,
@@ -45,10 +50,13 @@ __all__ = [
 # --------------------------------------------------------------------- #
 def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
                device, lead=()) -> Dict[str, torch.Tensor]:
-    """Zero cache of one layer, shaped ``lead + (b, S, hk, dh)`` for attn."""
+    """Zero cache of one layer, shaped ``lead + (b, Sc, hk, dh)`` for attn
+    (Sc = S) and attn_local (Sc = min(S, window))."""
     _check_kind(kind)
-    if kind == "attn":
-        shape = tuple(lead) + (b, S, cfg["n_kv_heads"], _head_dim(cfg))
+    if kind in ("attn", "attn_local"):
+        window = _window(kind, cfg)
+        sc = min(S, window) if window else S
+        shape = tuple(lead) + (b, sc, cfg["n_kv_heads"], _head_dim(cfg))
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -59,23 +67,30 @@ def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
 # --------------------------------------------------------------------- #
 # decode: one token through one block
 # --------------------------------------------------------------------- #
-def _cached_attend(q, kc, vc, pos: int, softcap=None):
-    """q: (b, 1, hq, d); kc/vc: (b, S, hk, d); pos: the current index."""
+def _cached_attend(q, kc, vc, pos: int, ring: bool, softcap=None):
+    """q: (b, 1, hq, d); kc/vc: (b, Sc, hk, d); pos: the current index.
+    A ring cache's slot i holds the largest position P <= pos with
+    P % Sc == i, which lies in the window (pos - Sc, pos] by construction;
+    it is empty while P < 0 (the JAX ``_ring_attend``'s mask)."""
     rep = q.shape[2] // kc.shape[2]
     k = torch.repeat_interleave(kc, rep, dim=2) if rep > 1 else kc
     v = torch.repeat_interleave(vc, rep, dim=2) if rep > 1 else vc
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     logits = logits / math.sqrt(q.shape[-1])
     logits = _softcap(logits, softcap)
-    kpos = torch.arange(kc.shape[1], device=q.device)
-    mask = kpos <= pos
+    slot = torch.arange(kc.shape[1], device=q.device)
+    if ring:
+        mask = pos - torch.remainder(pos - slot, kc.shape[1]) >= 0
+    else:
+        mask = slot <= pos
     logits = torch.where(mask[None, None, None, :], logits, -1e30)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
 def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
-    """x: (b, 1, h) -> (y, cache); writes the new k/v at ``pos`` in place."""
+    """x: (b, 1, h) -> (y, cache); writes the new k/v in place at ``pos``
+    (attn) or its ring slot ``pos % Sc`` (attn_local)."""
     _check_kind(kind)
     if kind == "mlp":
         return apply_mlp(p, x, cfg, ctx), cache
@@ -87,10 +102,12 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
     q = rope((xin @ p["wq"]).reshape(b, 1, hq, dh), posv)
     k = rope((xin @ p["wk"]).reshape(b, 1, hk, dh), posv)
     v = (xin @ p["wv"]).reshape(b, 1, hk, dh)
-    cache["k"][:, pos : pos + 1] = k  # dynamic_update_slice, in place
-    cache["v"][:, pos : pos + 1] = v
+    ring = _window(kind, cfg) is not None
+    slot = pos % cache["k"].shape[1] if ring else pos
+    cache["k"][:, slot : slot + 1] = k  # dynamic_update_slice, in place
+    cache["v"][:, slot : slot + 1] = v
     kcm, vcm = _match_kv_heads(hq, cache["k"], cache["v"], cfg, ctx)
-    o = _cached_attend(q, kcm, vcm, pos, cfg.get("attn_softcap"))
+    o = _cached_attend(q, kcm, vcm, pos, ring, cfg.get("attn_softcap"))
     o = o.reshape(b, 1, hq * dh) @ p["wo"]
     return x + o, cache
 
@@ -99,7 +116,9 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
 # prefill: full sequence through one block, emitting the cache
 # --------------------------------------------------------------------- #
 def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
-    """x: (b, s, h) -> (y, cache); writes k/v of positions [0, s) in place.
+    """x: (b, s, h) -> (y, cache); writes k/v of positions [0, s) in place,
+    position P to slot P (an attn_local ring shorter than s keeps the last
+    Sc positions, P in slot ``P % Sc``).
 
     The JAX version runs the train forward and then recomputes rmsnorm and
     the k/v projections for the cache (``src/repro/models/serve.py``
@@ -111,11 +130,18 @@ def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
     if kind == "mlp":
         return apply_mlp(p, x, cfg, ctx), cache
     s = x.shape[1]
-    y, k, v = attn_forward(p, x, positions, cfg, ctx)
-    if cache["k"].shape[1] < s:
-        raise ValueError(f"prefill of {s} tokens into a cache of {cache['k'].shape[1]}")
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    window = _window(kind, cfg)
+    y, k, v = attn_forward(p, x, positions, cfg, ctx, window=window)
+    sc = cache["k"].shape[1]
+    if sc >= s:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    elif window:
+        # positions s - sc .. s - 1 to slots (s - sc + j) % sc = (s + j) % sc
+        cache["k"][:] = torch.roll(k[:, s - sc :], s % sc, dims=1)
+        cache["v"][:] = torch.roll(v[:, s - sc :], s % sc, dims=1)
+    else:
+        raise ValueError(f"prefill of {s} tokens into a cache of {sc}")
     return y, cache
 
 

@@ -242,7 +242,8 @@ def test_reshard_stages_matches_jax():
         store.reshard_stages({"w": torch.from_numpy(leaf)}, 4, 7)
 
 
-LAUNCH = ["--reduced", "--device", "cpu", "--pipe-size", "4", "--m", "8", "--seq-len", "32"]
+LAUNCH = ["--arch", "internlm2_1_8b", "--reduced", "--device", "cpu", "--pipe-size", "4", "--m", "8",
+          "--seq-len", "32"]
 
 
 def test_launcher_plans_under_a_budget_and_resumes(tmp_path, capsys):

@@ -70,14 +70,16 @@ def test_train_default_device_raises_without_cuda(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        train.main(["--reduced", "--pipe-size", "1", "--m", "1", "--steps", "1"])
+        train.main(["--arch", "internlm2_1_8b", "--reduced", "--pipe-size", "1", "--m", "1",
+                    "--steps", "1"])
 
 
 def _cpu_train(schedule):
     """Losses of the launcher's reduced CPU run (2 stages, 4 microbatches)."""
     from repro_torch.launch import train
 
-    res = train.main(["--reduced", "--device", "cpu", "--pipe-size", "2", "--m", "4",
+    res = train.main(["--arch", "internlm2_1_8b", "--reduced", "--device", "cpu",
+                      "--pipe-size", "2", "--m", "4",
                       "--seq-len", "16", "--steps", "3", "--schedule", schedule])
     return tuple(res.losses)
 

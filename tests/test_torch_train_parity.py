@@ -319,7 +319,7 @@ def _jax_by_stage_grads(cfg, spec, placement, stacked, shared, side):
     """p>1: jax.value_and_grad of the groups applied in depth order: position
     ``pos = c*p + k`` is chunk c's group on stage ``placement.stage_of(c, k)``
     (for one linear chunk, the stages one after another)."""
-    key = (spec.p, spec.m, placement.stage_seq, cfg.n_layers)
+    key = (cfg, spec.p, spec.m, placement.stage_seq)
     if key in _BY_STAGE_CACHE:
         return _BY_STAGE_CACHE[key]
     ctx = jmod.ShardCtx()
