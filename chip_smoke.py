@@ -13,18 +13,26 @@ after 7; any failed check raises and the exit code is not 0:
 3. kernels -- each kernel against its plain PyTorch version on the card at
               the shapes its path gives it, with device times (CUDA events
               around a CUDA graph of many calls) of the kernel, the plain
-              version and one PyTorch library call, and the bound: RMSNorm
-              at the serving shapes, wgrad_accum at the four (H, F) shapes
-              of the training step's W ops (N = 1024, bf16 a/g, fp32 acc),
-              plus a ragged N, fp32 and ragged shapes; and the shapes of
-              gpt3-1.5b training (RMSNorm at 1024 x 2304, W ops at
-              (2304, 2304), (2304, 9216), (9216, 2304), all on wgmma) and
-              of gemma2-2b serving (RMSNorm at 4100 x 2304 and 1 x 2304).
-              wgrad_accum adds
-              into a clone of acc in place and is held against the plain
-              version on the original; its path (wgmma / mma_sync / fma) is
-              printed per shape, kernel and library are timed in
-              turns (kernel, library, library, kernel), and the wrapper's
+              version and one PyTorch library call, and the bound.  RMSNorm:
+              first a sweep at every width of the port's dense configs (48,
+              64, 2048, 2304, 4096, 5120, 6144, 8192), x and g each in bf16
+              and f32, N in {1, 2, 1000, 4100}, plus views one element off
+              their allocation and rows not a multiple of 16 bytes, each on
+              the path its plan names (bulk / latency / rowwise); then the
+              serving shapes, gpt3-1.5b's training rows (1024 x 2304) and
+              gemma2-2b's serving rows (4100 x 2304 and 1 x 2304), each
+              with its path (every main-path shape of 1024 rows or more on
+              bulk, the decode rows on latency) and timed in turns against
+              F.rms_norm (kernel, library, library, kernel), warm (inputs
+              in L2, as on the path) and, at 1000 rows or more, cold (x and
+              y rotated over copies of more than 100 MB, twice the L2).
+              wgrad_accum at the four (H, F) shapes of the training step's
+              W ops (N = 1024, bf16 a/g, fp32 acc), plus a ragged N, fp32
+              and ragged shapes, and gpt3-1.5b's (2304, 2304), (2304, 9216),
+              (9216, 2304), all on wgmma: it adds into a clone of acc in
+              place and is held against the plain version on the original;
+              its path (wgmma / mma_sync / fma) is printed per shape,
+              kernel and library are timed in turns, and the wrapper's
               eager host time per call is measured.
 4. reduced -- reduced internlm2, gpt3-1.5b and gemma2-2b (float32) served
               on cuda and on cpu: logits within 1e-4 and identical greedy
@@ -145,6 +153,7 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -208,6 +217,10 @@ ARCH = "internlm2_1_8b"
 P, M, B, PROMPT, NEW = 4, 8, 2, 512, 16  # full-width serving run
 RED_P, RED_M, RED_B, RED_PROMPT, RED_NEW = 2, 4, 2, 16, 4  # reduced cuda-vs-cpu run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
+# phase 3's RMSNorm sweep: every width of the port's dense configs, and rows
+RMS_SWEEP_WIDTHS = (48, 64, 2048, 2304, 4096, 5120, 6144, 8192)
+RMS_SWEEP_ROWS = (1, 2, 1000, 4100)
+COLD_BYTES = 100_000_000  # a cold timing's rotation: twice the H100's 50 MB L2
 # full-width consistency in bf16: both paths round every product to bf16 (8
 # mantissa bits) but in other shapes, so ~1-ulp differences (2^-9 relative)
 # enter each of the 48 sublayers and add up like a random walk: about
@@ -394,27 +407,95 @@ def rmsnorm_bound_ms(n: int, h: int, x_dtype, g_dtype):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def rotated(fn, x, out_bytes: int):
+    """A call of ``fn`` on one of k copies of x in turn, holding its last k
+    outputs, so each call reads an x and writes a y that more than
+    ``COLD_BYTES`` of other inputs and outputs have passed through since
+    they were last touched: the L2 (50 MB) holds neither.  Returns (the
+    call, k); time it over a multiple of k calls."""
+    per_call = x.numel() * x.element_size() + out_bytes
+    k = max(2, -(-COLD_BYTES // per_call) + 1)
+    xs = [x.clone() for _ in range(k)]
+    held, turn = collections.deque(maxlen=k), [0]
+
+    def call():
+        held.append(fn(xs[turn[0]]))
+        turn[0] = (turn[0] + 1) % k
+
+    return call, k
+
+
+def in_turns(kernel, library, **kw):
+    """Device ms of the kernel and the library call timed in turns (kernel,
+    library, library, kernel): (kernel mean, library mean, the four)."""
+    t = [device_ms(fn, **kw) for fn in (kernel, library, library, kernel)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def rmsnorm_sweep():
+    """The kernel against the plain version at every width of the port's
+    dense configs, both x and g dtypes, N in RMS_SWEEP_ROWS, plus views one
+    element off their allocation and rows that are not a multiple of 16
+    bytes, each on the path its plan names."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(n, h, xd, gd, 0) for h in RMS_SWEEP_WIDTHS for xd in TOL for gd in TOL
+             for n in RMS_SWEEP_ROWS]
+    cases += [(n, h, xd, xd, 1) for h in RMS_SWEEP_WIDTHS for xd in TOL for n in (2, 1000)]
+    cases += [(1000, 2047, torch.bfloat16, torch.bfloat16, 0),
+              (1000, 2050, torch.float32, torch.float32, 0)]
+    by_path, worst = {k: 0 for k in rms_kernel.PATHS}, {xd: 0.0 for xd in TOL}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, h, xd, gd, off in cases:
+        buf = torch.randn(off + n * h, generator=gen, device="cuda").to(xd)
+        x = buf[off:].view(n, h)
+        g = (torch.randn(h, generator=gen, device="cuda") * 0.5).to(gd)
+        path = rms_kernel.plan_launch(n, h, xd, gd, x.data_ptr(), 0, sms).path
+        want = ("rowwise" if off or (h * x.element_size()) % 16 else
+                "latency" if n <= sms else "bulk")
+        check(path == want, f"rmsnorm N={n} H={h} x={xd} offset {off}: path {path}, want {want}")
+        y = rms_kernel.rmsnorm_fused(x, g)
+        torch.cuda.synchronize()
+        ref = rmsnorm_ref(x, g)
+        torch.testing.assert_close(y.float(), ref.float(), rtol=TOL[xd], atol=TOL[xd],
+                                   msg=lambda m: f"N={n} H={h} x={xd} g={gd} off={off}: {m}")
+        worst[xd] = max(worst[xd], float((y.float() - ref.float()).abs().max()))
+        by_path[path] += 1
+        del buf, x, g, y, ref
+    errs = {str(k).split(".")[-1]: f"{v:.3g} (tol {TOL[k]})" for k, v in worst.items()}
+    print(f"[kernels] rmsnorm sweep: {len(cases)} cases (H in {RMS_SWEEP_WIDTHS}, x and g in "
+          f"bf16/f32, N in {RMS_SWEEP_ROWS}; views one element off at N 2 and 1000; H 2047 bf16 "
+          f"and 2050 f32) all within tolerance; by path {by_path}; max_abs_err {errs}")
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(cfg_full, cfg_red):
-    """RMSNorm on the card at the shapes the serving path gives it, and at
-    gpt3-1.5b's training rows and gemma2-2b's serving rows."""
+    """RMSNorm on the card: the width sweep, then the shapes the serving
+    path gives it and gpt3-1.5b's training rows and gemma2-2b's serving
+    rows, each with its path, timed warm and cold against F.rms_norm in
+    turns."""
     bf16, f32 = torch.bfloat16, torch.float32
     d = cfg_full.d_model
     d2 = get_config(GPT3).d_model
     check(get_config(GEMMA2).d_model == d2, "gpt3-1.5b and gemma2-2b differ in width")
-    shapes = [  # (label, N rows, H, x dtype, g dtype)
-        ("prefill", B * PROMPT, d, bf16, bf16),
-        ("decode", B, d, bf16, bf16),
-        ("reduced", B * RED_PROMPT, cfg_red.d_model, f32, f32),
-        ("ragged", 1000, d, bf16, bf16),
-        ("gpt3-train", T_B * T_SEQ, d2, bf16, bf16),
-        ("gemma2-prefill", GS_B * GS_PROMPT, d2, bf16, bf16),
-        ("gemma2-decode", GS_B, d2, bf16, bf16),
+    rmsnorm_sweep()
+    shapes = [  # (label, N rows, H, x dtype, g dtype, the path the main path takes or None)
+        ("prefill", B * PROMPT, d, bf16, bf16, "bulk"),
+        ("decode", B, d, bf16, bf16, "latency"),
+        ("reduced", B * RED_PROMPT, cfg_red.d_model, f32, f32, None),
+        ("ragged", 1000, d, bf16, bf16, None),
+        ("gpt3-train", T_B * T_SEQ, d2, bf16, bf16, "bulk"),
+        ("gemma2-prefill", GS_B * GS_PROMPT, d2, bf16, bf16, "bulk"),
+        ("gemma2-decode", GS_B, d2, bf16, bf16, "latency"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
-    for label, n, h, xd, gd in shapes:
+    for label, n, h, xd, gd, need in shapes:
         x = torch.randn(n, h, generator=gen, device="cuda").to(xd)
         g = (torch.randn(h, generator=gen, device="cuda") * 0.5).to(gd)
+        plan = rms_kernel.plan_launch(n, h, xd, gd, x.data_ptr(), 0, sms)
+        check(need is None or plan.path == need,
+              f"rmsnorm {label} ({n} x {h}) takes the {plan.path} path, not {need}")
         y = rms_kernel.rmsnorm_fused(x, g)
         torch.cuda.synchronize()
         ref = rmsnorm_ref(x, g)
@@ -422,23 +503,38 @@ def phase_kernels(cfg_full, cfg_red):
         tol = TOL[xd]
         torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
         w = (1.0 + g.float()).to(xd)
-        lib = getattr(torch.nn.functional, "rms_norm", None)
-        kernel = lambda: rms_kernel.rmsnorm_fused(x, g)  # noqa: E731
-        plain = lambda: rmsnorm_ref(x, g)  # noqa: E731
-        library = None if lib is None else (lambda: lib(x, (h,), w, 1e-6))
-        row = dict(
-            max_abs_err=err,
-            ms=device_ms(kernel),
-            plain_ms=device_ms(plain),
-            library_ms=None if library is None else device_ms(library),
-        )
+        kernel_of = lambda a: rms_kernel.rmsnorm_fused(a, g)  # noqa: E731
+        library_of = lambda a: torch.nn.functional.rms_norm(a, (h,), w, 1e-6)  # noqa: E731
+        ms, lib_ms, turns = in_turns(lambda: kernel_of(x), lambda: library_of(x))
+        row = dict(max_abs_err=err, ms=ms, library_ms=lib_ms, path=plan.path,
+                   plain_ms=device_ms(lambda: rmsnorm_ref(x, g)), cold_ms=None,
+                   library_cold_ms=None)
         row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(n, h, xd, gd)
+        cold = "cold: not measured (a few rows; on the path they come from the previous op)"
+        if n >= 1000:
+            out_bytes = x.numel() * x.element_size()
+            kernel_cold, k = rotated(kernel_of, x, out_bytes)
+            library_cold, _ = rotated(library_of, x, out_bytes)
+            iters = k * -(-100 // k)
+            row["cold_ms"], row["library_cold_ms"], cold_turns = in_turns(
+                kernel_cold, library_cold, iters=iters)
+            cold = (f"cold (x and y rotated over {k} copies, {iters} calls a graph): "
+                    f"kernel={row['cold_ms']:.5f} library={row['library_cold_ms']:.5f} (in turns "
+                    f"{'/'.join(f'{t:.5f}' for t in cold_turns)}), kernel at "
+                    f"{row['bound_ms'] / row['cold_ms']:.1%} of the bound")
+            del kernel_cold, library_cold
         rows[label] = row
-        print(f"[kernels] rmsnorm {label} N={n} H={h} x={xd} g={gd}: max_abs_err={err:.3g} "
-              f"(tol {tol}) device ms: kernel={row['ms']:.5f} plain={row['plain_ms']:.5f} "
-              f"library={row['library_ms']} bound={row['bound_ms']:.5f} ({row['bound_by']}); "
-              f"eager ms per call: kernel={eager_ms(kernel):.5f} plain={eager_ms(plain):.5f} "
-              f"library={None if library is None else eager_ms(library)}")
+        print(f"[kernels] rmsnorm {label} N={n} H={h} x={xd} g={gd}: path={plan.path} "
+              f"(grid {plan.grid}, rows a stage {plan.rows}, warps a row {plan.warps_per_row}, "
+              f"stages {plan.stages}, shared bytes {plan.smem_bytes}) max_abs_err={err:.3g} (tol "
+              f"{tol}) device ms warm: kernel={ms:.5f} library={lib_ms:.5f} [F.rms_norm] (in "
+              f"turns kernel/library/library/kernel: {'/'.join(f'{t:.5f}' for t in turns)}) "
+              f"plain={row['plain_ms']:.5f} bound={row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"kernel at {row['bound_ms'] / ms:.1%} of it); {cold}; eager ms per call: "
+              f"kernel={eager_ms(lambda: kernel_of(x)):.5f} "
+              f"library={eager_ms(lambda: library_of(x)):.5f}")
+        del x, g, y, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -466,6 +562,33 @@ def expected_norm_launches(cfg, p, m, steps):
     return steps * m * per_group
 
 
+def expected_serve_paths(cfg, p, m, new_tokens):
+    """RMSNorm launches by kernel path of one serve call: the prefill's
+    block norms see b x prompt rows (bulk); its sink norms the last position
+    of b rows, and every decode norm b rows (latency)."""
+    blocks, _ = group_layout(cfg, p, 1)
+    per_stage = sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds)
+    bulk = m * p * per_stage
+    want = {k: 0 for k in rms_kernel.PATHS}
+    want.update(bulk=bulk, latency=expected_norm_launches(cfg, p, m, 1 + new_tokens) - bulk)
+    return want
+
+
+def _serve_counted(what, cfg, p, m, new_tokens, run):
+    """``run()`` with the RMSNorm counters reset before and read after; its
+    launches must be the structure's count, on the paths their rows imply.
+    Returns (result, launches, launches by path)."""
+    _reset_counts()
+    res = run()
+    _, launches, _, by_path = _read_counts()
+    want = expected_norm_launches(cfg, p, m, 1 + new_tokens)
+    check(launches == want and launches > 0,
+          f"{what}: rmsnorm launches {launches} != {want} implied by the port's structure")
+    want_paths = expected_serve_paths(cfg, p, m, new_tokens)
+    check(by_path == want_paths, f"{what}: rmsnorm launches by path {by_path} != {want_paths}")
+    return res, launches, by_path
+
+
 def phase_serve(cfg):
     spec = RunSpec(p=P, n_chunks=1, microbatch=B, seq_len=PROMPT, m=M)
     t0 = time.perf_counter()
@@ -477,14 +600,10 @@ def phase_serve(cfg):
     serve(cfg, stacked, shared, prompts, p=P, new_tokens=1)  # warm-up (cuBLAS, allocator)
 
     torch.cuda.reset_peak_memory_stats()
-    rms_kernel.launches = 0
-    res = serve(cfg, stacked, shared, prompts, p=P, new_tokens=NEW,
-                log=lambda s: print(f"[serve] {s}"))
-    launches = rms_kernel.launches
-
+    res, launches, by_path = _serve_counted(
+        "serve", cfg, P, M, NEW, lambda: serve(cfg, stacked, shared, prompts, p=P, new_tokens=NEW,
+                                               log=lambda s: print(f"[serve] {s}")))
     want = expected_norm_launches(cfg, P, M, 1 + NEW)
-    check(launches == want and launches > 0,
-          f"rmsnorm launches {launches} != {want} implied by the port's structure")
     for lg in res.logits:
         check(lg.shape == (M, B, cfg.vocab), f"logits shape {tuple(lg.shape)}")
         check(bool(torch.isfinite(lg.float()).all()), "non-finite logits")
@@ -500,8 +619,8 @@ def phase_serve(cfg):
     print(f"[serve] rmsnorm launches {launches} == expected {want} "
           f"({1 + NEW} steps x {M} groups x ({P} stages x "
           f"{sum(NORMS_PER_KIND[k] for kinds in group_layout(cfg, P, 1)[0] for k in kinds)} "
-          f"norms + 1 sink))")
-    return stacked, shared, prompts, res, launches
+          f"norms + 1 sink)), by path {by_path}")
+    return stacked, shared, prompts, res, (launches, by_path)
 
 
 def phase_consistency(cfg, stacked, shared, prompts, res, p=P, limit=CONSIST_REL_L2,
@@ -667,10 +786,23 @@ def _reset_counts():
     wgrad_kernel.launches = 0
     wgrad_kernel.launches_by_path.update({k: 0 for k in wgrad_kernel.PATHS})
     rms_kernel.launches = 0
+    rms_kernel.launches_by_path.update({k: 0 for k in rms_kernel.PATHS})
 
 
 def _read_counts():
-    return wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path)
+    """(wgrad_accum, rmsnorm, wgrad_accum by path, rmsnorm by path)."""
+    return (wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path),
+            dict(rms_kernel.launches_by_path))
+
+
+def _zero_counts():
+    return 0, 0, {k: 0 for k in wgrad_kernel.PATHS}, {k: 0 for k in rms_kernel.PATHS}
+
+
+def _add_counts(a, b, sign=1):
+    """``a + sign * b`` for two count tuples of ``_read_counts``."""
+    return (a[0] + sign * b[0], a[1] + sign * b[1], {k: a[2][k] + sign * b[2][k] for k in a[2]},
+            {k: a[3][k] + sign * b[3][k] for k in a[3]})
 
 
 def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0)):
@@ -683,6 +815,9 @@ def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0)):
     want_paths = {k: (want[0] if k == "wgmma" else 0) for k in wgrad_kernel.PATHS}
     check(launches[2] == want_paths, f"{what}: wgrad_accum launches by path {launches[2]} != "
           f"{want_paths}: every W op of the training step should take the wgmma path")
+    want_rms = {k: (want[1] if k == "bulk" else 0) for k in rms_kernel.PATHS}
+    check(launches[3] == want_rms, f"{what}: rmsnorm launches by path {launches[3]} != "
+          f"{want_rms}: every norm of the training step (1024 rows) should take the bulk path")
     return want
 
 
@@ -1250,13 +1385,12 @@ def phase_replay(cfg):
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=T_SEQ, vocab=cut.vocab))
     data_at = make_data_at(data, spec, DEV)
     per_step = expected_train_launches(cut, T_P, sched.n_chunks, T_M)
-    total = (0, 0, {k: 0 for k in wgrad_kernel.PATHS})
+    total = _zero_counts()
     clean_by_mode = {}
     for mode in ("eager", "graph"):
         launches, clean_by_mode[mode] = _replay_one_mode(cut, sched, spec, plan, data_at, mode,
                                                         per_step)
-        total = (total[0] + launches[0], total[1] + launches[1],
-                 {k: total[2][k] + launches[2][k] for k in total[2]})
+        total = _add_counts(total, launches)
     gaps = [abs(g[key] - e[key]) / abs(e[key])
             for g, e in zip(clean_by_mode["graph"], clean_by_mode["eager"])
             for key in ("loss", "grad_norm")]
@@ -1380,8 +1514,7 @@ def _count_walks(grad_fn):
         before, t0 = _read_counts(), time.perf_counter()
         out = walk(*args)
         after = _read_counts()
-        log.append(((after[0] - before[0], after[1] - before[1],
-                     {k: after[2][k] - before[2][k] for k in after[2]}), time.perf_counter() - t0))
+        log.append((_add_counts(after, before, -1), time.perf_counter() - t0))
         return out
 
     grad_fn.walk = counted
@@ -1478,7 +1611,7 @@ def phase_train_graph(cfg, runs):
               f"{name}: {gf.captures} captures and {len(walks)} walks, want 1 and 2")
         for what, (launches, _) in zip(("warm-up", "capture"), walks):
             want = _check_counts(f"{name} {what}", launches, per_step, 1)
-        check(replay_launches == (0, 0, {k: 0 for k in wgrad_kernel.PATHS}),
+        check(replay_launches == _zero_counts(),
               f"{name}: the replayed steps launched {replay_launches} from Python")
         e_res = eager["res"]
         check(res.losses[0] == e_res.losses[0] == loss_e,
@@ -1513,16 +1646,15 @@ def phase_train_graph(cfg, runs):
                                             tag="profile-graph")
             if n_by_name:
                 got = (_kernel_launches(n_by_name, "wgrad_wgmma_kernel"),
-                       _kernel_launches(n_by_name, "rmsnorm_fwd_kernel"))
+                       _kernel_launches(n_by_name, "rmsnorm_bulk_kernel"))
                 check(got == per_step, f"{name}: a profiled replay ran (wgrad_wgmma, rmsnorm) "
                       f"kernels {got}, the structure implies {per_step}")
                 print(f"[profile-graph] {name}: one replayed step ran {got[0]} wgrad_wgmma_kernel "
-                      f"and {got[1]} rmsnorm_fwd_kernel (expected {per_step}); "
+                      f"and {got[1]} rmsnorm_bulk_kernel (expected {per_step}); "
                       f"{gf.captures} capture(s) in all")
             _profile_replay(name, gf, stacked, shared, side_from_batch(data.batch_at(G_STEPS),
                                                                       spec, DEV))
-        out[name] = (sum(w[0][0] for w in walks), sum(w[0][1] for w in walks),
-                     {k: sum(w[0][2][k] for w in walks) for k in wgrad_kernel.PATHS})
+        out[name] = _add_counts(walks[0][0], walks[1][0])
         del step, gf, stacked, shared, res
         torch.cuda.empty_cache()
     return out
@@ -1530,7 +1662,8 @@ def phase_train_graph(cfg, runs):
 
 def phase_serve_gemma2(cfg):
     """Phase 17: gemma2-2b served at full width and depth with prompts past
-    its window; returns the RMSNorm launches of the timed run."""
+    its window; returns the RMSNorm launches of the timed run and their
+    kernel paths."""
     window = cfg.extras_dict()["window"]
     check(GS_PROMPT > window and GS_PROMPT % window != 0,
           f"the prompt ({GS_PROMPT}) must pass the window ({window}) and not be a multiple of it")
@@ -1555,13 +1688,11 @@ def phase_serve_gemma2(cfg):
     serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=1)  # warm-up (cuBLAS, allocator)
 
     torch.cuda.reset_peak_memory_stats()
-    rms_kernel.launches = 0
-    res = serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=GS_NEW,
-                log=lambda s: print(f"[serve-gemma2] {s}"))
-    launches = rms_kernel.launches
+    res, launches, by_path = _serve_counted(
+        "serve-gemma2", cfg, GS_P, GS_M, GS_NEW,
+        lambda: serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=GS_NEW,
+                      log=lambda s: print(f"[serve-gemma2] {s}")))
     want = expected_norm_launches(cfg, GS_P, GS_M, 1 + GS_NEW)
-    check(launches == want and launches > 0,
-          f"gemma2 rmsnorm launches {launches} != {want} implied by the port's structure")
     for lg in res.logits:
         check(lg.shape == (GS_M, GS_B, cfg.vocab), f"gemma2 logits shape {tuple(lg.shape)}")
         check(bool(torch.isfinite(lg.float()).all()), "gemma2: non-finite logits")
@@ -1574,12 +1705,12 @@ def phase_serve_gemma2(cfg):
           f"min={min(decode_ms):.2f} max={max(decode_ms):.2f} "
           f"generated_tok_per_s={GS_M * GS_B * GS_NEW / sum(res.decode_s):.1f} "
           f"max_memory_allocated_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}; "
-          f"rmsnorm launches {launches} == expected {want}")
+          f"rmsnorm launches {launches} == expected {want}, by path {by_path}")
     phase_consistency(cfg, stacked, shared, prompts, res, p=GS_P, limit=GS_CONSIST_REL_L2,
                       tag="serve-gemma2")
     del stacked, shared, res
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_path
 
 
 def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
@@ -1627,7 +1758,7 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
           f"gpt3 {name}: {gf.captures} captures and {len(walks)} walks, want 1 and 2")
     for what, (launches, _) in zip(("warm-up", "capture"), walks):
         want = _check_counts(f"gpt3 {name} {what}", launches, per_step, 1)
-    check(replay_launches == (0, 0, {k: 0 for k in wgrad_kernel.PATHS}),
+    check(replay_launches == _zero_counts(),
           f"gpt3 {name}: the replayed steps launched {replay_launches} from Python")
     check(res.losses[0] == loss0, f"gpt3 {name}: step-0 loss {res.losses[0]!r} != {loss0!r}")
     check(all(np.isfinite(res.losses + res.grad_norms)), f"gpt3 {name}: non-finite metrics")
@@ -1648,15 +1779,14 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
                                         tag="profile-gpt3")
         if n_by_name:
             got = (_kernel_launches(n_by_name, "wgrad_wgmma_kernel"),
-                   _kernel_launches(n_by_name, "rmsnorm_fwd_kernel"))
+                   _kernel_launches(n_by_name, "rmsnorm_bulk_kernel"))
             check(got == per_step, f"gpt3 {name}: a profiled replay ran (wgrad_wgmma, rmsnorm) "
                   f"kernels {got}, the structure implies {per_step}")
             print(f"[profile-gpt3] {name}: one replayed step ran {got[0]} wgrad_wgmma_kernel and "
-                  f"{got[1]} rmsnorm_fwd_kernel (expected {per_step})")
+                  f"{got[1]} rmsnorm_bulk_kernel (expected {per_step})")
     out = dict(res=res, seq=seq, chunks=sched.n_chunks, peak_gb=peak_gb,
                reserved_gb=reserved_gb, ms=med * 1e3,
-               launches=(sum(w[0][0] for w in walks), sum(w[0][1] for w in walks),
-                         {k: sum(w[0][2][k] for w in walks) for k in wgrad_kernel.PATHS}))
+               launches=_add_counts(walks[0][0], walks[1][0]))
     del step, gf, stacked, shared, res
     torch.cuda.empty_cache()
     return out
@@ -1864,17 +1994,21 @@ def main() -> int:
                **{f"train-graph-{n}": c for n, c in graph_runs.items()}}
     wgrad_by_run = {n: c[0] for n, c in counted.items()}
     wgrad_by_path = {k: sum(c[2][k] for c in counted.values()) for k in wgrad_kernel.PATHS}
-    rms_by_run = {"serve": serve_launches, "serve-gemma2": gemma2_launches,
+    rms_by_run = {"serve": serve_launches[0], "serve-gemma2": gemma2_launches[0],
                   **{n: c[1] for n, c in counted.items()}}
+    rms_by_path = {k: serve_launches[1][k] + gemma2_launches[1][k]
+                   + sum(c[3][k] for c in counted.values()) for k in rms_kernel.PATHS}
 
     def by_shape(table):
-        return {label: {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
-                for label, r in table.items()}
+        keys = ("path", "ms", "cold_ms", "bound_ms", "library_ms", "library_cold_ms",
+                "max_abs_err")
+        return {label: {k: r[k] for k in keys if k in r} for label, r in table.items()}
 
     print(json.dumps({"kernels": [
         _kernel_row("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:29", sum(rms_by_run.values()), rms_by_run,
-                    rows["prefill"], by_shape=by_shape(rows)),
+                    rows["prefill"], launches_by_kernel_path=rms_by_path,
+                    by_shape=by_shape(rows)),
         _kernel_row("wgrad_accum", "src/repro_torch/kernels/csrc/wgrad_accum.cu",
                     "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_run.values()),
                     wgrad_by_run, wrows["wu,wg"], launches_by_kernel_path=wgrad_by_path,

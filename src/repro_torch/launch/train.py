@@ -83,7 +83,8 @@ def make_schedule(name: str, p: int, m: int):
 
 def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, microbatch: int,
                      seq_len: int, m: int, tcfg: TrainStepConfig,
-                     memory_budget_bytes: Optional[float] = None, device="cpu", seed: int = 0):
+                     memory_budget_bytes: Optional[float] = None, *, device,
+                     seed: int = 0):
     """-> (cfg, spec, schedule, step) for the given run.  With a budget, the
     schedule is the HBM planner's choice and ``schedule`` is not read: the
     planner prices the slots it measures on ``device`` (one microbatch's F

@@ -242,8 +242,7 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init_params(cfg: ArchConfig, spec: RunSpec, placement, *, seed: int = 0,
-                device="cpu"):
+def init_params(cfg: ArchConfig, spec: RunSpec, placement, *, seed: int = 0, device):
     """Returns (stacked stage params per chunk, shared params).
 
     Weights are drawn on ``device`` from ``torch.Generator(device)`` seeded

@@ -145,7 +145,7 @@ def test_v_relay_carries_padded_slots():
     lin, v = zb_h1(p, m), zb_v(p, m)
     spec = tlm.RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=s, m=m)
     v_spec = dataclasses.replace(spec, n_chunks=2)
-    stacked, shared = tlm.init_params(cfg, spec, Placement.linear(p), seed=0)
+    stacked, shared = tlm.init_params(cfg, spec, Placement.linear(p), seed=0, device="cpu")
     v_stacked = cs.relay_to_placement(cfg, stacked, v.placement)
     masks = tlm.group_masks(cfg, p, 2, v.placement)
     assert masks.sum() == cfg.n_layers < masks.size

@@ -73,7 +73,7 @@ def _port_driver(ckpt_dir, every=3, seed=0):
     data = SyntheticLM(DataConfig(global_batch=M * B, seq_len=S, vocab=cfg.vocab))
 
     def fresh():
-        return init_state(*init_params(cfg, spec, sched.placement, seed=seed))
+        return init_state(*init_params(cfg, spec, sched.placement, seed=seed, device="cpu"))
 
     return TrainDriver(DriverConfig(ckpt_dir=ckpt_dir, ckpt_every=every, max_retries=2),
                        make_step_fn(step), fresh, make_data_at(data, spec, "cpu"))
@@ -259,7 +259,7 @@ def test_launcher_plans_under_a_budget_and_resumes(tmp_path, capsys):
     assert store.latest_step(ckpt) == 3
     proto = init_state(*init_params(get_reduced(ARCH), RunSpec(p=4, n_chunks=res.schedule.n_chunks,
                                                               microbatch=2, seq_len=32, m=8),
-                                    res.schedule.placement, seed=1))
+                                    res.schedule.placement, seed=1, device="cpu"))
     got, _ = store.restore(ckpt, 3, proto)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(res.state)))
     more = launcher.main(LAUNCH + ["--steps", "4", "--memory-budget-mb", "4", "--ckpt-dir", ckpt])
@@ -269,3 +269,17 @@ def test_launcher_plans_under_a_budget_and_resumes(tmp_path, capsys):
 def test_launcher_tiny_budget_names_the_binding_term():
     with pytest.raises(RuntimeError, match="binding term: "):
         launcher.main(LAUNCH + ["--steps", "1", "--memory-budget-mb", "0.5"])
+
+
+@pytest.mark.parametrize("fn", ["build_everything", "init_params"])
+def test_entry_points_need_a_device(fn):
+    """Neither builds on the CPU unless the caller names it: a call without
+    ``device`` raises before any work."""
+    cfg = get_reduced(ARCH)
+    sched = zb_h1(P, M)
+    spec = RunSpec(p=P, n_chunks=1, microbatch=B, seq_len=S, m=M)
+    with pytest.raises(TypeError, match="device"):
+        if fn == "init_params":
+            init_params(cfg, spec, sched.placement, seed=0)
+        else:
+            launcher.build_everything(ARCH, True, P, "zb-h1", B, S, M, TrainStepConfig())

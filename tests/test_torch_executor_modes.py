@@ -51,7 +51,7 @@ def _setup(name):
     cfg = get_reduced(ARCH)
     sched = make_schedule(name, P, M)
     spec = tlm.RunSpec(p=P, n_chunks=sched.n_chunks, microbatch=B, seq_len=S, m=M)
-    stacked, shared = tlm.init_params(cfg, spec, sched.placement, seed=0)
+    stacked, shared = tlm.init_params(cfg, spec, sched.placement, seed=0, device="cpu")
     side = {k: torch.as_tensor(v, dtype=torch.long)
             for k, v in tlm.side_inputs(cfg, spec, seed=1).items()}
     return cfg, spec, sched, stacked, shared, side

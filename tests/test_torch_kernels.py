@@ -8,9 +8,11 @@ count at full width (3, 2048).  Tolerances are those of
 ``tests/test_kernels.py``: 1e-5 in float32 (other summation orders, a few
 ulps), 2e-2 in bfloat16 (one bf16 rounding of the output, 8 mantissa bits).
 
-The CUDA kernel itself runs only on the card: the case below skips here, and
-``chip_smoke.py`` holds it against the plain version at the serving path's
-shapes on the H100.
+The CUDA kernel itself runs only on the card: the case below (every dense
+width, both dtypes, the decode rows and views one element off their
+allocation, each on the path its plan names) skips here, and
+``chip_smoke.py`` phase 3 runs a wider sweep on the H100.  The launch plan
+is tested on the CPU in ``tests/test_torch_rmsnorm_plan.py``.
 """
 
 import pytest
@@ -95,18 +97,33 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert build.sources() == ["rmsnorm", "wgrad_accum"]
 
 
+CUDA_CASES = ([(1024, 2048, torch.bfloat16, 0), (2, 2048, torch.bfloat16, 0),
+               (32, 48, torch.float32, 0), (1000, 2048, torch.bfloat16, 0)]
+              + [(n, h, dt, 0) for h in (48, 64, 2304, 4096, 5120, 6144, 8192)
+                 for dt in (torch.bfloat16, torch.float32) for n in (2, 1000)]
+              + [(1000, h, dt, 1) for h in (64, 2048, 2304) for dt in (torch.bfloat16,
+                                                                     torch.float32)]
+              + [(1000, 2047, torch.bfloat16, 0), (4100, 2304, torch.bfloat16, 0)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,x_dtype", [(1024, 2048, torch.bfloat16), (2, 2048, torch.bfloat16),
-                                         (32, 48, torch.float32), (1000, 2048, torch.bfloat16)])
-def test_cuda_kernel_matches_plain(n, h, x_dtype):
+@pytest.mark.parametrize("n,h,x_dtype,offset", CUDA_CASES)
+def test_cuda_kernel_matches_plain(n, h, x_dtype, offset):
+    """The kernel against the plain version on the card, on the path its
+    plan names; ``offset`` elements off the allocation makes a misaligned
+    view (``chip_smoke.py`` phase 3 sweeps more shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the H100")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(n, h, generator=gen, device="cuda").to(x_dtype)
+    buf = torch.randn(offset + n * h, generator=gen, device="cuda").to(x_dtype)
+    x = buf[offset:].view(n, h)
     g = (torch.randn(h, generator=gen, device="cuda") * 0.5).to(x_dtype)
-    before = trms.launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = trms.plan_launch(n, h, x_dtype, x_dtype, x.data_ptr(), 0, sms)
+    assert plan.path == ("rowwise" if offset or h % 8 else "latency" if n <= sms else "bulk")
+    before, on_path = trms.launches, trms.launches_by_path[plan.path]
     got = ops.rmsnorm(x, g)
     torch.cuda.synchronize()
-    assert trms.launches == before + 1
+    assert trms.launches == before + 1 and trms.launches_by_path[plan.path] == on_path + 1
     tol = 1e-5 if x_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), rmsnorm_ref(x, g).float(), rtol=tol, atol=tol)

@@ -256,7 +256,7 @@ def test_gemma2_decode_wraps_the_ring_consistently():
     cfg = get_reduced(ARCH)
     p, m, b, s, new = 2, 2, 2, W + 2, W
     stacked, shared = init_params(cfg, RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=s, m=m),
-                                  Placement.linear(p), seed=5)
+                                  Placement.linear(p), seed=5, device="cpu")
     prompts = np.random.default_rng(5).integers(0, cfg.vocab, (m, b, s))
     res = serve(cfg, stacked, shared, prompts, p=p, new_tokens=new)
     toks = res.tokens.numpy()

@@ -195,7 +195,7 @@ def test_measured_timeline_matches_pool_tally(name):
     cfg = dataclasses.replace(get_reduced(ARCH), n_layers=2 * p)  # no padded groups
     spec = RunSpec(p=p, n_chunks=sched.n_chunks, microbatch=2, seq_len=32, m=m)
     prog = build_program(cfg, spec, sched.placement)
-    stacked, shared = init_params(cfg, spec, sched.placement, seed=3)
+    stacked, shared = init_params(cfg, spec, sched.placement, seed=3, device="cpu")
     side = tree_map(torch.as_tensor, side_inputs(cfg, spec))
     exe = PipelineExecutor(prog, compile_plan(sched))
     stage0 = tuple(tree_map(lambda a: a[0], c) for c in stacked)

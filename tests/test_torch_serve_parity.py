@@ -269,7 +269,7 @@ def test_prefill_then_decode_consistency():
     from repro_torch.models.lm import init_params
 
     stacked, shared = init_params(cfg, RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=s, m=m),
-                                  Placement.linear(p), seed=5)
+                                  Placement.linear(p), seed=5, device="cpu")
     prompts = np.random.default_rng(5).integers(0, cfg.vocab, (m, b, s))
     res = serve(cfg, stacked, shared, prompts, p=p, new_tokens=1)
     longer = np.concatenate([prompts, res.tokens[..., :1].numpy()], axis=-1)

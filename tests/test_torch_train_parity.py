@@ -483,7 +483,7 @@ def _placement_run(p, name, dtype, postval_mode, steps=4, m=8, decisions=None):
     sched = make_schedule(name, p, m)
     spec = tlm.RunSpec(p=p, n_chunks=sched.n_chunks, microbatch=2, seq_len=32, m=m)
     lin_spec = tlm.RunSpec(p=p, n_chunks=1, microbatch=2, seq_len=32, m=m)
-    stacked, shared = tlm.init_params(cfg, lin_spec, Placement.linear(p), seed=0)
+    stacked, shared = tlm.init_params(cfg, lin_spec, Placement.linear(p), seed=0, device="cpu")
     if sched.n_chunks != 1:
         stacked = _chip_smoke().relay_to_placement(cfg, stacked, sched.placement)
     tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=3e-3, grad_clip=1.0),
@@ -626,7 +626,7 @@ def test_bf16_params_step_keeps_dtypes():
     cfg = dataclasses.replace(get_reduced(ARCH), dtype="bfloat16")
     spec = tlm.RunSpec(p=2, n_chunks=1, microbatch=1, seq_len=8, m=2)
     sched = zb_h2(2, 2)
-    stacked, shared = tlm.init_params(cfg, spec, sched.placement, seed=3)
+    stacked, shared = tlm.init_params(cfg, spec, sched.placement, seed=3, device="cpu")
     before = [a.clone() for a in tree_leaves(stacked)]
     got, (st, sh) = _port_train(cfg, spec, sched, stacked, shared, _batches(cfg, spec, 1),
                                 adamw.AdamWConfig(lr=1e-2), "within_step")
