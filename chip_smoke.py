@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases, in order, but 18-19 run first, after 2, in a child process of
-their own (gpt3-1.5b's graph runs need the card to themselves), and 17
-after 7; any failed check raises and the exit code is not 0:
+their own (gpt3-1.5b's graph runs need the card to themselves), 17 after
+7, and 16 with its half of 13, then 13's held-out runs, last, each in a
+child process of its own (a fresh process, as the launcher runs); any
+failed check raises and the exit code is not 0:
 
 1. build   -- compile every CUDA source of ``src/repro_torch/kernels/csrc/``
               with nvcc (sm_90a) into ``build/repro_torch/``, all at once.
@@ -56,7 +58,9 @@ after 7; any failed check raises and the exit code is not 0:
               all eight schedules of the launcher (1f1b, zb-h1, zb-h2,
               zb-1p, zb-2p on one chunk a stage; zb-v, v-min, v-half on two,
               with the seed-0 weights relaid layer by layer onto the V
-              placement, so every schedule starts from the same model):
+              placement, so every schedule starts from the same model; the
+              AdamW state and a first walk before the steps, as
+              ``launch/calibrate.py`` runs them, for phase 13's peaks):
               step time, tokens/s, peak memory beside the plan's live
               activation and W-context units, losses, grad norms; both
               kernels' launch counts, read around each schedule's run, equal
@@ -80,11 +84,24 @@ after 7; any failed check raises and the exit code is not 0:
               the measured one (slot bytes measured on the card): each
               point's choice and itemized breakdown; cost never rises with
               the budget and 1 GiB is refused naming the binding term.
-13. plan-vs-card -- for each schedule of phase 9, the planner's one-card
-              prediction (per-stage peaks summed, or the global footprint,
-              plus every stage's weights and moments) under both
-              fidelities beside the card's peak; the residual is printed,
-              not gated.
+13. plan-vs-card -- the planner's temp term held to the card: for every
+              run of phase 9 (eager), of phase 16 (graph; checked after it)
+              and of phase 18 (graph, gpt3-1.5b, in its child process), the
+              run's own torch.cuda.max_memory_reserved must not pass the
+              planner's priced one-card total (``HBMPlanner.
+              one_card_bytes``: measured fidelity, every stage's weights,
+              moments and fp32 accumulators once, the walk at its worst
+              tick, the optimizer's transient by its calibrated overhang
+              and reuse, the calibrated remainder of the run's executor
+              mode), and the
+              total may pass the peak by at most PLAN_OVERSHOOT_MAX of it;
+              each overshoot is printed, with the model fidelity's total.
+              Then the remainder and shares ``launch/calibrate.py`` would
+              write from these runs, beside the checked-in ones (printed,
+              not gated).  After phase 16, runs the calibration never saw:
+              internlm2 at seq 512 under the graph executor, zb-h1 and
+              zb-v, 2 steps each, must stay under their priced totals too
+              (their launches counted with the main path's).
 14. launch  -- ``launch.train.main`` at full width and depth under a memory
               budget at which the planner picks a zero-bubble schedule,
               with a checkpoint directory; on the card the launcher
@@ -93,7 +110,9 @@ after 7; any failed check raises and the exit code is not 0:
               losses fall, both kernels' launch counts match the chosen
               schedule's one capture (every W op on wgmma), the final
               checkpoint restores bit for bit; save and restore seconds
-              and bytes.
+              and bytes; the reserved bytes after the first step, which the
+              launcher prints beside the chosen plan's priced one-card
+              total, must not pass that total.
 15. replay  -- the fault-tolerant driver at full width, 2 layers a stage,
               under the eager and then the graph executor: a failure at
               step 3 is restored from the step-2 checkpoint onto fresh
@@ -104,7 +123,8 @@ after 7; any failed check raises and the exit code is not 0:
               eager one's (within 1e-6 relative: index_add_ atomics).
 16. train-graph -- phase 9's run under every schedule again, with the
               pipeline captured once into a CUDA graph and replayed
-              (``executor_mode="graph"``): the step-0 gradient equals a
+              (``executor_mode="graph"``, the AdamW state allocated before
+              the capture, as in the launcher): the step-0 gradient equals a
               fresh eager walk's bit for bit (the embedding's within 1e-6
               relative), the step-0 loss equals phase 9's bit for bit, the
               losses and grad norms of phase 9's later steps within 1e-6
@@ -144,7 +164,8 @@ after 7; any failed check raises and the exit code is not 0:
 19. launch-gpt3 -- ``launch.train.main`` with the default ``--arch`` at full
               width, 4 steps of zb-h1: it trains gpt3-1.5b, its losses
               fall, one capture's launches, the last line says
-              ``executor=graph``.
+              ``executor=graph``; its reserved bytes after the first step
+              must not pass phase 18's priced one-card total of zb-h1.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -176,7 +197,7 @@ import torch  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core.executor import PipelineExecutor  # noqa: E402
-from repro_torch.core.memory import measured_timeline, memory_timeline  # noqa: E402
+from repro_torch.core.memory import cuda_temp_record  # noqa: E402
 from repro_torch.core.planner import HBMPlanner, stage_program_factory  # noqa: E402
 from repro_torch.core.schedules import compile_plan  # noqa: E402
 from repro_torch.core.schedules.ir import Placement  # noqa: E402
@@ -186,12 +207,13 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
+from repro_torch.launch.calibrate import calibration_record  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
 from repro_torch.launch.steps import build_serve_step  # noqa: E402
 from repro_torch.launch.train import init_state, make_data_at, make_schedule, make_step_fn  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
-from repro_torch.launch.train import side_from_batch, train  # noqa: E402
+from repro_torch.launch.train import TrainResult, side_from_batch, train  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
     RunSpec,
     build_program,
@@ -256,6 +278,8 @@ GS_CONSIST_REL_L2 = 6e-2
 GPT3_STEPS = 4
 GPT3_HEAD_VOCABS = (50257, 50264, 50304)
 GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
+GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
+HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq
 T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 3
@@ -304,10 +328,9 @@ T_GRAD_WORST_LEAF = 1e-2
 T_V_GRAD_WORST_LEAF = 1e-5
 # the planner's sweep at the train phase's run shape, per-device budgets in GiB
 PLAN_BUDGETS_GIB = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 80)
-# the launcher under a budget, priced by the measured fidelity on the card: at
-# 16384 MiB it picks zb-v (internlm2-1.8b, p=4, m=8, 1 x 1024: 14.6 GiB a
-# device; 12 GiB gives v-flex@1.8Mb at bubble 0.45, 8 GiB nothing)
-L_BUDGET_MB, L_STEPS = 16384, 4
+# the launcher under a budget, priced by the measured fidelity on the card
+# with the graph executor's temp term (internlm2-1.8b, p=4, m=8, 1 x 1024)
+L_BUDGET_MB, L_STEPS = 36864, 4
 # the graph executor against phase 9's eager runs: step-0 gradients and loss
 # bit for bit but the embedding gradient (index_add_ atomics, ~1e-7
 # relative), and every later loss and grad norm, within 1e-6 relative; it
@@ -320,6 +343,16 @@ G_RTOL, G_STEPS = 1e-6, 8
 # the embedding gradient's index_add_ atomics, which reorder fp32 sums
 # (~1e-7 relative): 1e-6 relative on the replayed losses and grad norms
 R_SCHEDULE, R_LAYERS_PER_STAGE, R_STEPS, R_EVERY, R_FAIL_AT, R_RTOL = "zb-h1", 2, 4, 2, 3, 1e-6
+
+
+# phase 13: the planner's one-card total (measured fidelity, temp term of the
+# run's executor mode) against each run's torch.cuda.max_memory_reserved: the
+# peak must not pass it, and it may pass the peak by at most this share of
+# the peak, so the term tracks the card and is no blanket constant
+PLAN_OVERSHOOT_MAX = 0.10
+# ... and on runs the calibration never saw: internlm2 at seq 512 (M_B 0.41
+# of the calibration cell's) under the graph executor
+H_SEQ, H_SCHEDULES, H_STEPS = 512, ("zb-h1", "zb-v"), 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -900,12 +933,40 @@ def _train_full(cfg, name: str, seq: int, tcfg=None):
     print(f"[train] {name}: {base_gb:.2f} GB allocated after init (bf16 weights; "
           f"{sched.n_chunks} chunk(s) a stage, {plan.n_ticks} ticks)")
     torch.cuda.reset_peak_memory_stats()
+    state, walk = _first_walk_peaks(step, stacked, shared, spec, data)
     _reset_counts()
     res = train(cfg, spec, step, stacked, shared, data, T_STEPS,
-                log=lambda s: print(f"[train] {name}: {s}"))
+                log=lambda s: print(f"[train] {name}: {s}"), state=state)
     launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    return res, launches, peak_gb, base_gb, plan, (stacked, shared, spec, sched, step, data)
+    return (res, launches, peak_gb, base_gb, plan, (stacked, shared, spec, sched, step, data),
+            _mem(walk))
+
+
+def _first_walk_peaks(step, stacked, shared, spec, data):
+    """(AdamW state, the memory window's peaks at the end of the first
+    walk), as ``launch/calibrate.py::measure_run`` reads them: the state on
+    the card, step 0's walk (in graph mode the capture and a replay), its
+    results dropped; the driver then steps from that state, as the
+    launcher's does.  The walk's launches are not counted."""
+    state = init_state(stacked, shared)
+    step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, DEV))
+    return state, _walk_peaks()
+
+
+def _walk_peaks():
+    """The window's reserved and allocated peaks so far (the first walk's end)."""
+    torch.cuda.synchronize()
+    return dict(walk_reserved=torch.cuda.max_memory_reserved(),
+                walk_allocated=torch.cuda.max_memory_allocated())
+
+
+def _mem(walk):
+    """The window's peaks, in bytes, for the plan-vs-card gate: the run's,
+    and ``walk``'s at the end of its first walk."""
+    torch.cuda.synchronize()
+    return dict(reserved=torch.cuda.max_memory_reserved(),
+                allocated=torch.cuda.max_memory_allocated(), **walk)
 
 
 def phase_train(cfg):
@@ -913,14 +974,14 @@ def phase_train(cfg):
     out = {}
     for name in T_SCHEDULES:
         seq = T_SEQ
-        res, launches, peak_gb, base_gb, plan, state = _train_full(cfg, name, seq)
+        res, launches, peak_gb, base_gb, plan, state, mem = _train_full(cfg, name, seq)
         if peak_gb > T_MEM_LIMIT_GB:
             print(f"[train] {name}: peak {peak_gb:.1f} GB > {T_MEM_LIMIT_GB} GB at seq {seq}; "
                   f"running it again at seq 512")
             del state
             torch.cuda.empty_cache()
             seq = 512
-            res, launches, peak_gb, base_gb, plan, state = _train_full(cfg, name, seq)
+            res, launches, peak_gb, base_gb, plan, state, mem = _train_full(cfg, name, seq)
         reserved_gb = torch.cuda.max_memory_reserved() / 1e9  # the same window as peak_gb
         sched = state[3]
         want = _check_counts(name, launches, expected_train_launches(cfg, T_P, sched.n_chunks, T_M),
@@ -944,7 +1005,7 @@ def phase_train(cfg):
               f"profile summed over stages {profile:g} M_B; {plan.n_ticks} ticks, simulated "
               f"bubble rate {bubble:.4f} (unit times, several cards)")
         out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb, base_gb=base_gb,
-                         reserved_gb=reserved_gb,
+                         reserved_gb=reserved_gb, mem=mem,
                          sched=sched, plan=plan, n_params=sum(
                              t.numel() for t in tree_leaves((state[0], state[1]))),
                          param_bytes=sum(t.numel() * t.element_size()
@@ -1247,60 +1308,65 @@ def phase_plan(cfg):
     return planners
 
 
-def _one_card_bytes(cfg, sched, plan, slots):
-    """What the planner's per-stage accounting says one card holding all p
-    stages needs for act + wctx + inbox + sink: the sum over stages of each
-    stage's peak tick, and the peak over time of all stages' live act +
-    wctx (``global_footprint`` on the tick grid)."""
-    spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
-    mt = measured_timeline(PipelineExecutor(build_program(cfg, spec, sched.placement), plan),
-                           slots=slots)
-    per_stage = float(mt.peak_total.sum())
-    m_b, m_w = sum(slots["res"]), sum(slots["wctx"])
-    tl = memory_timeline(sched, tick_times=True, m_b=m_b, m_w=m_w)
-    glob = max(tl.global_footprint(t) for series in tl.events for t, _, _ in series)
-    return per_stage, glob
+def _gate(tag, what, one, mem, share=PLAN_OVERSHOOT_MAX):
+    """A run's reserved peak against its priced one-card total (phase 13):
+    the peak must not pass the total, and with ``share`` the total may pass
+    the peak by at most that share of it.  Returns the overshoot in bytes."""
+    peak = mem["reserved"]
+    over = one.total - peak
+    print(f"[{tag}] {what}: max_memory_reserved {_gib(peak)} GiB (allocated "
+          f"{_gib(mem['allocated'])}; {_gib(mem['walk_reserved'])} and {_gib(mem['walk_allocated'])} "
+          f"at the first walk's end) against "
+          f"the priced one-card total {one.report()}: overshoot (priced - peak) {_gib(over)} GiB, "
+          f"{over / peak:.2%} of the peak")
+    check(peak <= one.total, f"{what}: the card reserved {_gib(peak)} GiB, more than the priced "
+          f"one-card total {_gib(one.total)} GiB")
+    if share is not None:
+        check(over <= share * peak, f"{what}: the priced total passes the peak by {over / peak:.2%}, "
+              f"more than {share:.0%}")
+    return over
 
 
-def phase_plan_vs_card(cfg, runs, planners):
-    """Each trained schedule's measured peak beside the planner's one-card
-    prediction under both fidelities; the residual is what a CUDA temp
-    term would have to cover."""
-    model = planners["model"]
-    sink_res, sink_wctx = model._sink_slot_bytes()
-    rows = {}
+def _fresh_calibration(tag, cfg, mode, priced_runs):
+    """The record ``launch/calibrate.py`` would write now from this run's
+    own runs ({schedule: (one-card parts, memory peaks)}), printed beside
+    the checked-in one; not gated."""
+    runs = {name: dict(**mem, priced=one.weights + one.accumulators + one.walk, walk=one.walk,
+                       transient=one.transient) for name, (one, mem) in priced_runs.items()}
+    weights = next(iter(priced_runs.values()))[0].weights
+    rec = calibration_record(cfg, mode, runs, p=T_P, m=T_M, microbatch=T_B, seq_len=T_SEQ,
+                             weights_bytes=weights, card="", steps=0, seed=0)
+    table = cuda_temp_record(cfg.name, mode) or {}
+    def parts(r):
+        return (f"remainder {_gib(r.get('cuda_temp_bytes', 0.0))} GiB (allocator "
+                f"{_gib(r.get('cuda_temp_fixed_bytes', 0.0))} + unpriced live "
+                f"{_gib(r.get('cuda_temp_scaled_bytes', 0.0))}), optimizer overhang "
+                f"{r.get('optimizer_overhang', float('nan')):.4f} and reuse "
+                f"{r.get('optimizer_reuse', float('nan')):.4f}")
+
+    print(f"[{tag}] {cfg.name} {mode}: from this run's {len(runs)} schedules {parts(rec)}; "
+          f"checked in {parts(table)} ({table.get('card')})")
+
+
+def phase_plan_vs_card(cfg, runs, planners, mode, tag="plan-vs-card"):
+    """Phase 13 for the runs of one executor mode: each run's reserved peak
+    against the planner's one-card total (measured fidelity, the temp term
+    of ``mode``), gated; the model fidelity's total beside it; then the
+    remainder and overhang ``launch/calibrate.py`` would write from them."""
+    priced, overs = {}, []
     for name, r in runs.items():
         if r["seq"] != T_SEQ:
-            print(f"[plan-vs-card] {name} ran at seq {r['seq']}: not compared")
+            print(f"[{tag}] {name} ran at seq {r['seq']}: not compared")
             continue
-        sched, plan = r["sched"], r["plan"]
-        C = sched.n_chunks
-        bm = model.bytes_1c if C == 1 else model.bytes_2c
-        fixed = r["param_bytes"] + 8.0 * r["n_params"]  # all stages' bf16 weights, fp32 m and v
-        acc = 4.0 * r["n_params"]  # fp32 grad accumulators, not a planner term
-        model_slots = dict(res=(bm.m_b_bytes / C,) * C, wctx=(bm.m_w_bytes / C,) * C,
-                          sink=sink_res, sink_wctx=sink_wctx,
-                          res_wctx_shared=(0.0,) * C, sink_shared=0.0)
-        _, meas_slots = planners["measured"].slot_bytes(C)
-        pred = {fid: _one_card_bytes(cfg, sched, plan, sl)
-                for fid, sl in (("model", model_slots), ("measured", meas_slots))}
-        peak = r["peak_gb"] * 1e9
-        above = (r["peak_gb"] - r["base_gb"]) * 1e9
-        rows[name] = {f"{fid}{how}": peak - (fixed + p[k]) for fid, p in pred.items()
-                      for k, how in ((0, ""), (1, " (global footprint)"))}
-        print(f"[plan-vs-card] {name}: one-card prediction (per-stage peaks summed + weights and "
-              f"moments {_gib(fixed)}) model {_gib(fixed + pred['model'][0])} / measured "
-              f"{_gib(fixed + pred['measured'][0])} GiB; from global_footprint model "
-              f"{_gib(fixed + pred['model'][1])} / measured {_gib(fixed + pred['measured'][1])} "
-              f"GiB; card peak {_gib(peak)} GiB, above the after-init base {_gib(above)} GiB; "
-              f"measured - predicted: " + ", ".join(f"{k} {_gib(v)}" for k, v in rows[name].items())
-              + f" GiB (the fp32 grad accumulators, {_gib(acc)} GiB and not a planner term, are "
-              f"in it)")
-    for fid in ("model", "measured", "model (global footprint)", "measured (global footprint)"):
-        res = [v[fid] for v in rows.values()]
-        if res:
-            print(f"[plan-vs-card] residual under the {fid} fidelity over {len(res)} schedules: "
-                  f"min {_gib(min(res))} max {_gib(max(res))} mean {_gib(float(np.mean(res)))} GiB")
+        one = planners["measured"].one_card_bytes(r["sched"], mode)
+        overs.append(_gate(tag, f"{cfg.name} {mode} {name}", one, r["mem"]))
+        print(f"[{tag}] {cfg.name} {mode} {name}: the model fidelity's total "
+              f"{_gib(planners['model'].one_card_bytes(r['sched'], mode).total)} GiB")
+        priced[name] = (one, r["mem"])
+    if overs:
+        print(f"[{tag}] {cfg.name} {mode}: overshoot over {len(overs)} schedules min "
+              f"{_gib(min(overs))} max {_gib(max(overs))} GiB")
+    _fresh_calibration(tag, cfg, mode, priced)
 
 
 def _dir_bytes(path) -> int:
@@ -1332,8 +1398,8 @@ def phase_launch_budget(cfg):
         lines = out.getvalue().splitlines()
         check(lines[-1].endswith(" executor=graph"),
               f"the launcher's last line does not say executor=graph: {lines[-1]!r}")
-        check(any("graph's memory pool; max_memory_reserved" in ln for ln in lines),
-              "the launcher printed no graph pool bytes after its first step")
+        _launcher_reserved_gate("launch", f"launcher {res.schedule.name} under {L_BUDGET_MB} MiB",
+                                lines)
         sched = res.schedule
         check(sched.name not in ("1f1b", "1f1b-interleaved"),
               f"the planner picked {sched.name} at {L_BUDGET_MB} MiB, not a zero-bubble schedule")
@@ -1368,6 +1434,25 @@ def phase_launch_budget(cfg):
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def _launcher_reserved_gate(tag, what, lines, priced=None):
+    """The launcher's reserved bytes after its first step against the
+    priced one-card total of the schedule it ran: the one it prints beside
+    them when it planned, else ``priced`` (bytes)."""
+    found = [ln for ln in lines if ln.startswith("max_memory_reserved after the first step ")]
+    check(len(found) == 1, f"{what}: the launcher printed {len(found)} reserved lines, want 1")
+    words = found[0].split()
+    reserved = float(words[5]) * 2**20
+    if priced is None:
+        check("priced one-card total" in found[0], f"{what}: no priced total beside the reserved "
+              f"bytes: {found[0]!r}")
+        priced = float(found[0].split("priced one-card total ")[1].split()[0]) * 2**20
+    print(f"[{tag}] {what}: max_memory_reserved after the first step {_gib(reserved)} GiB <= "
+          f"priced one-card total {_gib(priced)} GiB: overshoot {_gib(priced - reserved)} GiB "
+          f"({(priced - reserved) / reserved:.2%} of the peak)")
+    check(reserved <= priced, f"{what}: the launcher's run reserved {_gib(reserved)} GiB, more "
+          f"than its priced one-card total {_gib(priced)} GiB")
 
 
 def phase_replay(cfg):
@@ -1567,8 +1652,9 @@ def _graph_vs_eager(name, ref, got_keyed):
 def phase_train_graph(cfg, runs):
     """Phase 9's runs again under ``executor_mode="graph"``, schedule by
     schedule from the same seed-0 weights, against phase 9 and a fresh
-    eager walk; returns {schedule: both kernels' launches over its walks}."""
-    out = {}
+    eager walk; returns ({schedule: both kernels' launches over its walks},
+    {schedule: run for phase 13's graph gate})."""
+    out, mem_runs = {}, {}
     for name in T_SCHEDULES:
         eager = runs[name]
         seq, sched, plan = eager["seq"], eager["sched"], eager["plan"]
@@ -1592,20 +1678,24 @@ def phase_train_graph(cfg, runs):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        state = init_state(stacked, shared)  # the moments exist at capture, as in the launcher
         t0 = time.perf_counter()
         g_g, sg_g, loss_g = step.grad_fn(stacked, shared, side0)  # capture, then replay
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
+        walk = _walk_peaks()
         exact, embed_gap = _graph_vs_eager(name, ref, keyed_leaves((g_g, sg_g)))
         check(float(loss_g) == loss_e, f"{name}: graph step-0 loss {float(loss_g)!r} != eager "
               f"{loss_e!r}")
         del g_g, sg_g, ref
         _reset_counts()
         res = train(cfg, spec, step, stacked, shared, data, G_STEPS,
-                    log=lambda s: print(f"[train-graph] {name}: {s}"))
+                    log=lambda s: print(f"[train-graph] {name}: {s}"), state=state)
+        del state
         replay_launches = _read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        mem_runs[name] = dict(seq=seq, sched=sched, mem=_mem(walk))
         gf = step.grad_fn
         check(gf.captures == 1 and len(walks) == 2,
               f"{name}: {gf.captures} captures and {len(walks)} walks, want 1 and 2")
@@ -1656,6 +1746,45 @@ def phase_train_graph(cfg, runs):
                                                                       spec, DEV))
         out[name] = _add_counts(walks[0][0], walks[1][0])
         del step, gf, stacked, shared, res
+        torch.cuda.empty_cache()
+    return out, mem_runs
+
+
+def phase_heldout(cfg):
+    """Phase 13 on runs the calibration never saw: internlm2 at seq H_SEQ
+    under the graph executor, H_STEPS steps of each of H_SCHEDULES, priced by
+    a planner whose slots are measured at that sequence (the remainder
+    scaled by the M_B ratio).  Returns {run: both kernels' launches}."""
+    planner = HBMPlanner(cfg, p=T_P, m=T_M, microbatch=T_B, seq_len=H_SEQ, executor_mode="graph",
+                         program_factory=stage_program_factory(cfg, T_P, T_M, T_B, H_SEQ, DEV))
+    for c in (1, 2):
+        planner.slot_bytes(c)
+    torch.cuda.empty_cache()
+    out = {}
+    for name in H_SCHEDULES:
+        sched = make_schedule(name, T_P, T_M)
+        plan = compile_plan(sched)
+        stacked, shared, spec, data = _init_full(cfg, sched, H_SEQ)
+        step, _ = build_train_step(cfg, spec, plan, sched.placement,
+                                   TrainStepConfig(executor_mode="graph"))
+        walks = _count_walks(step.grad_fn)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, walk = _first_walk_peaks(step, stacked, shared, spec, data)
+        _reset_counts()
+        res = train(cfg, spec, step, stacked, shared, data, H_STEPS, state=state)
+        del state
+        check(_read_counts() == _zero_counts(), f"held-out {name}: the replays launched kernels")
+        check(all(np.isfinite(res.losses + res.grad_norms)), f"held-out {name}: non-finite metrics")
+        per_step = expected_train_launches(cfg, T_P, sched.n_chunks, T_M)
+        for what, (launches, _) in zip(("warm-up", "capture"), walks):
+            _check_counts(f"held-out {name} {what}", launches, per_step, 1)
+        _gate("plan-vs-card", f"held out: {cfg.name} graph {name} at seq {H_SEQ}, {H_STEPS} steps "
+              f"(losses {res.losses})", planner.one_card_bytes(sched), _mem(walk),
+              share=None)
+        out[f"heldout-{name}"] = _add_counts(walks[0][0], walks[1][0])
+        del step, stacked, shared, res
         torch.cuda.empty_cache()
     return out
 
@@ -1739,6 +1868,7 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
     g, sg, loss0 = step.grad_fn(stacked, shared, side0)  # capture, then replay
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    walk = _walk_peaks()
     loss0 = float(loss0)
     gap = ""
     if ref is not None:
@@ -1746,10 +1876,11 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
         check(loss0 == loss_ref, f"gpt3 {name}: graph step-0 loss {loss0!r} != eager {loss_ref!r}")
         gap = (f"; step-0 gradient against the eager walk: {exact} of {exact + 1} leaves bit for "
                f"bit, embedding rel_l2 {embed_gap:.3g} (limit {G_RTOL}), loss equal")
-    del g, sg, state
+    del g, sg
     _reset_counts()
     res = train(cfg, spec, step, stacked, shared, data, GPT3_STEPS,
-                log=lambda s: print(f"[train-gpt3] {name}: {s}"))
+                log=lambda s: print(f"[train-gpt3] {name}: {s}"), state=state)
+    del state
     replay_launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
@@ -1785,7 +1916,7 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
             print(f"[profile-gpt3] {name}: one replayed step ran {got[0]} wgrad_wgmma_kernel and "
                   f"{got[1]} rmsnorm_bulk_kernel (expected {per_step})")
     out = dict(res=res, seq=seq, chunks=sched.n_chunks, peak_gb=peak_gb,
-               reserved_gb=reserved_gb, ms=med * 1e3,
+               reserved_gb=reserved_gb, ms=med * 1e3, sched=sched, mem=_mem(walk),
                launches=_add_counts(walks[0][0], walks[1][0]))
     del step, gf, stacked, shared, res
     torch.cuda.empty_cache()
@@ -1877,6 +2008,7 @@ def phase_train_gpt3(cfg):
         print(f"[train-gpt3] seq {seq}: step-0 loss {list(first.values())[0]} in band "
               f"({band[0]:.3f}, {band[1]:.3f}) and identical across {list(first)}; later losses "
               f"max rel diff within a placement {worst:.3g} (limit {T_LATER_LOSS_RTOL}){gap}")
+    planners = _gpt3_plan_vs_card(cfg, runs)
     seq = runs["zb-h1"]["seq"]
     if runs["zb-v"]["seq"] == seq:
         noclip = {n: _gpt3_graph_run(cfg, n, seq, clip=False)["res"] for n in ("zb-h1", "zb-v")}
@@ -1889,10 +2021,34 @@ def phase_train_gpt3(cfg):
     else:
         print("[train-gpt3] zb-h1 and zb-v ran at other seq lengths: no placement check")
     _head_gemms(cfg)
-    return runs
+    return runs, planners
 
 
-def phase_launch_gpt3(cfg, runs):
+def _gpt3_plan_vs_card(cfg, runs):
+    """Phase 13 for phase 18's graph runs: a measured-fidelity planner for
+    gpt3-1.5b at each sequence a run took (slots measured on the card),
+    each run's reserved peak gated against its one-card total, and the
+    remainder and overhang ``launch/calibrate.py`` would write; returns
+    {seq: planner}."""
+    planners = {}
+    for seq in sorted({r["seq"] for r in runs.values()}):
+        planners[seq] = HBMPlanner(cfg, p=T_P, m=T_M, microbatch=T_B, seq_len=seq,
+                                   executor_mode="graph", program_factory=stage_program_factory(
+                                       cfg, T_P, T_M, T_B, seq, DEV))
+        for c in (1, 2):
+            planners[seq].slot_bytes(c)
+    torch.cuda.empty_cache()
+    if T_SEQ in planners:
+        model = HBMPlanner(cfg, p=T_P, m=T_M, microbatch=T_B, seq_len=T_SEQ, executor_mode="graph")
+        phase_plan_vs_card(cfg, runs, {"measured": planners[T_SEQ], "model": model}, "graph")
+    for name, r in runs.items():
+        if r["seq"] != T_SEQ:
+            _gate("plan-vs-card", f"{cfg.name} graph {name} at seq {r['seq']}",
+                  planners[r["seq"]].one_card_bytes(r["sched"]), r["mem"])
+    return planners
+
+
+def phase_launch_gpt3(cfg, runs, planners):
     """Phase 19: ``launch.train.main`` with its default ``--arch`` (zb-h1 at
     the seq phase 18 ran it at); returns both kernels' launches."""
     name = "zb-h1"
@@ -1911,6 +2067,8 @@ def phase_launch_gpt3(cfg, runs):
     lines = out.getvalue().splitlines()
     check(lines[-1].endswith(" executor=graph"),
           f"the launcher's last line does not say executor=graph: {lines[-1]!r}")
+    _launcher_reserved_gate("launch-gpt3", f"launcher {name} (default arch) at seq {seq}", lines,
+                            priced=planners[seq].one_card_bytes(runs[name]["sched"]).total)
     embed = tuple(res.state["shared"]["embed"].shape)
     check(embed == (cfg.vocab, cfg.d_model), f"the default arch's embedding is {embed}, not "
           f"gpt3-1.5b's {(cfg.vocab, cfg.d_model)}")
@@ -1960,7 +2118,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     phase_card()
-    more = run_gpt3_child()
+    more = run_child(GPT3_CHILD, "gpt3_launches")
     print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     wrows = phase_kernels_wgrad(cfg_red)
@@ -1980,18 +2138,18 @@ def main() -> int:
     phase_train_noclip(cfg_full, runs)
     print(f"[time] training phases done at {time.perf_counter() - t_start:.1f}s")
     planners = phase_plan(cfg_full)
-    phase_plan_vs_card(cfg_full, runs, planners)
-    del planners
+    phase_plan_vs_card(cfg_full, runs, planners, "eager")
     print(f"[time] planner phases done at {time.perf_counter() - t_start:.1f}s")
     more["launcher"] = phase_launch_budget(cfg_full)
     print(f"[time] launcher phase done at {time.perf_counter() - t_start:.1f}s")
     more["replay"] = phase_replay(cfg_full)
     print(f"[time] replay phase done at {time.perf_counter() - t_start:.1f}s")
-    graph_runs = phase_train_graph(cfg_full, runs)
+    del planners
+    more.update(run_child(GRAPH_CHILD, "graph_launches", runs))
+    more.update(run_child(HELDOUT_CHILD, "heldout_launches"))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
-    counted = {**{f"train-{n}": r["launches"] for n, r in runs.items()}, **more,
-               **{f"train-graph-{n}": c for n, c in graph_runs.items()}}
+    counted = {**{f"train-{n}": r["launches"] for n, r in runs.items()}, **more}
     wgrad_by_run = {n: c[0] for n, c in counted.items()}
     wgrad_by_path = {k: sum(c[2][k] for c in counted.values()) for k in wgrad_kernel.PATHS}
     rms_by_run = {"serve": serve_launches[0], "serve-gemma2": gemma2_launches[0],
@@ -2030,29 +2188,91 @@ def gpt3_child_main() -> int:
     build.build()  # the parent built them: this only loads the cached libraries
     t0 = time.perf_counter()
     cfg = get_config(GPT3)
-    runs = phase_train_gpt3(cfg)
+    runs, planners = phase_train_gpt3(cfg)
     print(f"[time] gpt3 training phase done at {time.perf_counter() - t0:.1f}s (child)")
     counts = {f"train-gpt3-{n}": r["launches"] for n, r in runs.items()}
-    counts["launcher-gpt3"] = phase_launch_gpt3(cfg, runs)
+    counts["launcher-gpt3"] = phase_launch_gpt3(cfg, runs, planners)
     print(json.dumps({"gpt3_launches": counts}))
     return 0
 
 
-def run_gpt3_child():
-    """Phases 18-19 in a child process with the card to itself: gpt3-1.5b's
+def graph_child_main(eager_path) -> int:
+    """Phase 16 with its half of phase 13 (the graph gate), alone in this
+    process, against phase 9's results read from
+    ``eager_path``; the last line is a JSON object with both kernels'
+    launches of each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    runs = {}
+    for name, r in json.loads(pathlib.Path(eager_path).read_text()).items():
+        sched = make_schedule(name, T_P, T_M)
+        runs[name] = dict(r, sched=sched, plan=compile_plan(sched), res=TrainResult(
+            r["losses"], r["grad_norms"], [], r["step_s"]))
+    graph_runs, graph_mem = phase_train_graph(cfg, runs)
+    run = dict(p=T_P, m=T_M, microbatch=T_B, seq_len=T_SEQ)
+    planners = {"model": HBMPlanner(cfg, **run),
+                "measured": HBMPlanner(cfg, program_factory=stage_program_factory(
+                    cfg, T_P, T_M, T_B, T_SEQ, DEV), **run)}
+    phase_plan_vs_card(cfg, graph_mem, planners, "graph")
+    print(f"[time] graph phases done at {time.perf_counter() - t0:.1f}s (child)")
+    print(json.dumps({"graph_launches": {f"train-graph-{n}": c for n, c in graph_runs.items()}}))
+    return 0
+
+
+def heldout_child_main() -> int:
+    """Phase 13's held-out runs, alone in this process, as a launcher run
+    at that shape would be; the last line is a JSON object with both
+    kernels' launches of each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    print(json.dumps({"heldout_launches": phase_heldout(get_config(ARCH))}))
+    return 0
+
+
+def run_child(flag, key, eager_runs=None):
+    """Phases in a child process with the card to itself, as a launcher
+    run has it; returns the child's launch counts by run.  ``GPT3_CHILD``
+    runs phases 18-19 before this process allocates anything: gpt3-1.5b's
     graph runs reserve up to ~80 GB of the card's 85, and after the
-    internlm2 phases in this process they came within 1.1 GB of it (H100,
-    700 W); this process has allocated nothing on the card yet.  Returns the
-    child's launch counts by run."""
-    out = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), GPT3_CHILD],
-                         capture_output=True, text=True, timeout=900)
+    internlm2 phases in this process they came within 1.1 GB of it.
+    ``GRAPH_CHILD`` runs phase 16 and its gate against ``eager_runs``
+    (phase 9's results, passed in a file), ``HELDOUT_CHILD`` the held-out
+    runs: in this process, after phases 3-15, the graph runs reserved up to
+    2.0 GiB more than in a fresh one, and the held-out runs 3.1 GiB more
+    after phase 16's in one process (H100, 700 W); the planner prices a
+    process that trains one model, as the launcher's does."""
+    args, tmp = [flag], None
+    if eager_runs is not None:
+        torch.cuda.empty_cache()
+        tmp = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+        json.dump({n: {k: r[k] for k in ("seq", "peak_gb", "reserved_gb")}
+                   | {"losses": r["res"].losses, "grad_norms": r["res"].grad_norms,
+                      "step_s": r["res"].step_s} for n, r in eager_runs.items()}, tmp)
+        tmp.close()
+        args.append(tmp.name)
+    try:
+        out = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), *args],
+                             capture_output=True, text=True, timeout=900)
+    finally:
+        if tmp is not None:
+            pathlib.Path(tmp.name).unlink()
     print(out.stdout, end="", flush=True)
     print(out.stderr, end="", file=sys.stderr, flush=True)
-    check(out.returncode == 0, f"phases 18-19 failed in their child process (exit "
+    check(out.returncode == 0, f"the phases of {flag} failed in their child process (exit "
           f"{out.returncode})")
-    counts = json.loads(out.stdout.strip().splitlines()[-1])["gpt3_launches"]
+    counts = json.loads(out.stdout.strip().splitlines()[-1])[key]
     return {run: tuple(c) for run, c in counts.items()}
 
 
 if __name__ == "__main__":
-    sys.exit(gpt3_child_main() if sys.argv[1:] == [GPT3_CHILD] else main())
+    if sys.argv[1:2] == [GPT3_CHILD]:
+        sys.exit(gpt3_child_main())
+    if sys.argv[1:2] == [GRAPH_CHILD]:
+        sys.exit(graph_child_main(sys.argv[2]))
+    if sys.argv[1:2] == [HELDOUT_CHILD]:
+        sys.exit(heldout_child_main())
+    sys.exit(main())

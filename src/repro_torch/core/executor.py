@@ -42,6 +42,8 @@ buffers, so :func:`slot_bytes` measures what one slot of
 each pool holds by running one microbatch through F and B on the
 parameters' device, and :meth:`PipelineExecutor.buffer_bytes` multiplies
 those by the plan's slot counts, as the JAX executor sizes its pools.
+:meth:`PipelineExecutor.accumulator_bytes` prices the fp32 gradient
+accumulators from the leaf shapes (the planner's ``temp`` term).
 
 One process per stage with NCCL point-to-point sends is a later slice.
 """
@@ -217,6 +219,23 @@ class PipelineExecutor:
         """Bytes of a tree's leaves (tensors, fake or meta tensors alike)."""
         return int(sum(math.prod(t.shape) * t.element_size() for t in tree_leaves(tree)))
 
+    @staticmethod
+    def accumulator_bytes(stacked, shared) -> Tuple[int, int]:
+        """(one card, one device) bytes of the gradient accumulators that
+        ``grad_fn`` allocates at step start, allocating nothing (fake or
+        meta leaves do): one (p, ...) tensor in ``acc_dt`` per leaf and
+        chunk of ``stacked`` and one per leaf of ``shared``, by
+        :meth:`_tree_bytes`' rule on the accumulators' dtype.  One card
+        holds all p stages; one device of a pipeline holds one stage's
+        slice of each stacked tensor plus the shared leaves."""
+        def acc(tree) -> int:
+            return sum(math.prod(t.shape) * torch.empty((), dtype=acc_dt(t.dtype)).element_size()
+                       for t in tree_leaves(tree))
+
+        blocks = acc(stacked)
+        p = tree_leaves(stacked)[0].shape[0]
+        return blocks + acc(shared), blocks // p + acc(shared)
+
     def channel_message_bytes(self) -> float:
         """Bytes of one inbox slot (one inter-stage message)."""
         prog = self.program
@@ -373,6 +392,19 @@ class PipelineExecutor:
         return grad_fn
 
 
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev) -> "torch.cuda.Stream":
+    """The side stream every graph of this process captures on, one per
+    device: cuBLAS keeps a workspace for each stream it has run on until
+    the process ends, so a stream of its own for each graph would leave one
+    workspace behind for every graph captured."""
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
 class GraphedGradFn:
     """A pipeline walk (:meth:`PipelineExecutor.build_grad_fn`) recorded
     once into a ``torch.cuda.CUDAGraph`` and replayed on every later call:
@@ -388,7 +420,8 @@ class GraphedGradFn:
     and raises on tensors that are not on a CUDA device.
 
     A capture copies the side inputs into static buffers it owns, runs one
-    eager walk on its own stream as warm-up (the walk writes no parameter;
+    eager walk on the process's capture stream (:func:`_capture_stream`)
+    as warm-up (the walk writes no parameter;
     it loads the kernels, makes their first-call settings and sets up
     cuBLAS for that stream), then records one walk on that stream into a
     private memory pool: every tensor the walk allocates, the accumulators
@@ -435,7 +468,7 @@ class GraphedGradFn:
         t0 = time.perf_counter()
         dev = tree_leaves(shared)[0].device
         if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
+            self._stream = _capture_stream(dev)
         side = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype, device=a.device).copy_(a),
                         side_all)
         self._stream.wait_stream(torch.cuda.current_stream(dev))

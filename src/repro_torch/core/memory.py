@@ -13,10 +13,22 @@ arithmetic, so the timelines and byte models equal the JAX package's
    per-slot bytes the port's executor really holds
    (``PipelineExecutor.buffer_bytes``, measured on the run's own device).
 
-Left out: the JAX package's XLA scratch calibration (``_xla_temp_table``,
-``default_xla_temp_bytes``, ``calibrate_from_dryrun``), which reads XLA's
-``compiled.memory_analysis()``; its place is the planner's ``temp`` term,
-0 until a CUDA-allocator calibration exists.  Also left out, as nothing in
+4. The CUDA scratch calibration, the counterpart of the JAX package's XLA
+   one (``_xla_temp_table``, ``default_xla_temp_bytes``,
+   ``calibrate_from_dryrun``): :func:`_cuda_temp_table` reads
+   ``configs/cuda_temp_calibration.json`` (written on the card by
+   ``launch/calibrate.py``), :func:`default_cuda_temp_bytes` scales its
+   remainder to a planned run, and :func:`cuda_optimizer_shares` gives the
+   shares of the optimizer's transient that the card holds on top of the
+   walk and of the walk that the transient reuses (the JAX
+   ``calibrate_from_dryrun`` fold is ``launch/calibrate.py::
+   calibration_record``, from ``torch.cuda.max_memory_reserved``).  The
+   remainder is what the card reserves at the walk's end beyond what the
+   planner prices (weights, moments, the fp32 gradient accumulators, the
+   walk's slots): the allocator's rounding and fragmentation and the
+   walk's in-op scratch.
+
+Left out, as nothing in
 the port calls them: ``ActivationByteModel.from_measured``,
 ``measured_unit_bytes`` and the ``MemoryBudgetPlanner`` adapter (with
 ``CandidatePlan`` and ``PlannerDecision``); the planner is
@@ -26,8 +38,10 @@ the port calls them: ``ActivationByteModel.from_measured``,
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import List, Optional, Tuple
+import pathlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +54,10 @@ __all__ = [
     "ActivationByteModel",
     "MeasuredTimeline",
     "measured_timeline",
+    "CUDA_TEMP_TABLE",
+    "cuda_temp_record",
+    "cuda_optimizer_shares",
+    "default_cuda_temp_bytes",
 ]
 
 
@@ -153,6 +171,94 @@ _WCTX_RATIO = {
 }
 
 
+CUDA_TEMP_TABLE = pathlib.Path(__file__).resolve().parent.parent / "configs" / "cuda_temp_calibration.json"
+_CUDA_TEMP_CACHE: Dict[str, dict] = {}
+
+
+def _cuda_temp_table(path=None) -> dict:
+    """``{arch name: {executor mode: record}}`` from the calibration table
+    (:data:`CUDA_TEMP_TABLE` unless ``path`` names another, which is read
+    anew each call); ``{}`` when the file is missing or unreadable.  The
+    checked-in table is read once a process."""
+    if path is not None:
+        return _read_table(path)
+    key = str(CUDA_TEMP_TABLE)
+    if key not in _CUDA_TEMP_CACHE:
+        _CUDA_TEMP_CACHE[key] = _read_table(key)
+    return _CUDA_TEMP_CACHE[key]
+
+
+def _read_table(path) -> dict:
+    try:
+        return json.loads(pathlib.Path(path).read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def cuda_temp_record(arch_name: str, executor_mode: str, path=None) -> Optional[dict]:
+    """The table's record of an arch under an executor mode, or None."""
+    return _cuda_temp_table(path).get(arch_name, {}).get(executor_mode)
+
+
+def cuda_optimizer_shares(arch_name: str, executor_mode: str,
+                          path=None) -> Tuple[float, float]:
+    """(overhang, reuse) of the optimizer's transient on the card, from a
+    record: ``optimizer_overhang``, the largest share of the transient a run
+    held above its walk's reserved peak, and ``optimizer_reuse``, the
+    smallest share of the walk's bytes its transient reused (what it held
+    less than the transient, over the walk).  The planner charges
+    ``max(overhang * transient, transient - reuse * walk)``.  With no
+    record, the structural shares: (1, 0) under the graph executor (the
+    walk's memory stays in the graph's pool, so nothing of it is reused),
+    (0, 1) under the eager one (the larger of walk and transient)."""
+    rec = cuda_temp_record(arch_name, executor_mode, path)
+    if rec is None or "optimizer_overhang" not in rec:
+        return (1.0, 0.0) if executor_mode == "graph" else (0.0, 1.0)
+    return float(rec["optimizer_overhang"]), float(rec["optimizer_reuse"])
+
+
+def default_cuda_temp_bytes(arch_name: str, executor_mode: str,
+                            m_b_bytes: Optional[float] = None,
+                            weights_bytes: Optional[float] = None, path=None) -> float:
+    """Per-device share of the calibrated CUDA remainder for a planned run.
+
+    A record (``launch/calibrate.py``) holds ``cuda_temp_bytes``: the most
+    that ``torch.cuda.max_memory_reserved`` at the end of a run's first walk
+    exceeded the priced weights, moments, accumulators and walk by, over
+    the launcher's eight schedules, all ``p`` stages on one card, at the
+    calibration cell; what the optimizer adds after the walk is priced
+    apart (:func:`cuda_optimizer_shares`).  It is a ceiling, as the JAX
+    table's value is, in two parts with their own scale:
+
+      * ``cuda_temp_scaled_bytes``, the live bytes the walk's slots do not
+        price (in-op scratch), scales with the ratio of the planned M_B unit
+        to the cell's (``m_b_bytes``), as the JAX rule does, but up as well
+        as down: the JAX rule never scales up because a CPU compile
+        overstates liveness, and the card has no such inflation;
+      * ``cuda_temp_fixed_bytes``, what the allocator reserves beyond the
+        live bytes, scales with the ratio of the planned weights and
+        moments to the cell's (``weights_bytes``), not with M_B: its blocks
+        are the leaves' as much as the activations', and at seq 512 the
+        whole remainder scaled by M_B fell short of the card's (H100,
+        700 W; PERF.md), while a reduced config keeps a share its size.
+
+    One card holds all p stages, so a device's share is the remainder
+    divided by the record's ``p`` (a calibration across cards would
+    measure it per device).  An arch or executor mode with no record
+    prices 0, as the JAX package prices an uncalibrated arch.
+    """
+    rec = cuda_temp_record(arch_name, executor_mode, path)
+    if rec is None:
+        return 0.0
+
+    def ratio(planned, key):
+        return float(planned) / float(rec[key]) if planned and rec.get(key) else 1.0
+
+    fixed = float(rec["cuda_temp_fixed_bytes"]) * ratio(weights_bytes, "weights_bytes")
+    scaled = float(rec["cuda_temp_scaled_bytes"]) * ratio(m_b_bytes, "m_b_bytes")
+    return (fixed + scaled) / int(rec["p"])
+
+
 @dataclasses.dataclass(frozen=True)
 class ActivationByteModel:
     """Bytes behind one (M_B, M_W) unit for a concrete config + run shape.
@@ -164,7 +270,9 @@ class ActivationByteModel:
     (s <= 2048); MLP ``d_model + 2*d_ff'`` (d_ff' the activated width); a
     recurrent kind ``6*d_model``.  The W-context is a per-kind fraction of
     that (``_WCTX_RATIO``).  The JAX model's ``xla_temp_bytes`` has no
-    counterpart: the planner's ``temp`` term is 0 in the port.
+    field here: the planner reads the calibrated CUDA remainder itself
+    (:func:`default_cuda_temp_bytes`), since its allocator part scales with
+    the weights, which this model does not see.
     """
 
     m_b_bytes: float

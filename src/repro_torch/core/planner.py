@@ -11,11 +11,26 @@ schedule family under a per-device memory budget, itemized per device as
   * **wctx**   -- peak live B->W contexts (M_W);
   * **inbox**  -- the inter-stage message slots;
   * **sink**   -- head+loss residuals and contexts at the loss stage;
-  * **temp**   -- scratch no other term prices, always 0.  The JAX package
-                  charges an XLA calibration here; the port has no
-                  CUDA-allocator calibration yet (ROADMAP), so the fp32
-                  gradient accumulators and the allocator's scratch are
-                  not priced.
+  * **temp**   -- what the card holds beyond those slots, in three parts
+                  (the JAX package charges an XLA calibration here):
+                  the fp32 gradient accumulators (exact, from the leaf
+                  shapes: ``PipelineExecutor.accumulator_bytes``), the
+                  optimizer's transient (``launch/steps.py::
+                  optimizer_transient_bytes``) and a device's share of the
+                  CUDA remainder calibrated on the card
+                  (``core/memory.py::default_cuda_temp_bytes``).  The
+                  optimizer runs after the walk: under
+                  ``executor_mode="graph"`` the walk's memory stays in the
+                  CUDA graph's pool, so all of the transient adds to the
+                  slots; under ``"eager"`` the walk has freed its slots, and
+                  the transient may reuse some of them.  The charge is
+                  ``optimizer_charge``: the calibrated share of the
+                  transient that the card held on top of the walk, and at
+                  least what the transient exceeds the calibrated reusable
+                  share of the walk's slots by (``cuda_optimizer_shares``;
+                  on the H100 about 1.07 and 0 under graph, 0.57 and 0.2
+                  under eager).  ``temp_bytes=X`` replaces the whole term,
+                  as the JAX package's ``xla_temp_bytes`` does.
 
 Two fidelities share one code path: the *model* fidelity prices act/wctx
 with :class:`~repro_torch.core.memory.ActivationByteModel` and the
@@ -31,37 +46,53 @@ portfolio.  Budget-implied searches accumulate in the planner, so an
 ascending budget sweep keeps every cheaper plan and the cost-vs-budget
 frontier is monotone.  Unlike the JAX package there is no on-disk plan
 cache: ``v_flex`` builds are memoized in process only.
+
+:meth:`HBMPlanner.one_card_bytes` prices what one card holding all p
+stages needs for a plan (every stage's weights, moments and accumulators
+once, the shared leaves once, the walk's measured bytes at its worst tick
+over all stages, the optimizer's transient over the stage-by-stage loop,
+and the calibrated remainder): the number a card run's
+``torch.cuda.max_memory_reserved`` is held to.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..launch.steps import optimizer_transient_bytes
 from ..models.lm import RunSpec, build_program, init_params, side_inputs
 from ..optim.sharding import zero1_state_bytes
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 from .executor import PipelineExecutor, slot_bytes
-from .memory import ActivationByteModel, memory_timeline
+from .memory import (ActivationByteModel, cuda_optimizer_shares, default_cuda_temp_bytes,
+                     measured_timeline, memory_timeline)
 from .schedules import interleaved_1f1b, one_f_one_b, search, v_half, v_min, zb_h1, zb_h2, zb_v
 from .schedules.ir import Placement, Schedule, compile_plan
 from .simulator import TimeModel, simulate
 
 __all__ = [
     "HBMBreakdown",
+    "OneCardBytes",
+    "StateBytes",
     "PipelinePlan",
     "PlanReport",
     "HBMPlanner",
     "fixed_state_bytes",
+    "optimizer_charge",
+    "state_bytes",
     "stage_program_factory",
     "plan",
     "fastest_under_profile",
 ]
 
 _INF = float("inf")
+
+EXECUTOR_MODES = ("eager", "graph")
 
 # beyond ~2p*M_B extra schedule memory buys no bubble (paper Sec. 5: ZB-2p
 # is already ~zero bubble), so budget-implied search limits clamp there.
@@ -81,11 +112,11 @@ class HBMBreakdown:
     wctx: float = 0.0
     inbox: float = 0.0
     sink: float = 0.0
+    temp: float = 0.0
+    # temp's parts (TEMP_PARTS), empty when temp was given as one number
+    temp_parts: Tuple[float, ...] = ()
 
-    @property
-    def temp(self) -> float:
-        """No CUDA-allocator calibration yet: nothing is charged here."""
-        return 0.0
+    TEMP_PARTS = ("accumulators", "optimizer", "remainder")
 
     def items(self) -> Dict[str, float]:
         return {
@@ -114,6 +145,9 @@ class HBMBreakdown:
     def report(self, indent: str = "  ") -> str:
         lines = [f"{indent}{k:<8s} {v / 2**20:10.1f} MiB"
                  for k, v in self.items().items() if v > 0]
+        if self.temp > 0 and self.temp_parts:
+            lines.append(f"{indent}  (temp = " + " + ".join(
+                f"{k} {v / 2**20:.1f}" for k, v in zip(self.TEMP_PARTS, self.temp_parts)) + " MiB)")
         lines.append(f"{indent}{'total':<8s} {self.total / 2**20:10.1f} MiB")
         return "\n".join(lines)
 
@@ -146,6 +180,8 @@ class PlanReport:
     chosen: Optional[PipelinePlan]
     plans: List[PipelinePlan]
     min_required_bytes: float
+    # the planner that answered (its one_card_bytes prices the chosen plan on one card)
+    planner: Optional["HBMPlanner"] = dataclasses.field(default=None, repr=False, compare=False)
 
     def summary(self) -> str:
         if self.feasible:
@@ -191,6 +227,32 @@ def fixed_state_bytes(cfg, p: int, n_chunks: int, tp_size: int = 1,
     """
     if tp_size != 1:
         raise NotImplementedError("tensor parallelism is not ported to repro_torch yet")
+    st = state_bytes(cfg, p, n_chunks, dp_size)
+    return st.params, st.optim
+
+
+@dataclasses.dataclass(frozen=True)
+class StateBytes:
+    """Schedule-independent bytes of a run shape: per device (one stage's
+    share plus the shared leaves, as :func:`fixed_state_bytes`) and on one
+    card holding all p stages (shared leaves once)."""
+
+    params: float
+    optim: float
+    acc: float  # fp32 gradient accumulators
+    transient: float  # the optimizer's transient, the largest stage stepped alone
+    params_card: float
+    optim_card: float
+    acc_card: float
+    transient_card: float  # the optimizer's transient over the stage-by-stage loop
+
+
+@functools.lru_cache(maxsize=32)
+def state_bytes(cfg, p: int, n_chunks: int, dp_size: int = 1) -> StateBytes:
+    """The parameter and moment bytes of :func:`fixed_state_bytes`, with the
+    accumulators and the optimizer's transient beside them, from one shape
+    evaluation of ``init_params`` (memoized: a config's shapes do not
+    change)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     spec = RunSpec(p=p, n_chunks=n_chunks, microbatch=1, seq_len=8, m=1)
@@ -201,10 +263,54 @@ def fixed_state_bytes(cfg, p: int, n_chunks: int, tp_size: int = 1,
         stacked, shared = init_params(cfg, spec, placement, device="cpu")
         per_stage = _strip_stage_axis(stacked)
         # one leaf-byte rule for the planner and the executor's accounting
-        param_bytes = float(PipelineExecutor._tree_bytes(per_stage)
-                            + PipelineExecutor._tree_bytes(shared))
-        optim_bytes = zero1_state_bytes(per_stage, dp_size) + zero1_state_bytes(shared, dp_size)
-    return param_bytes, optim_bytes
+        params = float(PipelineExecutor._tree_bytes(per_stage) + PipelineExecutor._tree_bytes(shared))
+        optim = zero1_state_bytes(per_stage, dp_size) + zero1_state_bytes(shared, dp_size)
+        params_card = float(PipelineExecutor._tree_bytes((stacked, shared)))
+        optim_card = float(8 * sum(t.numel() for t in tree_leaves((stacked, shared))))
+        acc_card, acc = PipelineExecutor.accumulator_bytes(stacked, shared)
+    tr = optimizer_transient_bytes(stacked, shared)
+    return StateBytes(params=params, optim=optim, acc=float(acc), transient=float(max(tr.per_stage)),
+                      params_card=params_card, optim_card=optim_card, acc_card=float(acc_card),
+                      transient_card=float(tr.one_card))
+
+
+def optimizer_charge(transient: float, walk: float, overhang: float, reuse: float) -> float:
+    """What the optimizer's transient adds on top of a walk of ``walk``
+    bytes: the ``overhang`` share of the transient, and at least what the
+    transient exceeds the ``reuse`` share of the walk by (the blocks the
+    walk freed that the transient's requests fit; none under the graph
+    executor, whose pool the walk keeps)."""
+    return max(overhang * transient, transient - (reuse * walk if reuse else 0.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class OneCardBytes:
+    """What one card holding all p stages needs for a plan, by part."""
+
+    weights: float  # every stage's parameters and AdamW moments, shared leaves once
+    accumulators: float
+    walk: float  # act + wctx + inbox + sink of all stages at the worst tick
+    remainder: float  # the calibrated remainder, all p devices' shares
+    transient: float  # the stage-by-stage optimizer loop's transient
+    overhang: float  # the share of it the card holds on top of the walk, at least
+    reuse: float  # the share of the walk it may reuse, at most
+    executor_mode: str
+
+    @property
+    def optimizer(self) -> float:
+        return optimizer_charge(self.transient, self.walk, self.overhang, self.reuse)
+
+    @property
+    def total(self) -> float:
+        return self.weights + self.accumulators + self.walk + self.remainder + self.optimizer
+
+    def report(self) -> str:
+        g = 2**30
+        return (f"{self.total / g:.2f} GiB = weights and moments {self.weights / g:.2f} + "
+                f"accumulators {self.accumulators / g:.2f} + walk {self.walk / g:.2f} + "
+                f"remainder {self.remainder / g:.2f} + optimizer {self.optimizer / g:.2f} "
+                f"(its {self.transient / g:.2f} transient: overhang {self.overhang:.3f}, reuse "
+                f"{self.reuse:.3f} of the walk; {self.executor_mode})")
 
 
 def stage_program_factory(cfg, p: int, m: int, microbatch: int, seq_len: int, device,
@@ -242,11 +348,20 @@ class HBMPlanner:
     the device to measure on (``stage_params``: one stage's parameters per
     chunk; :func:`stage_program_factory` builds it).  Without one the
     planner prices with the byte model.
+
+    ``temp_bytes=None`` charges the accumulators, the optimizer's transient
+    and the calibrated remainder of ``executor_mode`` (the module's
+    ``temp``); a number replaces that whole term.
     """
 
     def __init__(self, cfg, p: int, m: int, microbatch: int, seq_len: int,
                  times: Optional[TimeModel] = None, tp_size: int = 1, dp_size: int = 1,
-                 program_factory: Optional[Callable] = None):
+                 program_factory: Optional[Callable] = None, temp_bytes: Optional[float] = None,
+                 executor_mode: str = "eager"):
+        if executor_mode not in EXECUTOR_MODES:
+            raise ValueError(f"unknown executor_mode {executor_mode!r}")
+        self.executor_mode = executor_mode
+        self.temp_bytes = None if temp_bytes is None else float(temp_bytes)
         self.cfg = cfg
         self.p = p
         self.m = m
@@ -263,15 +378,44 @@ class HBMPlanner:
                                                         tp_size=tp_size)
         self._static: Optional[List[PipelinePlan]] = None
         self._dynamic: Dict[str, PipelinePlan] = {}
-        self._fixed: Dict[int, Tuple[float, float]] = {}
         self._slots: Dict[int, Tuple] = {}
 
     # -- fixed (schedule-independent) state ---------------------------- #
+    def state(self, n_chunks: int) -> StateBytes:
+        if self.tp_size != 1:
+            raise NotImplementedError("tensor parallelism is not ported to repro_torch yet")
+        return state_bytes(self.cfg, self.p, n_chunks, self.dp_size)
+
     def fixed_bytes(self, n_chunks: int) -> Tuple[float, float]:
-        if n_chunks not in self._fixed:
-            self._fixed[n_chunks] = fixed_state_bytes(self.cfg, self.p, n_chunks, self.tp_size,
-                                                      self.dp_size)
-        return self._fixed[n_chunks]
+        st = self.state(n_chunks)
+        return st.params, st.optim
+
+    # -- the temp term --------------------------------------------------- #
+    def temp(self, n_chunks: int, schedule_bytes: float) -> Tuple[float, Tuple[float, ...]]:
+        """(temp, its parts) per device for a candidate whose slots hold
+        ``schedule_bytes``: accumulators + the optimizer's charge
+        (:func:`optimizer_charge` of a device's transient) + the calibrated
+        remainder; or ``temp_bytes`` alone."""
+        if self.temp_bytes is not None:
+            return self.temp_bytes, ()
+        st = self.state(n_chunks)
+        optim = optimizer_charge(st.transient, schedule_bytes,
+                                 *cuda_optimizer_shares(self.cfg.name, self.executor_mode))
+        parts = (st.acc, optim, self.remainder())
+        return sum(parts), parts
+
+    def remainder(self, executor_mode: Optional[str] = None) -> float:
+        """A device's share of the calibrated CUDA remainder under
+        ``executor_mode`` (default: the planner's), scaled to this run's
+        M_B unit and weights (``core/memory.py::default_cuda_temp_bytes``)."""
+        st = self.state(1)
+        return default_cuda_temp_bytes(self.cfg.name, executor_mode or self.executor_mode,
+                                       m_b_bytes=self.bytes_1c.m_b_bytes,
+                                       weights_bytes=st.params_card + st.optim_card)
+
+    def _temp_floor(self, n_chunks: int) -> float:
+        """The temp that no candidate escapes, whatever its slots hold."""
+        return self.temp(n_chunks, _INF)[0] if self.temp_bytes is None else self.temp_bytes
 
     # -- measured fidelity: one measurement per chunk count -------------- #
     # Keyed on n_chunks alone: the chunk modules, the sink and every slot's
@@ -327,8 +471,10 @@ class HBMPlanner:
             inbox_b = ep.inbox_slot_total() * self._act_msg_bytes()
             sink_res, sink_wctx = self._sink_slot_bytes()
             sink_b = ep.n_sink_slots * sink_res + ep.n_sink_wctx_slots * sink_wctx
+        temp, parts = self.temp(sched.n_chunks, act_b + wctx_b + inbox_b + sink_b)
         breakdown = HBMBreakdown(params=params, optim=optim, act=float(act_b),
-                                 wctx=float(wctx_b), inbox=float(inbox_b), sink=float(sink_b))
+                                 wctx=float(wctx_b), inbox=float(inbox_b), sink=float(sink_b),
+                                 temp=float(temp), temp_parts=parts)
         return PipelinePlan(name=name, schedule=sched, placement=sched.placement,
                             byte_model=byte_model, cost=res.cost, bubble_rate=res.bubble_rate,
                             breakdown=breakdown, fits=True, note=note)
@@ -358,7 +504,7 @@ class HBMPlanner:
         if byte_model.m_b_bytes <= 0:
             return 0.0
         params, optim = self.fixed_bytes(n_chunks)
-        avail = budget_bytes - params - optim
+        avail = budget_bytes - params - optim - self._temp_floor(n_chunks)
         if not math.isfinite(avail):
             return _LIMIT_CAP_FACTOR * self.p
         limit = round(avail / byte_model.m_b_bytes, 1)
@@ -407,6 +553,44 @@ class HBMPlanner:
             self._seed_budget_searches(budget_bytes)
         return list(self._static_plans()) + list(self._dynamic.values())
 
+    # -- one card holding all p stages ---------------------------------- #
+    def one_card_bytes(self, schedule: Schedule,
+                       executor_mode: Optional[str] = None) -> OneCardBytes:
+        """What one card holding all p stages needs to train ``schedule``
+        under ``executor_mode`` (default: the planner's): every stage's
+        weights, moments and accumulators once (the shared leaves once), the
+        walk's act + wctx + inbox + sink summed over the stages at its worst
+        tick (the measured slots, or the byte model's without a
+        ``program_factory``), the optimizer's charge
+        (:func:`optimizer_charge`) for its transient over the
+        stage-by-stage loop, and p devices' shares of that mode's remainder
+        (p times ``temp_bytes`` when that is given)."""
+        mode = executor_mode or self.executor_mode
+        if mode not in EXECUTOR_MODES:
+            raise ValueError(f"unknown executor_mode {mode!r}")
+        C = schedule.n_chunks
+        if self.measured:
+            prog, slots = self.slot_bytes(C)
+        else:
+            bm = self.bytes_1c if C == 1 else self.bytes_2c
+            sink_res, sink_wctx = self._sink_slot_bytes()
+            spec = RunSpec(p=self.p, n_chunks=C, microbatch=self.microbatch,
+                           seq_len=self.seq_len, m=self.m)
+            prog = build_program(self.cfg, spec, schedule.placement)
+            slots = dict(res=(bm.m_b_bytes / C,) * C, wctx=(bm.m_w_bytes / C,) * C,
+                         sink=sink_res, sink_wctx=sink_wctx, res_wctx_shared=(0.0,) * C,
+                         sink_shared=0.0)
+        mt = measured_timeline(PipelineExecutor(prog, compile_plan(schedule)), slots=slots)
+        walk = float((mt.act_bytes + mt.wctx_bytes + mt.inbox_bytes + mt.sink_bytes)
+                     .sum(axis=0).max())
+        st = self.state(C)
+        if self.temp_bytes is not None:
+            return OneCardBytes(st.params_card + st.optim_card, 0.0, walk,
+                                self.p * self.temp_bytes, 0.0, 0.0, 0.0, mode)
+        return OneCardBytes(st.params_card + st.optim_card, st.acc_card, walk,
+                            self.p * self.remainder(mode),
+                            st.transient_card, *cuda_optimizer_shares(self.cfg.name, mode), mode)
+
     # -- the decision ----------------------------------------------------- #
     def plan(self, budget_bytes: float) -> PlanReport:
         plans = []
@@ -420,10 +604,10 @@ class HBMPlanner:
         min_required = min((c.total_bytes for c in finite), default=_INF)
         if not feasible:
             return PlanReport(budget_bytes=budget_bytes, feasible=False, chosen=None, plans=plans,
-                              min_required_bytes=min_required)
+                              min_required_bytes=min_required, planner=self)
         best = min(feasible, key=lambda c: (c.cost, c.total_bytes))
         return PlanReport(budget_bytes=budget_bytes, feasible=True, chosen=best, plans=plans,
-                          min_required_bytes=min_required)
+                          min_required_bytes=min_required, planner=self)
 
 
 # --------------------------------------------------------------------- #
@@ -431,18 +615,22 @@ class HBMPlanner:
 # --------------------------------------------------------------------- #
 def plan(config, p: int, m: int, times: Optional[TimeModel] = None,
          hbm_budget_bytes: float = _INF, *, microbatch: int = 1, seq_len: int = 2048,
-         tp_size: int = 1, dp_size: int = 1) -> PlanReport:
+         tp_size: int = 1, dp_size: int = 1, temp_bytes: Optional[float] = None,
+         executor_mode: str = "eager") -> PlanReport:
     """Pick the fastest schedule (across every family) that fits the budget.
 
     Returns a :class:`PlanReport`; on infeasibility ``report.feasible`` is
     False and ``report.infeasibility_report()`` itemizes the cheapest plan's
     breakdown, naming the binding term.  The model fidelity prices
-    act/wctx/inbox/sink; for the measured one, and for budget sweeps, use one
-    :class:`HBMPlanner` and call its ``.plan`` per point: its cumulative
-    search pool keeps the cost-vs-budget frontier monotone.
+    act/wctx/inbox/sink; ``temp_bytes`` and ``executor_mode`` set the temp
+    term as :class:`HBMPlanner`'s do.  For the measured fidelity, and for
+    budget sweeps, use one :class:`HBMPlanner` and call its ``.plan`` per
+    point: its cumulative search pool keeps the cost-vs-budget frontier
+    monotone.
     """
     planner = HBMPlanner(config, p=p, m=m, microbatch=microbatch, seq_len=seq_len,
-                         times=times or TimeModel.unit(), tp_size=tp_size, dp_size=dp_size)
+                         times=times or TimeModel.unit(), tp_size=tp_size, dp_size=dp_size,
+                         temp_bytes=temp_bytes, executor_mode=executor_mode)
     return planner.plan(hbm_budget_bytes)
 
 

@@ -12,12 +12,16 @@ launcher accepts -- 1f1b, zb-h1, zb-h2, zb-v, v-min, v-half, zb-1p, zb-2p; the
 V-shaped ones (zb-v, v-min, v-half) run two chunks a stage.
 ``--memory-budget-mb`` replaces ``--schedule`` by the HBM planner's choice:
 the fastest schedule of any family whose per-device bytes (one stage's
-parameters and AdamW moments, activations, W-contexts, inboxes, sink) fit
-the budget, with the activation, W-context, inbox and sink slots measured
-on the run's device (the planner's measured fidelity).  The fp32 gradient
-accumulators, the allocator's scratch and the CUDA graph's pool are not
-priced yet (the planner's ``temp`` term is 0); the launcher prints what
-that leaves out.  The steps run under the fault-tolerant driver
+parameters and AdamW moments, activations, W-contexts, inboxes, sink, and
+temp: the fp32 gradient accumulators, the optimizer's transient and the
+CUDA remainder calibrated on the card for the executor mode it will run)
+fit the budget, with the activation, W-context, inbox and sink slots
+measured on the run's device (the planner's measured fidelity).  It prints
+the itemized breakdown, temp with its three parts, and the chosen plan's
+priced total on one card holding all p stages; on the card, after the
+first step, ``torch.cuda.max_memory_reserved`` beside that total.  An arch
+with no calibration record is priced with no remainder, and the launcher
+says so.  The steps run under the fault-tolerant driver
 (``runtime/driver.py``): with ``--ckpt-dir`` it checkpoints every
 max(steps // 2, 10) steps and at the last, resumes from the newest
 checkpoint there and retries a failed step from it; without, nothing is
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_reduced
+from ..core.memory import CUDA_TEMP_TABLE, cuda_temp_record
 from ..core.planner import stage_program_factory
 from ..core.schedules import (
     compile_plan,
@@ -85,32 +90,38 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
                      seq_len: int, m: int, tcfg: TrainStepConfig,
                      memory_budget_bytes: Optional[float] = None, *, device,
                      seed: int = 0):
-    """-> (cfg, spec, schedule, step) for the given run.  With a budget, the
-    schedule is the HBM planner's choice and ``schedule`` is not read: the
-    planner prices the slots it measures on ``device`` (one microbatch's F
-    and B of each chunk count, with stage 0 of the ``seed`` weights)."""
+    """-> (cfg, spec, schedule, step, one_card) for the given run.  With a
+    budget, the schedule is the HBM planner's choice and ``schedule`` is not
+    read: the planner prices the slots it measures on ``device`` (one
+    microbatch's F and B of each chunk count, with stage 0 of the ``seed``
+    weights) and the temp term of ``tcfg.executor_mode``, and ``one_card``
+    is the chosen plan's priced total on one card
+    (:class:`~repro_torch.core.planner.OneCardBytes`); without, it is None."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    one_card = None
     if memory_budget_bytes is not None:
         factory = stage_program_factory(cfg, pipe_size, m, microbatch, seq_len, device, seed)
         sched, report = replan_under_budget(cfg, pipe_size, m, microbatch, seq_len,
-                                            memory_budget_bytes, program_factory=factory)
-        bd = report.chosen.breakdown
+                                            memory_budget_bytes, program_factory=factory,
+                                            executor_mode=tcfg.executor_mode)
         print(f"HBM planner: {report.summary()}")
-        print("per-device HBM breakdown (slots measured on the run's device):")
-        print(bd.report())
-        # AdamW keeps m and v in fp32 (optim); the executor's gradient
-        # accumulators are at most one more fp32 copy of the same leaves
-        graph = (", and the CUDA graph's memory pool (printed after the first step)"
-                 if tcfg.executor_mode == "graph" else "")
-        print(f"not priced (temp 0: no CUDA-allocator calibration yet): the fp32 gradient "
-              f"accumulators, up to {bd.optim / 2 / 2**20:.1f} MiB, and the allocator's "
-              f"scratch{graph}")
+        print(f"per-device HBM breakdown (slots measured on the run's device, temp of the "
+              f"{tcfg.executor_mode} executor):")
+        print(report.chosen.breakdown.report())
+        if cuda_temp_record(cfg.name, tcfg.executor_mode) is None:
+            print(f"temp remainder 0: no calibration record for {cfg.name} under the "
+                  f"{tcfg.executor_mode} executor in {CUDA_TEMP_TABLE.name} (accumulators and "
+                  f"optimizer transient priced; run launch/calibrate.py on the card)")
+        one_card = report.planner.one_card_bytes(sched)
+        print(f"priced on one card holding all {pipe_size} stages: {one_card.report()}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()  # the slot measurement's cached blocks
     else:
         sched = make_schedule(schedule, pipe_size, m)
     spec = RunSpec(p=pipe_size, n_chunks=sched.n_chunks, microbatch=microbatch,
                    seq_len=seq_len, m=m)
     step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, tcfg)
-    return cfg, spec, sched, step
+    return cfg, spec, sched, step, one_card
 
 
 def side_from_batch(batch: Dict[str, np.ndarray], spec: RunSpec, device) -> Dict[str, torch.Tensor]:
@@ -153,18 +164,20 @@ def make_step_fn(step: Callable) -> Callable:
     return step_fn
 
 
-def _print_pool_after_first_step(step_fn: Callable, device) -> Callable:
+def _print_reserved_after_first_step(step_fn: Callable, device, one_card) -> Callable:
     """``step_fn`` that prints the card's reserved bytes after its first
-    step: the CUDA graph's pool, which the planner does not price, is in
-    them."""
+    step (the CUDA graph's pool is in them), beside the plan's priced
+    one-card total when the planner chose the schedule."""
     done = []
 
     def fn(state, side):
         out = step_fn(state, side)
         if not done:
             done.append(True)
-            print(f"not priced: the CUDA graph's memory pool; max_memory_reserved after the "
-                  f"first step {torch.cuda.max_memory_reserved(device) / 2**20:.1f} MiB")
+            priced = ("" if one_card is None else
+                      f"; priced one-card total {one_card.total / 2**20:.1f} MiB")
+            print(f"max_memory_reserved after the first step "
+                  f"{torch.cuda.max_memory_reserved(device) / 2**20:.1f} MiB{priced}")
         return out
 
     return fn
@@ -196,13 +209,17 @@ def _result(driver: TrainDriver, metrics_log, log: Optional[Callable[[str], None
 
 
 def train(cfg: ArchConfig, spec: RunSpec, step: Callable, stacked, shared, data: SyntheticLM,
-          steps: int, *, log: Optional[Callable[[str], None]] = None) -> TrainResult:
+          steps: int, *, log: Optional[Callable[[str], None]] = None,
+          state: Optional[Dict[str, Any]] = None) -> TrainResult:
     """Run ``steps`` training steps on batches 0, 1, ... through the driver,
-    without checkpoints or retries; ``stacked`` and ``shared`` and a fresh
-    AdamW state beside them are updated in place."""
+    without checkpoints or retries; ``stacked`` and ``shared`` and the AdamW
+    state beside them are updated in place: ``state`` (an
+    :func:`init_state` of them made earlier, e.g. before a capture, as the
+    launcher's driver makes it) or a fresh one."""
     device = shared["embed"].device
     driver = TrainDriver(DriverConfig(ckpt_dir=None, max_retries=0), make_step_fn(step),
-                         lambda: init_state(stacked, shared), make_data_at(data, spec, device))
+                         (lambda: state) if state is not None else
+                         (lambda: init_state(stacked, shared)), make_data_at(data, spec, device))
     _, metrics_log = driver.run(steps)
     return _result(driver, metrics_log, log)
 
@@ -226,10 +243,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                     "the last, resume from the newest checkpoint in it (default: none)")
     ap.add_argument("--memory-budget-mb", type=float, default=None,
                     help="per-device HBM budget: params + AdamW moments + inbox/sink + "
-                    "schedule memory, its slots measured on --device; runs the fastest "
-                    "schedule of any family that fits (overrides --schedule); the fp32 "
-                    "gradient accumulators, allocator scratch and, on the card, the CUDA "
-                    "graph's pool are not priced")
+                    "schedule memory, its slots measured on --device, + temp (the fp32 "
+                    "gradient accumulators, the optimizer's transient and the CUDA remainder "
+                    "calibrated on the card); runs the fastest schedule of any family that "
+                    "fits (overrides --schedule)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -237,10 +254,9 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=args.lr), postval_mode=args.postval,
                            executor_mode=executor)
     budget = None if args.memory_budget_mb is None else args.memory_budget_mb * 2**20
-    cfg, spec, sched, step = build_everything(args.arch, args.reduced, args.pipe_size,
-                                              args.schedule, args.microbatch, args.seq_len,
-                                              args.m, tcfg, memory_budget_bytes=budget,
-                                              device=device, seed=args.seed)
+    cfg, spec, sched, step, one_card = build_everything(
+        args.arch, args.reduced, args.pipe_size, args.schedule, args.microbatch, args.seq_len,
+        args.m, tcfg, memory_budget_bytes=budget, device=device, seed=args.seed)
     data = SyntheticLM(DataConfig(global_batch=spec.m * spec.microbatch, seq_len=spec.seq_len,
                                   vocab=cfg.vocab, seed=args.seed))
 
@@ -249,8 +265,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
         return init_state(stacked, shared)
 
     step_fn = make_step_fn(step)
-    if executor == "graph":
-        step_fn = _print_pool_after_first_step(step_fn, device)
+    if device.type == "cuda":
+        step_fn = _print_reserved_after_first_step(step_fn, device, one_card)
     driver = TrainDriver(DriverConfig(ckpt_dir=args.ckpt_dir, ckpt_every=max(args.steps // 2, 10)),
                          step_fn, fresh_state, make_data_at(data, spec, device))
     t0 = time.perf_counter()

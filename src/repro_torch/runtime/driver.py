@@ -75,14 +75,17 @@ def replan_for_stragglers(p: int, m: int, base_times: TimeModel, stage_scale, m_
 
 def replan_under_budget(cfg, p: int, m: int, microbatch: int, seq_len: int, budget_bytes: float,
                         base_times: Optional[TimeModel] = None, stage_scale=None,
-                        tp_size: int = 1, dp_size: int = 1, program_factory=None):
+                        tp_size: int = 1, dp_size: int = 1, program_factory=None,
+                        temp_bytes: Optional[float] = None, executor_mode: str = "eager"):
     """Re-plan the schedule under a per-device HBM budget.
 
     Runs the unified planner (:mod:`repro_torch.core.planner`), optionally
     under an observed straggler profile, and returns (schedule,
     :class:`~repro_torch.core.planner.PlanReport`).  The budget covers
-    parameters, AdamW moments, inbox/sink and activation/W-context bytes;
-    its ``temp`` term is 0 (no CUDA-allocator calibration yet).  Raises ``RuntimeError`` with the
+    parameters, AdamW moments, inbox/sink and activation/W-context bytes,
+    and the ``temp`` term of ``executor_mode`` (the fp32 gradient
+    accumulators, the optimizer's transient and the calibrated CUDA
+    remainder; ``temp_bytes`` replaces it).  Raises ``RuntimeError`` with the
     itemized report, naming the binding term, when nothing fits.  With
     ``program_factory(n_chunks) -> (program, stage_params, shared, side)``
     (:func:`~repro_torch.core.planner.stage_program_factory`) the planner
@@ -92,7 +95,8 @@ def replan_under_budget(cfg, p: int, m: int, microbatch: int, seq_len: int, budg
     if stage_scale is not None:
         times = dataclasses.replace(times, stage_scale=tuple(stage_scale))
     planner = HBMPlanner(cfg, p=p, m=m, microbatch=microbatch, seq_len=seq_len, times=times,
-                         tp_size=tp_size, dp_size=dp_size, program_factory=program_factory)
+                         tp_size=tp_size, dp_size=dp_size, program_factory=program_factory,
+                         temp_bytes=temp_bytes, executor_mode=executor_mode)
     report = planner.plan(budget_bytes)
     if not report.feasible:
         fidelity = "measured executor buffers" if planner.measured else "the byte model"

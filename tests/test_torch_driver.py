@@ -218,12 +218,12 @@ def test_straggler_replanning_matches_jax():
 
 def test_replan_under_budget_matches_jax():
     cfg, cfg_j = get_reduced(ARCH), jax_get_reduced(ARCH)
-    sched, rep = port_driver.replan_under_budget(cfg, 4, 8, 2, 32, 1.5 * 2**20)
+    sched, rep = port_driver.replan_under_budget(cfg, 4, 8, 2, 32, 1.5 * 2**20, temp_bytes=0.0)
     ref, rep_j = jax_driver.replan_under_budget(cfg_j, 4, 8, 2, 32, 1.5 * 2**20,
                                                 xla_temp_bytes=0.0)
     assert (sched.name, rep.chosen.cost) == (ref.name, rep_j.chosen.cost)
     errors = []
-    for mod, kw in ((port_driver, {}), (jax_driver, {"xla_temp_bytes": 0.0})):
+    for mod, kw in ((port_driver, {"temp_bytes": 0.0}), (jax_driver, {"xla_temp_bytes": 0.0})):
         with pytest.raises(RuntimeError, match="binding term: ") as e:
             mod.replan_under_budget(cfg if mod is port_driver else cfg_j, 4, 8, 2, 32,
                                     0.1 * 2**20, **kw)
@@ -252,9 +252,10 @@ def test_launcher_plans_under_a_budget_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     chosen = res.schedule.name
     assert f"HBM planner: budget 4 MiB -> {chosen}" in out
-    for term in ("params", "optim", "act", "wctx", "sink", "total"):
+    for term in ("params", "optim", "act", "wctx", "sink", "temp", "total"):
         assert f"\n  {term} " in out
-    assert "not priced (temp 0" in out and "fp32 gradient accumulators" in out
+    assert "(temp = accumulators " in out and "not priced" not in out
+    assert "priced on one card holding all 4 stages: " in out
     assert f"schedule={chosen} executor=eager" in out and len(res.losses) == 3
     assert store.latest_step(ckpt) == 3
     proto = init_state(*init_params(get_reduced(ARCH), RunSpec(p=4, n_chunks=res.schedule.n_chunks,

@@ -2,11 +2,13 @@
 package's.
 
 * ``HBMPlanner.plan`` over an ascending budget sweep on the reduced
-  internlm2 at p=4, m=8, model fidelity, the JAX side with
-  ``xla_temp_bytes=0.0`` (the port has no XLA scratch term): the same
-  candidates, the same feasible set and chosen names, costs and breakdown
-  items equal to 1e-9 relative; infeasible points name the same binding
-  term.  ``plan()`` answers as ``HBMPlanner.plan`` does.
+  internlm2 at p=4, m=8, model fidelity, both sides with no temp term
+  (``temp_bytes=0.0`` in the port, ``xla_temp_bytes=0.0`` in the JAX
+  package; ``tests/test_torch_temp_term.py`` holds them with the same
+  non-zero temp): the same candidates, the same feasible set and chosen
+  names, costs and breakdown items equal to 1e-9 relative; infeasible
+  points name the same binding term.  ``plan()`` answers as
+  ``HBMPlanner.plan`` does, the default temp term included.
 * ``fixed_state_bytes`` (the port's ``init_params`` shape-evaluated) equals
   the JAX package's for one and two chunks and several dp sizes; tensor
   parallelism raises.
@@ -47,12 +49,12 @@ RUN = dict(microbatch=2, seq_len=32)
 ITEMS = ("params", "optim", "act", "wctx", "inbox", "sink")
 
 
-def _planners():
-    return (HBMPlanner(get_reduced(ARCH), p=P, m=M, **RUN),
-            JaxHBMPlanner(jax_get_reduced(ARCH), p=P, m=M, xla_temp_bytes=0.0, **RUN))
+def _planners(temp=0.0):
+    return (HBMPlanner(get_reduced(ARCH), p=P, m=M, temp_bytes=temp, **RUN),
+            JaxHBMPlanner(jax_get_reduced(ARCH), p=P, m=M, xla_temp_bytes=temp, **RUN))
 
 
-def _same_plans(mine, ref):
+def _same_plans(mine, ref, temp=0.0):
     by_name = {pp.name: pp for pp in ref}
     assert [pp.name for pp in mine] == [pp.name for pp in ref]
     for a in mine:
@@ -65,11 +67,12 @@ def _same_plans(mine, ref):
         ia, ib = a.breakdown.items(), b.breakdown.items()
         for k in ITEMS:
             assert ia[k] == pytest.approx(ib[k], rel=1e-9, abs=0.0), (a.name, k)
-        assert ia["temp"] == ib["xla_temp"] == 0.0
+        assert ia["temp"] == ib["xla_temp"] == temp
 
 
-def test_budget_sweep_matches_jax():
-    mine, ref = _planners()
+def budget_sweep_matches_jax(temp):
+    """The sweep of the module docstring, both planners charging ``temp``."""
+    mine, ref = _planners(temp)
     totals = sorted(c.total_bytes for c in ref.candidates() if c.schedule is not None)
     lo, hi = 0.5 * totals[0], 1.1 * totals[-1]
     budgets = [lo + (hi - lo) * i / 4 for i in range(5)]
@@ -78,7 +81,7 @@ def test_budget_sweep_matches_jax():
         rm, rj = mine.plan(b), ref.plan(b)
         assert rm.feasible == rj.feasible
         assert rm.min_required_bytes == pytest.approx(rj.min_required_bytes, rel=1e-9)
-        _same_plans(rm.plans, rj.plans)
+        _same_plans(rm.plans, rj.plans, temp)
         seen.add(rm.feasible)
         if rm.feasible:
             assert rm.chosen.name == rj.chosen.name and rm.chosen.cost == rj.chosen.cost
@@ -97,11 +100,16 @@ def test_budget_sweep_matches_jax():
     assert {"1f1b", "zb-h1", "zb-h2", "zb-v", "v-half", "v-min", "1f1b-interleaved"} <= names
 
 
+def test_budget_sweep_matches_jax():
+    budget_sweep_matches_jax(0.0)
+
+
 def test_plan_entry_point_and_adapter_agree():
     b = 3 * 2**20
     got = plan(get_reduced(ARCH), P, M, hbm_budget_bytes=b, **RUN)
     ref = HBMPlanner(get_reduced(ARCH), p=P, m=M, **RUN).plan(b)
-    assert got.feasible and ref.feasible and not got.chosen.breakdown.temp
+    assert got.feasible and ref.feasible
+    assert got.chosen.breakdown.temp == ref.chosen.breakdown.temp > 0
     assert (ref.chosen.name, ref.chosen.total_bytes) == (got.chosen.name, got.chosen.total_bytes)
     assert got.chosen.breakdown.items() == ref.chosen.breakdown.items()
     tiny = plan(get_reduced(ARCH), P, M, hbm_budget_bytes=1.0, **RUN)
