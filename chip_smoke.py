@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases, in order, but 18-19 run first, after 2, in a child process of
-their own (gpt3-1.5b's graph runs need the card to themselves), 17 after
-7, and 16 with its half of 13, then 13's held-out runs, last, each in a
-child process of its own (a fresh process, as the launcher runs); any
-failed check raises and the exit code is not 0:
+their own (gpt3-1.5b's graph runs need the card to themselves), 20-21
+next in another (qwen2-moe-a2.7b: 28.6 GB of weights to serve, ~60 GiB to
+train), 17 after 7, and 16 with its half of 13, then 13's held-out runs,
+last, each in a child process of its own (a fresh process, as the
+launcher runs); any failed check raises and the exit code is not 0:
 
 1. build   -- compile every CUDA source of ``src/repro_torch/kernels/csrc/``
               with nvcc (sm_90a) into ``build/repro_torch/``, all at once.
@@ -31,14 +32,18 @@ failed check raises and the exit code is not 0:
               wgrad_accum at the four (H, F) shapes of the training step's
               W ops (N = 1024, bf16 a/g, fp32 acc), plus a ragged N, fp32
               and ragged shapes, and gpt3-1.5b's (2304, 2304), (2304, 9216),
-              (9216, 2304), all on wgmma: it adds into a clone of acc in
+              (9216, 2304), all on wgmma, and qwen2-moe-a2.7b's shared
+              experts (2048, 5632) and (5632, 2048) on wgmma and its fp32
+              router (2048, 60) on fma: it adds into a clone of acc in
               place and is held against the plain version on the original;
               its path (wgmma / mma_sync / fma) is printed per shape,
               kernel and library are timed in turns, and the wrapper's
               eager host time per call is measured.
-4. reduced -- reduced internlm2, gpt3-1.5b and gemma2-2b (float32) served
-              on cuda and on cpu: logits within 1e-4 and identical greedy
-              tokens (gemma2's 19-token prompt rolls its ring of 8).
+4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b and qwen2-moe-a2.7b
+              (float32) served on cuda and on cpu: logits within 1e-4 and
+              identical greedy tokens (gemma2's 19-token prompt rolls its
+              ring of 8), and for the moe model identical routing (every
+              moe call's top-k experts and slot positions).
 5. serve   -- internlm2-1.8b at full width and depth (bf16, random weights
               from a seed): 4 pipeline stages on the one card, 8 request
               groups of 2, 512-token prompts, 16 greedy tokens.  Kernel
@@ -47,8 +52,8 @@ failed check raises and the exit code is not 0:
               last position of a prefill of s + 1 tokens, at full width.
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
-8. train-reduced -- reduced internlm2, gpt3-1.5b and gemma2-2b (float32),
-              p=2, m=4: 3 training steps
+8. train-reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b and
+              qwen2-moe-a2.7b (float32), p=2, m=4: 3 training steps
               (AdamW + post-validation) on cuda and on cpu under zb-h1 and
               under zb-v (two chunks on the V placement); losses within
               1e-5 relative, grad norms within 1e-4.
@@ -113,7 +118,7 @@ failed check raises and the exit code is not 0:
               and bytes; the reserved bytes after the first step, which the
               launcher prints beside the chosen plan's priced one-card
               total, must not pass that total.
-15. replay  -- the fault-tolerant driver at full width, 2 layers a stage,
+15. replay  -- the fault-tolerant driver at full width, 1 layer a stage,
               under the eager and then the graph executor: a failure at
               step 3 is restored from the step-2 checkpoint onto fresh
               tensors at other addresses (the failed state is held until
@@ -166,6 +171,34 @@ failed check raises and the exit code is not 0:
               fall, one capture's launches, the last line says
               ``executor=graph``; its reserved bytes after the first step
               must not pass phase 18's priced one-card total of zb-h1.
+20. serve-qwen2-moe -- qwen2-moe-a2.7b at full width and depth (24 layers
+              of attn + moe, d 2048, 16 heads of 128, 60 routed experts of
+              1408, top-4, and 4 shared; vocab 151936; bf16, random weights
+              from a seed, the routers fp32), served as phase 5 serves
+              internlm2: prefill and decode ms, RMSNorm launches == the
+              structure's count, the share of (token, choice) selections
+              each layer's capacity (86 slots for 1024 tokens) drops in
+              prefill, none dropped in decode (4 slots for 2 tokens); then
+              decoding token 512 against a prefill of 513 tokens with the
+              capacity set to the prefill's tokens, so nothing drops: how
+              many (layer, token) top-k sets differ between the two and
+              the logits' gap (printed), then the same decode with each
+              layer's experts pinned to the prefill's choice (logits within
+              MOE_CONSIST_REL_L2 and CONSIST_MAX_ABS).
+21. train-qwen2-moe -- qwen2-moe-a2.7b at full width, cut from 24 to 4
+              layers: p=2 stages on the one card (two layers a stage; one
+              a chunk on the V placement), 8 microbatches of 1 x 1024
+              tokens, zb-h1 and zb-v, 3 steps each eager and then with the
+              graph executor, the clip off (zb-v gets the seed-0 weights
+              relaid); the eager zb-h1 step-0 gradient against plain
+              autograd; step-0 loss in band and equal for both schedules,
+              later losses within 1e-4; each graph's step-0 gradient against
+              its eager walk's, bit for bit but the embedding's, its
+              losses within 1e-6 of the eager ones; launches by path (the
+              routers' W ops on fma, the rest on wgmma) == the structure's
+              count; allocated and reserved peaks beside
+              ``HBMPlanner.one_card_bytes`` (printed, not gated; no
+              calibration record, so no remainder).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -223,7 +256,9 @@ from repro_torch.models.lm import (  # noqa: E402
     make_sink_fn,
     make_src,
 )
-from repro_torch.models.modules import ShardCtx  # noqa: E402
+from repro_torch.models import modules as layers  # noqa: E402
+from repro_torch.models.lm import layer_cfg  # noqa: E402
+from repro_torch.models.modules import ShardCtx, moe_capacity  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import DriverConfig, TrainDriver, replan_under_budget  # noqa: E402
 from repro_torch.tree import keyed_leaves, tree_flatten, tree_leaves, tree_map  # noqa: E402
@@ -254,13 +289,17 @@ CONSIST_MAX_ABS = 0.25
 # attn_local and mlp, in prefill (the port reuses the forward's k/v), in
 # decode and in a training forward alike (the norm's backward is plain
 # torch, no kernel)
-NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mlp": 1}
-# deferred linears (W ops, one wgrad_accum launch each) of each kind
-LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mlp": 3}
-# the other dense archs of phases 4, 8 and 17-19, and their reduced prompts
-# in phase 4 (gemma2's is 2W + 3 for its window W = 8: a rolled ring tail)
-GPT3, GEMMA2 = "gpt3_1_5b", "gemma2_2b"
-RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19}
+NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mlp": 1, "moe": 1}
+# deferred linears (W ops, one wgrad_accum launch each) of each kind: moe's
+# are the router and the three shared-expert weights (its expert stacks are
+# batched products that W adds by torch.bmm, as the JAX W slice does)
+LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mlp": 3, "moe": 4}
+# ... of which fp32, on wgrad_accum's fma path: the moe router
+FMA_LINEARS_PER_KIND = {"moe": 1}
+# the other archs of phases 4, 8 and 17-21, and their reduced prompts in
+# phase 4 (gemma2's is 2W + 3 for its window W = 8: a rolled ring tail)
+GPT3, GEMMA2, MOE = "gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b"
+RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19, MOE: RED_PROMPT}
 # gemma2 serving at full width: p stages, m groups of b, prompts past the
 # 4096 window and not a multiple of it, new greedy tokens
 GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
@@ -278,6 +317,7 @@ GS_CONSIST_REL_L2 = 6e-2
 GPT3_STEPS = 4
 GPT3_HEAD_VOCABS = (50257, 50264, 50304)
 GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
+MOE_CHILD = "--moe-phases"  # ... and phases 20-21
 GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
 
@@ -294,6 +334,40 @@ WGRAD_MAIN = (("wq,wo", 2048, 2048), ("wk,wv", 2048, 1024), ("wu,wg", 2048, 8192
 # ... and of gpt3-1.5b's (multi-head: wk and wv are as wide as wq)
 WGRAD_GPT3 = (("gpt3 wq,wk,wv,wo", 2304, 2304), ("gpt3 wu,wg", 2304, 9216),
               ("gpt3 wd", 9216, 2304))
+# ... and of qwen2-moe-a2.7b's moe blocks: the 4 shared experts (5632 wide),
+# bf16 on wgmma, and the router (60 experts), fp32 on fma; its attention is
+# MHA, (2048, 2048) for all four, as wq above
+WGRAD_MOE = (("qwen2-moe swu,swg", 2048, 5632), ("qwen2-moe swd", 5632, 2048))
+WGRAD_MOE_FP32 = (("qwen2-moe router", 2048, 60),)
+# its tolerance against the plain version: the kernel adds N = 1024 fp32
+# products in K order, each add rounding at half an ulp of a partial sum of
+# ~8 (sigma 2.7e-7), so an output's error has sigma ~ sqrt(1024) x 2.7e-7 =
+# 8.8e-6 and the largest of 122,880 outputs ~4.4 sigma = 3.9e-5; cuBLAS
+# splits K for a 60-wide output and lands closer (H100, 700 W, against an
+# fp64 sum: kernel 4.6e-5, plain 8.9e-6).  The absolute tolerance is 1e-4,
+# 11 sigma; the relative one stays TOL's 1e-5; both are printed beside the
+# errors against an fp64 sum
+WGRAD_FP32_N1024_ATOL = 1e-4
+# qwen2-moe serving (phase 20) runs phase 5's shape.  Its decode-vs-prefill
+# gap, each routing its own tokens, is printed and not gated: the limit
+# derived for it before the first run (7e-2, from ~12 top-k flips of 384
+# sets) failed at 0.0844 with 50 flips (H100, 700 W): a router logit
+# (N(0, 1) at this init) moves with the stream's whole bf16 walk, ~2e-2
+# relative, not one rounding, and the gap between the 4th and 5th of 60
+# gates' logits has a mean of only ~0.13, so ~15% of the sets flip, each
+# swapping an expert of weight ~1/4.  Gated instead: the same decode with
+# each moe layer's experts pinned to the prefill's choice for that token,
+# which leaves phase 6's bf16 walk over the same 48 sublayers; its limit,
+# derived before any run of the pinned decode as gemma2's is: phase 6's
+# reading, 0.0283 at 48 sublayers (every run), twice, 6e-2.  A dropped or
+# misplaced token moves its logits by O(1) of their norm.
+MOE_CONSIST_REL_L2 = 6e-2
+# qwen2-moe training (phase 21): full width, the depth cut from 24 to 4
+# layers (24 would hold ~14 bytes x 14.3 B = 200 GB), p=2 so that both
+# placements hold the 4 layers without a padded group (at p=4 the V
+# placement pads to 8 layer slots, 5.2 B parameters, ~73 GB)
+MT_LAYERS, MT_P, MT_STEPS = 4, 2, 3
+MT_SCHEDULES = ("zb-h1", "zb-v")
 # later full-width losses across schedules: the embedding gradient is a
 # CUDA index_add_ (atomics, no fixed order), so it differs between runs by
 # fp32 rounding (~1e-7 relative); AdamW's first steps are nearly
@@ -337,12 +411,13 @@ L_BUDGET_MB, L_STEPS = 36864, 4
 # runs G_STEPS steps, the first T_STEPS against phase 9, and its step time is
 # the median of the G_STEPS - 1 replayed steps after the capturing one
 G_RTOL, G_STEPS = 1e-6, 8
-# the driver's failure replay: full width, 2 layers a stage (an 8.8 GB
-# checkpoint against the full depth's 19 GB), a failure at step 3 restored
+# the driver's failure replay: full width, 1 layer a stage (a 6.3 GB
+# checkpoint against the full depth's 19 GB; 2 a stage, 8.8 GB, until the
+# moe phases lengthened the script), a failure at step 3 restored
 # from the step-2 checkpoint.  On the card the step is deterministic but for
 # the embedding gradient's index_add_ atomics, which reorder fp32 sums
 # (~1e-7 relative): 1e-6 relative on the replayed losses and grad norms
-R_SCHEDULE, R_LAYERS_PER_STAGE, R_STEPS, R_EVERY, R_FAIL_AT, R_RTOL = "zb-h1", 2, 4, 2, 3, 1e-6
+R_SCHEDULE, R_LAYERS_PER_STAGE, R_STEPS, R_EVERY, R_FAIL_AT, R_RTOL = "zb-h1", 1, 4, 2, 3, 1e-6
 
 
 # phase 13: the planner's one-card total (measured fidelity, temp term of the
@@ -571,22 +646,53 @@ def phase_kernels(cfg_full, cfg_red):
     return rows
 
 
+@contextlib.contextmanager
+def _routes():
+    """Every moe layer's routing while active: (its router's address, top_i,
+    pos_nk, capacity) of each ``_moe_route`` call, in call order, the
+    tensors where they were made."""
+    real, log = layers._moe_route, []
+
+    def logged(p, tok, cfg):
+        out = real(p, tok, cfg)
+        log.append((p["router"].data_ptr(), out[1], out[2], moe_capacity(cfg, tok.shape[0])))
+        return out
+
+    layers._moe_route = logged
+    try:
+        yield log
+    finally:
+        layers._moe_route = real
+
+
 def phase_reduced(cfg, prompt=RED_PROMPT):
     spec = RunSpec(p=RED_P, n_chunks=1, microbatch=RED_B, seq_len=prompt, m=RED_M)
     stacked, shared = init_params(cfg, spec, Placement.linear(RED_P), seed=1, device="cpu")
     prompts = np.random.default_rng(1).integers(0, cfg.vocab, (RED_M, RED_B, prompt))
-    on_cpu = serve(cfg, stacked, shared, prompts, p=RED_P, new_tokens=RED_NEW)
+    with _routes() as cpu_routes:
+        on_cpu = serve(cfg, stacked, shared, prompts, p=RED_P, new_tokens=RED_NEW)
     to_cuda = lambda a: a.to("cuda")  # noqa: E731
-    on_gpu = serve(cfg, tree_map(to_cuda, stacked), tree_map(to_cuda, shared), prompts,
-                   p=RED_P, new_tokens=RED_NEW)
+    with _routes() as gpu_routes:
+        on_gpu = serve(cfg, tree_map(to_cuda, stacked), tree_map(to_cuda, shared), prompts,
+                       p=RED_P, new_tokens=RED_NEW)
     errs = []
     for a, b in zip(on_gpu.logits, on_cpu.logits):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
         errs.append(float((a.cpu() - b).abs().max()))
     check(torch.equal(on_gpu.tokens.cpu(), on_cpu.tokens), "reduced greedy tokens differ")
+    routing = ""
+    if any("moe" in kinds for kinds in cfg.block_pattern):
+        check(len(gpu_routes) == len(cpu_routes) > 0,
+              f"{len(gpu_routes)} moe calls on cuda, {len(cpu_routes)} on cpu")
+        for (_, gi, gp, _), (_, ci, cp, _) in zip(gpu_routes, cpu_routes):
+            check(torch.equal(gi.cpu(), ci) and torch.equal(gp.cpu(), cp),
+                  f"{cfg.name}: the routing (top-k experts or slot positions) differs on cuda")
+        sel = sum(ci.numel() for _, ci, _, _ in cpu_routes)
+        routing = (f"; routing identical in {len(cpu_routes)} moe calls ({sel} (token, choice) "
+                   f"selections, their experts and slot positions)")
     print(f"[reduced] {cfg.name} p={RED_P} m={RED_M} b={RED_B} prompt={prompt} new={RED_NEW} f32: "
           f"cuda vs cpu logits max_abs_err per step {[f'{e:.3g}' for e in errs]} (tol 1e-4), "
-          f"tokens identical ({on_gpu.tokens.numel()})")
+          f"tokens identical ({on_gpu.tokens.numel()}){routing}")
 
 
 def expected_norm_launches(cfg, p, m, steps):
@@ -707,7 +813,8 @@ def phase_kernels_wgrad(cfg_red):
     ragged N, fp32 (the reduced model's path) and ragged shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     n = T_B * T_SEQ
-    shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN + WGRAD_GPT3] + [
+    shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN + WGRAD_GPT3 + WGRAD_MOE] + [
+        (name, n, h, f, f32) for name, h, f in WGRAD_MOE_FP32] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -721,16 +828,23 @@ def phase_kernels_wgrad(cfg_red):
         g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
-        if label.startswith("gpt3"):
-            check(path == "wgmma", f"gpt3-1.5b's W op {label} takes the {path} path, not wgmma")
+        if label.startswith(("gpt3", "qwen2-moe")):  # a main-path W op: bf16 on wgmma, fp32 on fma
+            want_path = "wgmma" if dt == bf16 else "fma"
+            check(path == want_path, f"the W op {label} takes the {path} path, not {want_path}")
         ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
         out = acc.clone()
         got = wgrad_kernel.wgrad_accum_cuda(a, g, out)  # the kernel, in place on a clone
         torch.cuda.synchronize()
         check(got is out, "wgrad_accum did not return the accumulator it updated")
         err = float((out - ref).abs().max())
-        tol = TOL[dt]
-        torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        tol = atol = TOL[dt]
+        exact = ""
+        if label in {name for name, _, _ in WGRAD_MOE_FP32}:
+            atol = WGRAD_FP32_N1024_ATOL
+            ref64 = acc.double() + a.double().t() @ g.double()
+            exact = (f"; against an fp64 sum: kernel {float((out - ref64).abs().max()):.3g}, "
+                     f"plain {float((ref - ref64).abs().max()):.3g}")
+        torch.testing.assert_close(out, ref, rtol=tol, atol=atol)
         # the plain version and the library call allocate an (H, F) output per
         # call, and the CUDA graph's pool keeps each one: fewer calls when large
         iters = 20 if h * f >= 2048 * 2048 else 100
@@ -747,7 +861,8 @@ def phase_kernels_wgrad(cfg_red):
         row["bound_ms"], row["bound_by"] = wgrad_bound_ms(n_, h, f, dt)
         rows[label] = row
         print(f"[kernels] wgrad_accum {label} N={n_} H={h} F={f} in={dt}: path={path} "
-              f"max_abs_err={err:.3g} (tol {tol}) device ms: kernel={row['ms']:.5f} "
+              f"max_abs_err={err:.3g} (rtol {tol}, atol {atol}{exact}) device ms: "
+              f"kernel={row['ms']:.5f} "
               f"library={row['library_ms']:.5f} [torch.addmm out_dtype=float32] "
               f"(in turns kernel/library/library/kernel: "
               f"{'/'.join(f'{t:.5f}' for t in turns)}) plain={row['plain_ms']:.5f} "
@@ -804,6 +919,13 @@ def expected_train_launches(cfg, p, n_chunks, m):
     return wgrad, norms
 
 
+def expected_fma_launches(cfg, p, n_chunks, m):
+    """Of those wgrad_accum launches, the fp32 ones (the moe routers), which
+    take the fma path by design."""
+    blocks, _ = group_layout(cfg, p, n_chunks)
+    return m * p * n_chunks * sum(FMA_LINEARS_PER_KIND.get(k, 0) for kinds in blocks for k in kinds)
+
+
 def expected_measure_launches(cfg, p):
     """(wgrad_accum, rmsnorm) launches of the measured fidelity's slot
     measurement (``slot_bytes``): microbatch 0's F and B through stage 0's
@@ -838,16 +960,19 @@ def _add_counts(a, b, sign=1):
             {k: a[3][k] + sign * b[3][k] for k in a[3]})
 
 
-def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0)):
+def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0), fma_per_step=0):
     """Both kernels' launches over ``n_steps`` training steps (plus ``extra``
-    outside them) equal the counts the port's structure implies, every W op
-    on the wgmma path."""
+    outside them) equal the counts the port's structure implies, every bf16
+    W op on the wgmma path and the ``fma_per_step`` fp32 ones (the moe
+    routers) on fma."""
     want = tuple(n_steps * n + e for n, e in zip(want_per_step, extra))
     check(launches[:2] == want, f"{what}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
           f"{want} implied by the port's structure")
-    want_paths = {k: (want[0] if k == "wgmma" else 0) for k in wgrad_kernel.PATHS}
+    fma = n_steps * fma_per_step
+    want_paths = {k: {"wgmma": want[0] - fma, "fma": fma}.get(k, 0) for k in wgrad_kernel.PATHS}
     check(launches[2] == want_paths, f"{what}: wgrad_accum launches by path {launches[2]} != "
-          f"{want_paths}: every W op of the training step should take the wgmma path")
+          f"{want_paths}: every bf16 W op of the training step should take the wgmma path, "
+          f"every fp32 one (a moe router) fma")
     want_rms = {k: (want[1] if k == "bulk" else 0) for k in rms_kernel.PATHS}
     check(launches[3] == want_rms, f"{what}: rmsnorm launches by path {launches[3]} != "
           f"{want_rms}: every norm of the training step (1024 rows) should take the bulk path")
@@ -911,12 +1036,13 @@ def plan_units(sched, plan):
 
 
 def _init_full(cfg, sched, seq: int):
-    """(stacked, shared, spec, data) of the train cell under ``sched``: every
-    schedule starts from the seed-0 model of the linear placement, relaid
-    layer by layer onto its own placement."""
-    spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=seq, m=T_M)
-    lin_spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
-    stacked, shared = init_params(cfg, lin_spec, Placement.linear(T_P), seed=0, device=DEV)
+    """(stacked, shared, spec, data) of the train cell under ``sched`` (at its
+    p): every schedule starts from the seed-0 model of the linear placement,
+    relaid layer by layer onto its own placement."""
+    p = sched.placement.p
+    spec = RunSpec(p=p, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=seq, m=T_M)
+    lin_spec = RunSpec(p=p, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
+    stacked, shared = init_params(cfg, lin_spec, Placement.linear(p), seed=0, device=DEV)
     if sched.n_chunks != 1:
         stacked = relay_to_placement(cfg, stacked, sched.placement)
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
@@ -1069,14 +1195,14 @@ def phase_train_checks(cfg, runs):
     _pipeline_vs_plain(cfg, "train-checks", v_check=True)
 
 
-def _pipeline_vs_plain(cfg, tag, v_check=False, keep=False):
-    """The step-0 gradient of the B/W-split pipeline (an eager zb-h1 walk,
-    seed-0 weights, batch 0) against plain autograd through the same model;
-    with ``v_check`` zb-v's (relaid weights) against the walk's as well.
-    With ``keep`` returns the walk's gradient leaves, keyed, on the host,
-    and its loss."""
-    sched = make_schedule("zb-h1", T_P, T_M)
-    spec = RunSpec(p=T_P, n_chunks=1, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+def _pipeline_vs_plain(cfg, tag, v_check=False, keep=False, p=T_P):
+    """The step-0 gradient of the B/W-split pipeline (an eager zb-h1 walk at
+    p stages, seed-0 weights, batch 0) against plain autograd through the
+    same model; with ``v_check`` zb-v's (relaid weights) against the walk's
+    as well.  With ``keep`` returns the walk's gradient leaves, keyed, on
+    the host, and its loss."""
+    sched = make_schedule("zb-h1", p, T_M)
+    spec = RunSpec(p=p, n_chunks=1, microbatch=T_B, seq_len=T_SEQ, m=T_M)
     stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=T_SEQ, vocab=cfg.vocab))
     side = side_from_batch(data.batch_at(0), spec, DEV)
@@ -1168,14 +1294,15 @@ def _check_v_grads(cfg, stacked, shared, side, g_lin, sg_lin, loss_lin):
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(name, plan, state, tag="profile-train"):
-    """Device busy share of one full-width training step under ``name``;
-    returns {kernel name: launches} of that step as the profiler saw them
-    (empty when it recorded no device activity)."""
+def phase_profile_train(name, plan, state, tag="profile-train", opts=None):
+    """Device busy share of one full-width training step under ``name``
+    (from fresh AdamW moments, or ``opts`` = (opt, shared_opt)); returns
+    {kernel name: launches} of that step as the profiler saw them (empty
+    when it recorded no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked, shared, spec, sched, step, data = state
-    opt, sopt = adamw.init(stacked), adamw.init(shared)
+    opt, sopt = opts if opts is not None else (adamw.init(stacked), adamw.init(shared))
     side = side_from_batch(data.batch_at(T_STEPS), spec, DEV)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2089,6 +2216,304 @@ def phase_launch_gpt3(cfg, runs, planners):
     torch.cuda.empty_cache()
     return launches
 
+# --------------------------------------------------------------------- #
+# phases 20-21: qwen2-moe-a2.7b, served at full depth, trained at 4 layers
+# --------------------------------------------------------------------- #
+def _routes_by_layer(log, layer_of, n_tok):
+    """{layer: [(top_i, pos_nk, cap) of each call with n_tok tokens, in call
+    order]}: the serve walks the groups in the same order in every call."""
+    out = collections.defaultdict(list)
+    for ptr, top_i, pos, cap in log:
+        if top_i.shape[0] == n_tok:
+            out[layer_of[ptr]].append((top_i, pos, cap))
+    return out
+
+
+@contextlib.contextmanager
+def _pinned_routes(layer_of, experts, n_tok):
+    """While active, each moe call of ``n_tok`` tokens routes them to the
+    experts given for its layer (``experts[layer]``, one (n_tok, k) tensor a
+    call, in call order), with the gates and slot positions the port's
+    ``_moe_route`` computes for such a choice; other calls route as the port
+    does.  Yields the calls pinned per layer."""
+    real, used = layers._moe_route, [0] * len(experts)
+
+    def pinned(p, tok, cfg):
+        if tok.shape[0] != n_tok:
+            return real(p, tok, cfg)
+        layer = layer_of[p["router"].data_ptr()]
+        top_i = experts[layer][used[layer]].to(tok.device)
+        used[layer] += 1
+        gates = torch.softmax(tok.float() @ p["router"], dim=-1)
+        pos_nk, onehot = layers._slot_positions(top_i, layers._e_pad(cfg))
+        return layers._chosen_gates(gates, top_i), top_i, pos_nk, onehot
+
+    layers._moe_route = pinned
+    try:
+        yield used
+    finally:
+        layers._moe_route = real
+
+
+def phase_serve_moe(cfg):
+    """Phase 20: qwen2-moe-a2.7b served at full width and depth; returns both
+    kernels' launches of the timed run."""
+    lcfg = layer_cfg(cfg)
+    spec = RunSpec(p=P, n_chunks=1, microbatch=B, seq_len=PROMPT, m=M)
+    blocks, g = group_layout(cfg, P, 1)
+    check(g * P == cfg.n_layers and all(k == ("attn", "moe") for k in blocks),
+          f"{cfg.name}: {g} blocks a stage of kinds {blocks}")
+    t0 = time.perf_counter()
+    stacked, shared = init_params(cfg, spec, Placement.linear(P), seed=0, device=DEV)
+    torch.cuda.synchronize()
+    leaves = tree_leaves((stacked, shared))
+    n_params = sum(t.numel() for t in leaves)
+    routers = {str(t.dtype) for t in (blk[1]["router"] for blk in stacked[0]["blocks"])}
+    check(routers == {"torch.float32"}, f"the routers are {routers}, not float32")
+    print(f"[serve-qwen2-moe] init {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads} heads, {lcfg['n_experts']} experts of {lcfg['moe_d_ff']} top-"
+          f"{lcfg['topk']} + {lcfg['n_shared_experts']} shared, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"routers float32): {n_params / 1e9:.3f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB, on {DEV} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    layer_of = {blk[1]["router"][st].data_ptr(): st * g + bi
+                for bi, blk in enumerate(stacked[0]["blocks"]) for st in range(P)}
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (M, B, PROMPT))
+    with _routes() as log:  # the warm-up (cuBLAS, allocator), its routing logged
+        serve(cfg, stacked, shared, prompts, p=P, new_tokens=1)
+    pre = _routes_by_layer(log, layer_of, B * PROMPT)
+    dec = _routes_by_layer(log, layer_of, B)
+    caps = {c for calls in pre.values() for _, _, c in calls}
+    check(sorted(pre) == list(range(cfg.n_layers)) and all(len(c) == M for c in pre.values()),
+          f"prefill routed {sum(map(len, pre.values()))} calls over layers {sorted(pre)}")
+    check(caps == {moe_capacity(lcfg, B * PROMPT)}, f"prefill capacities {caps}")
+    dropped = {layer: float(sum(int((pos >= cap).sum()) for _, pos, cap in calls))
+               / sum(pos.numel() for _, pos, _ in calls) for layer, calls in sorted(pre.items())}
+    check(all(cap == 4 and int((pos >= cap).sum()) == 0 for calls in dec.values()
+              for _, pos, cap in calls), "decode dropped a selection or has a capacity but 4")
+    print(f"[serve-qwen2-moe] prefill of {B} x {PROMPT} tokens a group: capacity "
+          f"{caps.pop()} slots an expert for {B * PROMPT * lcfg['topk']} selections over "
+          f"{lcfg['n_experts']} experts; share dropped per layer "
+          f"{[round(d, 4) for d in dropped.values()]} (mean {np.mean(list(dropped.values())):.4f},"
+          f" max {max(dropped.values()):.4f}); decode: capacity 4 for {B} tokens, "
+          f"{lcfg['n_experts']} x 4 expert rows for {B * lcfg['topk']} selections, none dropped")
+    del log, pre, dec
+
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, by_path = _serve_counted(
+        "serve-qwen2-moe", cfg, P, M, NEW,
+        lambda: serve(cfg, stacked, shared, prompts, p=P, new_tokens=NEW,
+                      log=lambda s: print(f"[serve-qwen2-moe] {s}")))
+    want = expected_norm_launches(cfg, P, M, 1 + NEW)
+    for lg in res.logits:
+        check(lg.shape == (M, B, cfg.vocab), f"qwen2-moe logits shape {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg.float()).all()), "qwen2-moe: non-finite logits")
+    check(res.tokens.shape == (M, B, NEW + 1), f"tokens shape {tuple(res.tokens.shape)}")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
+    decode_ms = [x * 1e3 for x in res.decode_s]
+    print(f"[serve-qwen2-moe] p={P} m={M} b={B} prompt={PROMPT} new={NEW}: "
+          f"prefill_ms={res.prefill_s * 1e3:.1f} "
+          f"decode_ms_per_step mean={np.mean(decode_ms):.2f} median={np.median(decode_ms):.2f} "
+          f"min={min(decode_ms):.2f} max={max(decode_ms):.2f} "
+          f"generated_tok_per_s={M * B * NEW / sum(res.decode_s):.1f} "
+          f"max_memory_allocated_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}; "
+          f"rmsnorm launches {launches} == expected {want}, by path {by_path}")
+    del res
+
+    # decode vs prefill with nothing dropped: the capacity is the longer
+    # prefill's tokens, which no expert can pass (a token picks an expert once)
+    cap = B * (PROMPT + 1)
+    cfg_all = dataclasses.replace(cfg, extras=cfg.extras + (("capacity", cap),))
+    with _routes() as log:
+        res = serve(cfg_all, stacked, shared, prompts, p=P, new_tokens=1)
+    longer = np.concatenate([prompts, res.tokens[..., :1].cpu().numpy()], axis=-1)
+    with _routes() as log_ref:
+        ref = serve(cfg_all, stacked, shared, longer, p=P, new_tokens=0)
+    dec = _routes_by_layer(log, layer_of, B)
+    pre = _routes_by_layer(log_ref, layer_of, B * (PROMPT + 1))
+    check(all(int((pos >= c).sum()) == 0 for calls in (*dec.values(), *pre.values())
+              for _, pos, c in calls), "a selection was dropped at the full capacity")
+    last = {layer: [p_i.reshape(B, PROMPT + 1, -1)[:, -1] for p_i, _, _ in calls]
+            for layer, calls in pre.items()}
+    differ = sum(int((d_i.sort(-1).values != want.sort(-1).values).any(-1).sum())
+                 for layer in range(cfg.n_layers)
+                 for (d_i, _, _), want in zip(dec[layer], last[layer], strict=True))
+    # the same decode with each moe layer's experts pinned to the prefill's
+    # choice for that token: what is left is the bf16 walk of phase 6
+    with _pinned_routes(layer_of, last, B) as used:
+        pinned = serve(cfg_all, stacked, shared, prompts, p=P, new_tokens=1)
+    check(used == [M] * cfg.n_layers, f"pinned decode calls per layer {used}")
+    want = ref.logits[0].float()
+    gaps = {}
+    for what, got in (("routed", res.logits[1]), ("pinned", pinned.logits[1])):
+        got = got.float()
+        gaps[what] = (float((got - want).norm() / want.norm()), float((got - want).abs().max()),
+                      float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+    print(f"[serve-qwen2-moe] decode@{PROMPT} vs prefill of {PROMPT + 1}, capacity {cap} (nothing "
+          f"dropped): (layer, token) top-k sets that differ {differ} of "
+          f"{cfg.n_layers * M * B}; each routing its own tokens: rel_l2={gaps['routed'][0]:.3g} "
+          f"max_abs={gaps['routed'][1]:.3g} top1_agree={gaps['routed'][2]:.3f} (not gated: the "
+          f"flips); the decode's experts pinned to the prefill's: rel_l2={gaps['pinned'][0]:.3g} "
+          f"(limit {MOE_CONSIST_REL_L2}) max_abs={gaps['pinned'][1]:.3g} (limit "
+          f"{CONSIST_MAX_ABS}) top1_agree={gaps['pinned'][2]:.3f}; prefill of {PROMPT + 1}: "
+          f"{ref.prefill_s * 1e3:.1f} ms")
+    check(gaps["pinned"][0] <= MOE_CONSIST_REL_L2 and gaps["pinned"][1] <= CONSIST_MAX_ABS,
+          f"{cfg.name}: prefill->decode consistency with the experts pinned")
+    del ref, pinned
+    del stacked, shared, res, log
+    torch.cuda.empty_cache()
+    return launches, by_path
+
+
+def _moe_run(cfg, name, mode, seq, eager=None):
+    """One schedule of phase 21 under ``mode``: the seed-0 model (relaid onto
+    the V placement when it has two chunks), the AdamW state allocated, a
+    first walk whose gradient is kept on the host (in graph mode the
+    capture and its replay), then MT_STEPS driver steps from that state,
+    the clip off.  With ``eager`` (this schedule's eager run) the graph's
+    step-0 gradient, loss and later losses are held to it."""
+    sched = make_schedule(name, MT_P, T_M)
+    plan = compile_plan(sched)
+    per_step = expected_train_launches(cfg, MT_P, sched.n_chunks, T_M)
+    fma = expected_fma_launches(cfg, MT_P, sched.n_chunks, T_M)
+    stacked, shared, spec, data = _init_full(cfg, sched, seq)
+    step, _ = build_train_step(cfg, spec, plan, sched.placement, TrainStepConfig(
+        adamw=adamw.AdamWConfig(grad_clip=None), executor_mode=mode))
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(stacked, shared)
+    walks = _count_walks(step.grad_fn) if mode == "graph" else None
+    _reset_counts()
+    t0 = time.perf_counter()
+    g, sg, loss0 = step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, DEV))
+    torch.cuda.synchronize()
+    first_s, first = time.perf_counter() - t0, _read_counts()
+    keyed = [(k, t.cpu()) for k, t in keyed_leaves((g, sg))]
+    loss0 = float(loss0)
+    del g, sg
+    walk = _walk_peaks()
+    _reset_counts()
+    res = train(cfg, spec, step, stacked, shared, data, MT_STEPS,
+                log=lambda x: print(f"[train-qwen2-moe] {name} {mode}: {x}"), state=state)
+    launches = _read_counts()
+    if mode == "graph" and name == MT_SCHEDULES[0]:  # one more step, profiled, its moments
+        phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
+                            tag="profile-qwen2-moe", opts=(state["opt"], state["shared_opt"]))
+    del state
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    if mode == "eager":
+        want = _check_counts(f"qwen2-moe {name} eager first walk", first, per_step, 1,
+                             fma_per_step=fma)
+        _check_counts(f"qwen2-moe {name} eager steps", launches, per_step, MT_STEPS,
+                      fma_per_step=fma)
+        counted = _add_counts(first, launches)
+    else:
+        check(step.grad_fn.captures == 1 and len(walks) == 2,
+              f"qwen2-moe {name}: {step.grad_fn.captures} captures and {len(walks)} walks")
+        for what, (c, _) in zip(("warm-up", "capture"), walks):
+            want = _check_counts(f"qwen2-moe {name} {what}", c, per_step, 1, fma_per_step=fma)
+        check(launches == _zero_counts(),
+              f"qwen2-moe {name}: the replayed steps launched {launches} from Python")
+        counted = _add_counts(walks[0][0], walks[1][0])
+    check(res.losses[0] == loss0, f"qwen2-moe {name} {mode}: step-0 loss {res.losses[0]!r} != "
+          f"its first walk's {loss0!r}")
+    check(all(np.isfinite(res.losses + res.grad_norms)), f"qwen2-moe {name}: non-finite metrics")
+    gap = ""
+    if eager is not None:
+        exact, embed_gap = _graph_vs_eager(f"qwen2-moe {name}", eager["keyed"], keyed)
+        check(loss0 == eager["loss0"], f"qwen2-moe {name}: graph step-0 loss {loss0!r} != eager "
+              f"{eager['loss0']!r}")
+        later = max(abs(a - b) / abs(b) for a, b in zip(
+            res.losses + res.grad_norms, eager["res"].losses + eager["res"].grad_norms))
+        check(later <= G_RTOL, f"qwen2-moe {name}: graph losses/grad norms differ from eager by "
+              f"{later}")
+        gap = (f"; against the eager run: step-0 gradient {exact} of {exact + 1} leaves bit for "
+               f"bit, embedding rel_l2 {embed_gap:.3g} (limit {G_RTOL}), step-0 loss equal, "
+               f"losses and grad norms max rel gap {later:.3g} (limit {G_RTOL})")
+    med = float(np.median(res.step_s[1:] if mode == "graph" else res.step_s))
+    tokens = T_M * T_B * seq
+    capture = (f"capture {step.grad_fn.capture_s[0]:.2f} s, " if mode == "graph" else "")
+    print(f"[train-qwen2-moe] {name} {mode} p={MT_P} m={T_M} b={T_B} seq={seq} "
+          f"({sched.n_chunks} chunk(s) a stage, {plan.n_ticks} ticks): {base_gb:.2f} GB after "
+          f"init; {capture}first walk {first_s:.2f} s; ms_per_step median={med * 1e3:.1f} "
+          f"all={[round(x * 1e3, 1) for x in res.step_s]} tokens_per_s={tokens / med:.0f}; peak GB "
+          f"allocated={peak_gb:.2f} reserved={reserved_gb:.2f}; launches a step wgrad_accum="
+          f"{want[0]} (fma {fma}) rmsnorm={want[1]}, by path {counted[2]} {counted[3]} over "
+          f"{'the first walk and the steps' if mode == 'eager' else 'the warm-up and captured walks'}; "
+          f"losses {res.losses} grad_norms {res.grad_norms}{gap}")
+    out = dict(res=res, keyed=keyed, loss0=loss0, seq=seq, sched=sched, peak_gb=peak_gb,
+               reserved_gb=reserved_gb, mem=_mem(walk), launches=counted)
+    del step, stacked, shared
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_schedule(cfg, name, mode, eager=None):
+    """``_moe_run`` at seq T_SEQ, again at 512 when its allocated peak passes
+    T_MEM_LIMIT_GB (PERF.md §2's rule), saying so."""
+    seq = eager["seq"] if eager is not None else T_SEQ
+    run = _moe_run(cfg, name, mode, seq, eager)
+    if run["peak_gb"] > T_MEM_LIMIT_GB and seq == T_SEQ:
+        print(f"[train-qwen2-moe] {name} {mode}: peak {run['peak_gb']:.1f} GB > {T_MEM_LIMIT_GB} "
+              f"GB at seq {seq}; running it again at seq 512")
+        del run
+        run = _moe_run(cfg, name, mode, 512)
+    return run
+
+
+def phase_train_moe(cfg):
+    """Phase 21: qwen2-moe-a2.7b at full width, 4 layers, p=2, under zb-h1
+    and zb-v, eager then graph; returns {run: both kernels' launches}."""
+    t0 = time.perf_counter()
+    _pipeline_vs_plain(cfg, "train-qwen2-moe", p=MT_P)
+    print(f"[train-qwen2-moe] eager zb-h1 walk and plain autograd in "
+          f"{time.perf_counter() - t0:.1f}s")
+    runs = {}
+    for name in MT_SCHEDULES:
+        runs[(name, "eager")] = _moe_schedule(cfg, name, "eager")
+        runs[(name, "graph")] = _moe_schedule(cfg, name, "graph", runs[(name, "eager")])
+        runs[(name, "eager")].pop("keyed")
+        runs[(name, "graph")].pop("keyed")
+    band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
+    eager = {n: runs[(n, "eager")] for n in MT_SCHEDULES}
+    first = {n: r["res"].losses[0] for n, r in eager.items()}
+    for n, l0 in first.items():
+        check(band[0] < l0 < band[1], f"qwen2-moe {n}: step-0 loss {l0} outside {band}")
+    if len({r["seq"] for r in eager.values()}) == 1:
+        check(len(set(first.values())) == 1, f"qwen2-moe step-0 losses differ: {first}")
+        later = max(abs(a - b) / abs(b) for a, b in zip(eager["zb-v"]["res"].losses[1:],
+                                                        eager["zb-h1"]["res"].losses[1:]))
+        check(later <= T_LATER_LOSS_RTOL, f"qwen2-moe later losses differ by {later}")
+        print(f"[train-qwen2-moe] step-0 loss {first['zb-h1']} in band ({band[0]:.3f}, "
+              f"{band[1]:.3f}) and equal under zb-h1 and zb-v; later losses max rel diff "
+              f"{later:.3g} (limit {T_LATER_LOSS_RTOL})")
+    else:
+        print(f"[train-qwen2-moe] step-0 losses {first} in band; the schedules ran at other seq "
+              f"lengths, so no cross-schedule check")
+    for seq in sorted({r["seq"] for r in runs.values()}):
+        kw = dict(p=MT_P, m=T_M, microbatch=T_B, seq_len=seq)
+        planners = {f"{mode} model": HBMPlanner(cfg, executor_mode=mode, **kw)
+                    for mode in ("eager", "graph")}
+        measured = HBMPlanner(cfg, executor_mode="eager", program_factory=stage_program_factory(
+            cfg, MT_P, T_M, T_B, seq, DEV), **kw)
+        for (name, mode), r in runs.items():
+            if r["seq"] != seq:
+                continue
+            model = planners[f"{mode} model"].one_card_bytes(r["sched"])
+            one = measured.one_card_bytes(r["sched"], mode)
+            print(f"[train-qwen2-moe] {name} {mode} at seq {seq}: max_memory_reserved "
+                  f"{_gib(r['mem']['reserved'])} GiB (allocated {_gib(r['mem']['allocated'])}; "
+                  f"{_gib(r['mem']['walk_reserved'])} and {_gib(r['mem']['walk_allocated'])} at "
+                  f"the first walk's end) beside HBMPlanner.one_card_bytes, measured fidelity "
+                  f"{one.report()} (priced - reserved {_gib(one.total - r['mem']['reserved'])} "
+                  f"GiB), model fidelity {_gib(model.total)} GiB; not gated")
+        del measured
+        torch.cuda.empty_cache()
+    return {f"train-qwen2-moe-{n}-{mode}": r["launches"] for (n, mode), r in runs.items()}
+
 
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
     return {
@@ -2120,9 +2545,11 @@ def main() -> int:
     phase_card()
     more = run_child(GPT3_CHILD, "gpt3_launches")
     print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
+    more.update(run_child(MOE_CHILD, "moe_launches"))
+    print(f"[time] qwen2-moe phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     wrows = phase_kernels_wgrad(cfg_red)
-    for arch in (ARCH, GPT3, GEMMA2):
+    for arch in (ARCH, GPT3, GEMMA2, MOE):
         phase_reduced(get_reduced(arch), RED_PROMPTS[arch])
     stacked, shared, prompts, res, serve_launches = phase_serve(cfg_full)
     phase_consistency(cfg_full, stacked, shared, prompts, res)
@@ -2131,7 +2558,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemma2_launches = phase_serve_gemma2(get_config(GEMMA2))
     print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f}s")
-    for arch in (ARCH, GPT3, GEMMA2):
+    for arch in (ARCH, GPT3, GEMMA2, MOE):
         phase_train_reduced(get_reduced(arch))
     runs = phase_train(cfg_full)
     phase_train_checks(cfg_full, runs)
@@ -2196,6 +2623,23 @@ def gpt3_child_main() -> int:
     return 0
 
 
+def moe_child_main() -> int:
+    """Phases 20 and 21, alone in this process; the last line is a JSON
+    object with both kernels' launches of each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    cfg = get_config(MOE)
+    rms, rms_by_path = phase_serve_moe(cfg)
+    print(f"[time] qwen2-moe serving phase done at {time.perf_counter() - t0:.1f}s (child)")
+    counts = {"serve-qwen2-moe": (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)}
+    counts.update(phase_train_moe(dataclasses.replace(cfg, n_layers=MT_LAYERS)))
+    print(f"[time] qwen2-moe training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    print(json.dumps({"moe_launches": counts}))
+    return 0
+
+
 def graph_child_main(eager_path) -> int:
     """Phase 16 with its half of phase 13 (the graph gate), alone in this
     process, against phase 9's results read from
@@ -2238,7 +2682,9 @@ def run_child(flag, key, eager_runs=None):
     run has it; returns the child's launch counts by run.  ``GPT3_CHILD``
     runs phases 18-19 before this process allocates anything: gpt3-1.5b's
     graph runs reserve up to ~80 GB of the card's 85, and after the
-    internlm2 phases in this process they came within 1.1 GB of it.
+    internlm2 phases in this process they came within 1.1 GB of it;
+    ``MOE_CHILD`` runs phases 20-21 next, for the same reason (28.6 GB of
+    weights to serve, ~60 GiB to train).
     ``GRAPH_CHILD`` runs phase 16 and its gate against ``eager_runs``
     (phase 9's results, passed in a file), ``HELDOUT_CHILD`` the held-out
     runs: in this process, after phases 3-15, the graph runs reserved up to
@@ -2271,6 +2717,8 @@ def run_child(flag, key, eager_runs=None):
 if __name__ == "__main__":
     if sys.argv[1:2] == [GPT3_CHILD]:
         sys.exit(gpt3_child_main())
+    if sys.argv[1:2] == [MOE_CHILD]:
+        sys.exit(moe_child_main())
     if sys.argv[1:2] == [GRAPH_CHILD]:
         sys.exit(graph_child_main(sys.argv[2]))
     if sys.argv[1:2] == [HELDOUT_CHILD]:

@@ -16,6 +16,10 @@ makes it with autograd and one deferred linear instead:
     :class:`_DeferredLinear`, whose backward returns only ``dx = g @ w^T`` and
     appends ``(a, g)`` -- the input and the output gradient, flattened to
     (N, H) and (N, F), contiguous -- to the W-context.  It computes no dW.
+  * :func:`expert_linear` is its counterpart for a stack of expert weights,
+    ``(E, C, H) x (E, H, F) -> (E, C, F)`` (``torch.bmm``).  Deferred, its
+    backward returns only ``dx = g @ w^T`` per expert and appends ``(x, g)``,
+    (E, C, H) and (E, C, F), to the W-context.
   * B is one ``torch.autograd.grad`` of the block output w.r.t. its input and
     the *cheap* parameter leaves (every leaf that is not a deferred weight:
     norm gains, the padding mask).  Their gradients are finished at B, as the
@@ -24,7 +28,11 @@ makes it with autograd and one deferred linear instead:
   * W reads only the W-context: one ``kernels.ops.wgrad_accum(a, g, acc)``
     per deferred linear (the CUDA kernel on the card), which adds into that
     weight's fp32 accumulator in place, plus the finished cheap grads, added
-    out of place.
+    out of place.  A deferred expert product adds ``x^T @ g`` per expert,
+    computed by ``torch.bmm`` in the weight's dtype, into its fp32
+    accumulator in place: the JAX W slice computes this batched product
+    outside any kernel (its ``_is_wgrad_dot`` fuses no product with batch
+    dimensions) and adds it to the accumulator after a cast.
 
 A module built with ``fuse_wgrad=False`` adds ``a^T @ g``, computed by
 ``torch.matmul`` in the weight's dtype, to the accumulator instead: the
@@ -41,7 +49,7 @@ import torch
 from ..kernels import ops
 from ..tree import tree_flatten, tree_unflatten
 
-__all__ = ["FBWModule", "SequentialFBW", "autograd_fbw", "linear", "loss_seed"]
+__all__ = ["FBWModule", "SequentialFBW", "autograd_fbw", "expert_linear", "linear", "loss_seed"]
 
 PyTree = Any
 
@@ -69,12 +77,20 @@ class FBWModule:
 # the deferred linear
 # --------------------------------------------------------------------- #
 class _WContext:
-    """What one forward of a split module collects: each deferred linear's
-    weight (in call order) and, once B ran, its ``(a, g)`` pair."""
+    """What one forward of a split module collects: each deferred product's
+    weight (in call order), whether it is an expert product, and, once B
+    ran, its ``(a, g)`` pair."""
 
     def __init__(self):
         self.weights: List[torch.Tensor] = []
+        self.batched: List[bool] = []
         self.pairs: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = []
+
+    def defer(self, w: torch.Tensor, batched: bool) -> int:
+        self.weights.append(w)
+        self.batched.append(batched)
+        self.pairs.append(None)
+        return len(self.pairs) - 1
 
 
 # the W-context the current forward collects into (None: plain products)
@@ -103,9 +119,32 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wc = _collecting.get()
     if wc is None:
         return x @ w
-    wc.weights.append(w)
-    wc.pairs.append(None)
-    return _DeferredLinear.apply(x, w, wc, len(wc.pairs) - 1)
+    return _DeferredLinear.apply(x, w, wc, wc.defer(w, batched=False))
+
+
+class _DeferredExpertLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, wc, i):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.wc, ctx.i = wc, i
+        return torch.bmm(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = gy.contiguous()
+        ctx.wc.pairs[ctx.i] = (x.detach(), g)  # W's operands; no dW here
+        return torch.bmm(g, w.transpose(1, 2)), None, None, None
+
+
+def expert_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(x, w)``: x (E, C, H), w (E, H, F) -> (E, C, F), one
+    product per expert; deferred while a W-context is collected."""
+    wc = _collecting.get()
+    if wc is None:
+        return torch.bmm(x, w)
+    return _DeferredExpertLinear.apply(x, w, wc, wc.defer(w, batched=True))
 
 
 # --------------------------------------------------------------------- #
@@ -139,13 +178,15 @@ class _AutogradFBW(FBWModule):
                                     allow_unused=True)
         if any(pair is None for pair in wc.pairs):
             raise RuntimeError(f"{self.name}: a deferred linear got no gradient in B")
-        return grads[0], (deferred, wc.pairs, cheap, list(grads[1:]))
+        return grads[0], (deferred, wc.batched, wc.pairs, cheap, list(grads[1:]))
 
     def bwd_w(self, params, wctx, side, acc):
-        deferred, pairs, cheap, cheap_grads = wctx
+        deferred, batched, pairs, cheap, cheap_grads = wctx
         out, struct = tree_flatten(acc)
-        for k, (a, g) in zip(deferred, pairs):
-            if self.fuse_wgrad:
+        for k, expert, (a, g) in zip(deferred, batched, pairs):
+            if expert:  # (E, H, F) in the weight's dtype, added in place
+                out[k] = out[k].add_(torch.bmm(a.transpose(1, 2), g))
+            elif self.fuse_wgrad:
                 out[k] = ops.wgrad_accum(a, g, out[k])
             else:
                 out[k] = out[k] + (a.t() @ g).to(out[k].dtype)
@@ -158,8 +199,8 @@ class _AutogradFBW(FBWModule):
 def autograd_fbw(f: Callable[[PyTree, torch.Tensor, PyTree], torch.Tensor], name: str = "auto",
                  fuse_wgrad: bool = True) -> FBWModule:
     """Split ``f(params, x, side) -> y`` into F/B/W passes: weight products
-    that go through :func:`linear` are deferred to W, every other parameter
-    leaf gets its gradient at B."""
+    that go through :func:`linear` or :func:`expert_linear` are deferred to
+    W, every other parameter leaf gets its gradient at B."""
     return _AutogradFBW(f, name, fuse_wgrad)
 
 

@@ -33,12 +33,14 @@ def to_torch(a: np.ndarray, *, device="cpu", dtype: Optional[torch.dtype] = None
 def params_from_numpy(stacked, shared, *, device, dtype: Optional[torch.dtype] = None):
     """(stacked per chunk, shared) numpy trees -> the port's parameters.
 
-    ``dtype`` casts the floating-point weights; the ``mask`` leaf stays
-    float32 as in the JAX package.
+    ``dtype`` casts the floating-point weights that are not float32 in the
+    JAX tree: a float32 leaf (the ``mask``, the moe router, which the JAX
+    ``init_moe`` keeps in float32 in a bf16 model) stays float32.
     """
 
     def conv(a):
-        return to_torch(a, device=device, dtype=dtype)
+        keep = dtype is None or np.asarray(a).dtype == np.float32
+        return to_torch(a, device=device, dtype=None if keep else dtype)
 
     out_stacked = tuple(
         {

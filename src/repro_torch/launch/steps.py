@@ -105,6 +105,10 @@ def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss, tcfg: T
         _copy_into(state.v, new_s.v)
         if s == 0:
             new_t = new_s.t
+        # copied back: free this stage's results before the next stage steps
+        del new_p, new_s
+        if tcfg.postval_mode != "sync":
+            del p1, s1
     metrics = {"loss": loss, "grad_norm": torch.sqrt(full.sumsq), "amended": amended}
     return (stacked, shared, adamw.AdamWState(new_t, opt.m, opt.v),
             adamw.AdamWState(new_t, shared_opt.m, shared_opt.v), metrics)
@@ -157,8 +161,8 @@ def optimizer_transient_bytes(stacked, shared,
     (stage 0 with the shared leaves), each holding a
     new parameter, ``m`` and ``v`` a leaf (10 bytes an element for bf16
     weights) plus the step's fp32 temporaries until ``_copy_into`` copies
-    them back; stage s - 1's results stay alive through stage s's step,
-    as ``new_p`` and ``new_s`` do in the loop.  The decisions read the card,
+    them back; the loop frees a stage's results before the next stage
+    steps.  The decisions read the card,
     so the path is fixed to the one every step takes unless it is amended:
     one AdamW step a stage, optimistic or scaled after a skipped optimistic
     step.  An amended step (a partial norm under the clip, the full one
@@ -194,11 +198,11 @@ def optimizer_transient_bytes(stacked, shared,
                               tuple(_freeze_filter(_at(stacked, s)) for s in stages))
             for s in stages:
                 postval.local_stats(stage(s)[1])
-            new = None
             for s in stages:
                 params, g, state = stage(s)
                 new = adamw.step(params, state, g, acfg, scale=scale)
-            del frozen, new
+                del new
+            del frozen
         return live.peak
 
     return OptimizerTransient(

@@ -1,7 +1,7 @@
 """Model assembly of the port: configs, group layout, parameters, the
 split chunk modules, the embedding source and the loss sink.
 
-Counterpart of ``src/repro/models/lm.py`` (dense family).  Blocks are assigned to (stage, chunk) groups of uniform size; when
+Counterpart of ``src/repro/models/lm.py`` (the dense and moe families).  Blocks are assigned to (stage, chunk) groups of uniform size; when
 ``n_layers`` does not divide evenly, groups are padded with blocks whose
 ``mask`` leaf is 0, which leave the activation unchanged.  Parameters keep
 the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
@@ -195,8 +195,11 @@ class ChunkFBW(FBWModule):
 # --------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------- #
+PORTED_FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet"
         )
@@ -290,8 +293,8 @@ def _embed_grad(shared, tokens: torch.Tensor, dx: torch.Tensor, ctx: ShardCtx,
 
 
 def make_src(cfg: ArchConfig, ctx: ShardCtx):
-    """(src_fwd, src_bwd_w): the token embedding and its gradient (dense
-    family only; the encdec/vlm fronts are not ported).
+    """(src_fwd, src_bwd_w): the token embedding and its gradient (the
+    token-input families; the encdec/vlm fronts are not ported).
 
     ``src_bwd_w(shared, side_mb, dx, acc)`` adds the embedding rows into
     ``acc["embed"]`` (fp32, ``acc`` like shared) in place and returns

@@ -1,5 +1,5 @@
 """Layer library of the port: the dense GQA kinds ``attn``, ``attn_local`` and
-``mlp`` at tp=1.
+``mlp``, and the ``moe`` kind (shared + routed top-k experts), at tp=1.
 
 Counterpart of ``src/repro/models/modules.py``: the same functions, names,
 parameter layouts (linear weights ``(in, out)``, applied as ``x @ w``) and
@@ -10,7 +10,10 @@ seven weight products of a block go through ``core.passes.linear``: plain
 block collects its W-context.  Attention stays plain tensor code, as the JAX
 package leaves it to XLA: einsum products, the ``-1e30`` mask, softmax in
 fp32; ``attn_local`` adds the sliding window (a key is seen by the queries
-less than ``window`` positions after it).  Every other layer kind raises
+less than ``window`` positions after it).  ``moe`` routes each token to its
+top-k experts with a per-expert capacity; the router product goes through
+``linear`` (fp32), the expert products through ``core.passes.expert_linear``
+and the shared experts through ``linear``.  Every other layer kind raises
 ``NotImplementedError`` naming the kind.
 """
 
@@ -22,7 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..core.passes import linear
+from ..core.passes import expert_linear, linear
 from ..kernels import ops
 
 __all__ = [
@@ -41,8 +44,8 @@ __all__ = [
 ]
 
 # kinds of the JAX layer library that this port does not carry yet
-UNPORTED_KINDS = ("mla", "moe", "slstm", "mlstm", "rglru", "encdec")
-PORTED_KINDS = ("attn", "attn_local", "mlp")
+UNPORTED_KINDS = ("mla", "slstm", "mlstm", "rglru", "encdec")
+PORTED_KINDS = ("attn", "attn_local", "mlp", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +227,194 @@ def apply_mlp(p, x, cfg, ctx: ShardCtx):
 
 
 # --------------------------------------------------------------------- #
+# MoE: shared + routed top-k experts (tp=1: every expert is local)
+# --------------------------------------------------------------------- #
+def _e_pad(cfg) -> int:
+    return pad_to_multiple(cfg["n_experts"], cfg.get("tp_size", 1))
+
+
+def init_moe(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    """The router is float32 whatever ``dtype`` is, as in the JAX package."""
+    h, f = cfg["d_model"], cfg["moe_d_ff"]
+    e_p = _e_pad(cfg)
+    n_sh = cfg.get("n_shared_experts", 0)
+    sc = 1.0 / math.sqrt(h)
+    so = sc / math.sqrt(2 * cfg["n_layers"])
+    params = {
+        "ln": torch.zeros((h,), dtype=dtype, device=gen.device),
+        "router": _normal(gen, (h, cfg["n_experts"]), sc, torch.float32),
+        "wu": _normal(gen, (e_p, h, f), sc, dtype),
+        "wg": _normal(gen, (e_p, h, f), sc, dtype),
+        "wd": _normal(gen, (e_p, f, h), so, dtype),
+    }
+    if n_sh:
+        f_sh = f * n_sh
+        params.update({
+            "swu": _normal(gen, (h, f_sh), sc, dtype),
+            "swg": _normal(gen, (h, f_sh), sc, dtype),
+            "swd": _normal(gen, (f_sh, h), so, dtype),
+        })
+    return params
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens, from shapes on the host:
+    ``cfg["capacity"]`` if set, else ceil(n k / E * capacity_factor)
+    clamped to [4, n] (at least 4)."""
+    cap = cfg.get("capacity", None)
+    if cap is None:
+        cap = int(math.ceil(n_tokens * cfg["topk"] / cfg["n_experts"]
+                            * cfg.get("capacity_factor", 1.25)))
+        cap = max(4, min(cap, n_tokens))
+    return cap
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 one-hot over n classes, all zeros for an index outside [0, n)
+    (``jax.nn.one_hot``'s rule); unlike ``F.one_hot`` it reads no bound
+    back to the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
+def _moe_route(p, tok, cfg):
+    """Top-k routing with per-expert slot positions.  Returns (top_g, top_i,
+    pos_nk, onehot): top_g (N, k) fp32 gates renormalised over the k
+    choices, top_i (N, k) expert indices in descending gate order (ties to
+    the lower index, as ``lax.top_k``), pos_nk (N, k) int64, the number of
+    earlier selections of the same expert in the flattened (n, k) order,
+    and onehot (N, k, E_p) fp32.  No host read: the shapes alone size
+    every tensor."""
+    logits = linear(tok.float(), p["router"])  # (N, E) real experts, fp32
+    gates = torch.softmax(logits, dim=-1)
+    order = torch.sort(gates.detach(), dim=-1, descending=True, stable=True).indices
+    top_i = order[:, :cfg["topk"]].contiguous()
+    pos_nk, onehot = _slot_positions(top_i, _e_pad(cfg))
+    return _chosen_gates(gates, top_i), top_i, pos_nk, onehot
+
+
+def _chosen_gates(gates, top_i):
+    """The gates of the chosen experts, renormalised over the k choices."""
+    top_g = torch.gather(gates, -1, top_i)
+    return top_g / (torch.sum(top_g, dim=-1, keepdim=True) + 1e-9)
+
+
+def _slot_positions(top_i, e_p: int):
+    """(pos_nk int64, onehot (N, k, E_p) fp32) of the choices top_i (N, k):
+    each selection's count of earlier selections of its expert in the
+    flattened (n, k) order."""
+    n, k_top = top_i.shape
+    onehot = _one_hot(top_i, e_p)
+    flat = onehot.reshape(n * k_top, e_p)
+    # inclusive count of each expert's selections so far, read at the
+    # selection's own expert, minus itself
+    pos_nk = torch.gather(torch.cumsum(flat, dim=0), 1, top_i.reshape(-1, 1)) - 1
+    return pos_nk.reshape(n, k_top), onehot.float()
+
+
+def _dispatch_einsum(tok, top_g, top_i, pos_nk, onehot, cap, e_l, ei, dtype):
+    """The dense (Mesh-TF) dispatch: one-hot products, O(N k cap) and
+    O(N E cap h).  The oracle the scatter dispatch is held to."""
+    keep = pos_nk < cap
+    pos_oh = _one_hot(pos_nk, cap).float()  # (N, k, cap); a dropped selection is all zeros
+    sel = onehot * keep[..., None].float()  # (N, k, E_p)
+    sel_l = sel[:, :, ei:ei + e_l]
+    disp_l = torch.einsum("nke,nkc->nec", sel_l, pos_oh)
+    comb_l = torch.einsum("nke,nkc->nec", sel_l * top_g[..., None], pos_oh)
+    xe = torch.einsum("nec,nh->ech", disp_l, tok.float()).to(dtype)
+    return xe, comb_l
+
+
+class _Dispatch(torch.autograd.Function):
+    """xe = tok_pad[tok_of_slot]: each expert slot's token row (a zero row
+    where the slot is empty).  The backward gathers each selection's slot
+    by ``flat`` and sums over k in order, in fp32: no scatter-add, so no
+    atomics and the same bits in every run."""
+
+    @staticmethod
+    def forward(ctx, tok, tok_of_slot, flat):
+        ctx.save_for_backward(flat)
+        pad = torch.cat([tok, tok.new_zeros((1, tok.shape[1]))], dim=0)
+        return pad[tok_of_slot]
+
+    @staticmethod
+    def backward(ctx, dxe):
+        (flat,) = ctx.saved_tensors
+        pad = torch.cat([dxe, dxe.new_zeros((1, dxe.shape[1]))], dim=0)
+        return pad[flat].float().sum(dim=1).to(dxe.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """picked = out_pad[flat]: each (token, choice) selection's expert
+    output (zeros for a dropped one).  Slots are unique but for the
+    sentinel, so the backward gathers by the slot's selection instead of
+    scatter-adding."""
+
+    @staticmethod
+    def forward(ctx, out_flat, flat, sel_of_slot):
+        ctx.save_for_backward(sel_of_slot)
+        pad = torch.cat([out_flat, out_flat.new_zeros((1, out_flat.shape[1]))], dim=0)
+        return pad[flat]
+
+    @staticmethod
+    def backward(ctx, dpicked):
+        (sel_of_slot,) = ctx.saved_tensors
+        h = dpicked.shape[-1]
+        pad = torch.cat([dpicked.reshape(-1, h), dpicked.new_zeros((1, h))], dim=0)
+        return pad[sel_of_slot], None, None
+
+
+def _expert_ffn(p, xe):
+    up = expert_linear(xe, p["wu"])
+    gate = torch.nn.functional.silu(expert_linear(xe, p["wg"]))
+    return expert_linear(up * gate, p["wd"])
+
+
+def apply_moe(p, x, cfg, ctx: ShardCtx):
+    """Shared + routed top-k experts, capacity-bounded.
+
+    ``moe_dispatch="scatter"`` (the default) moves tokens by slot index:
+    each kept selection (n, j) owns slot ``top_i * cap + pos`` of the
+    (E_p * cap) expert rows, and a selection past its expert's capacity is
+    dropped (its gate counts for nothing).  ``"einsum"`` is the dense
+    one-hot oracle.  The router's gradient flows through the combine
+    weights under both."""
+    b, s, h = x.shape
+    e_p = _e_pad(cfg)
+    e_l, ei = e_p, ctx.index() * e_p
+    n = b * s
+    cap = moe_capacity(cfg, n)
+    xin = rmsnorm(p["ln"], x)
+    tok = xin.reshape(n, h)
+    top_g, top_i, pos_nk, onehot = _moe_route(p, tok, cfg)
+
+    if cfg.get("moe_dispatch", "scatter") == "einsum":
+        xe, comb_l = _dispatch_einsum(tok, top_g, top_i, pos_nk, onehot, cap, e_l, ei, x.dtype)
+        out_e = _expert_ffn(p, xe)
+        y = torch.einsum("nec,ech->nh", comb_l, out_e.float())
+    else:
+        k_top = top_i.shape[1]
+        loc_e = top_i - ei
+        keep = (pos_nk < cap) & (loc_e >= 0) & (loc_e < e_l)
+        flat = torch.where(keep, loc_e * cap + pos_nk, torch.full_like(pos_nk, e_l * cap))
+        # slot -> selection n * k + j (the sentinel selection n * k: empty)
+        sel_of_slot = torch.full((e_l * cap + 1,), n * k_top, dtype=torch.long, device=x.device)
+        sel_of_slot.scatter_(0, flat.reshape(-1), torch.arange(n * k_top, device=x.device))
+        sel_of_slot = sel_of_slot[:-1]  # the sentinel slot's entry is whichever wrote last
+        xe = _Dispatch.apply(tok, sel_of_slot // k_top, flat).reshape(e_l, cap, h)
+        out_e = _expert_ffn(p, xe)
+        picked = _Combine.apply(out_e.reshape(e_l * cap, h), flat, sel_of_slot)
+        w = top_g * keep.float()
+        y = torch.einsum("nkh,nk->nh", picked.float(), w)
+
+    y = y.to(x.dtype)
+    if "swu" in p:
+        up = linear(tok, p["swu"])
+        gate = torch.nn.functional.silu(linear(tok, p["swg"]))
+        y = y + linear(up * gate, p["swd"])
+    return x + y.reshape(b, s, h)
+
+
+# --------------------------------------------------------------------- #
 # registry
 # --------------------------------------------------------------------- #
 LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
@@ -235,6 +426,7 @@ LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
         ),
     ),
     "mlp": (init_mlp, lambda p, x, pos, cfg, ctx: apply_mlp(p, x, cfg, ctx)),
+    "moe": (init_moe, lambda p, x, pos, cfg, ctx: apply_moe(p, x, cfg, ctx)),
 }
 
 

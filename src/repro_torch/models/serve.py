@@ -1,5 +1,5 @@
 """Serving path of the port: prefill (cache build) and decode (one token)
-for the dense kinds ``attn``, ``attn_local`` and ``mlp``.
+for the kinds ``attn``, ``attn_local``, ``mlp`` and ``moe``.
 
 Counterpart of ``src/repro/models/serve.py``.  Where the JAX version is
 pure and returns updated caches, the port writes each group's cache slice in
@@ -9,7 +9,10 @@ assignments below write through those views.  ``attn_local`` keeps a ring
 of ``min(S, window)`` slots: position P lives in slot ``P % Sc``, after a
 prefill as after a decode step (the JAX prefill of a prompt longer than the
 ring stores its tail from slot 0 instead, which its decode then misreads
-unless the prompt length is a multiple of the ring).  Every other kind
+unless the prompt length is a multiple of the ring).  ``mlp`` and ``moe``
+keep no cache; ``moe`` routes the step's tokens alone, so a decode step's
+capacity is that of its b tokens (at least 4 slots an expert) and drops
+nothing that a prefill of the same tokens might drop.  Every other kind
 raises ``NotImplementedError`` naming the kind.
 """
 
@@ -30,6 +33,7 @@ from .modules import (
     _softcap,
     _window,
     apply_mlp,
+    apply_moe,
     attn_forward,
     pad_to_multiple,
     rmsnorm,
@@ -61,7 +65,7 @@ def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
         }
-    return {}  # mlp
+    return {}  # mlp, moe
 
 
 # --------------------------------------------------------------------- #
@@ -94,6 +98,8 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
     _check_kind(kind)
     if kind == "mlp":
         return apply_mlp(p, x, cfg, ctx), cache
+    if kind == "moe":
+        return apply_moe(p, x, cfg, ctx), cache
     b = x.shape[0]
     hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
     dh = _head_dim(cfg)
@@ -129,6 +135,8 @@ def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
     _check_kind(kind)
     if kind == "mlp":
         return apply_mlp(p, x, cfg, ctx), cache
+    if kind == "moe":
+        return apply_moe(p, x, cfg, ctx), cache
     s = x.shape[1]
     window = _window(kind, cfg)
     y, k, v = attn_forward(p, x, positions, cfg, ctx, window=window)
