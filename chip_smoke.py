@@ -6,7 +6,9 @@
 Phases, in order, but 18-19 run first, after 2, in a child process of
 their own (gpt3-1.5b's graph runs need the card to themselves), 20-21
 next in another (qwen2-moe-a2.7b: 28.6 GB of weights to serve, ~60 GiB to
-train), 17 after 7, and 16 with its half of 13, then 13's held-out runs,
+train), 22-23 next in a third (deepseek-v3-671b: 50 GB of weights to
+serve; in both the training phase first, in a fresh process, as the
+memory record it is gated against was measured), 17 after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
 launcher runs); any failed check raises and the exit code is not 0:
 
@@ -17,13 +19,15 @@ launcher runs); any failed check raises and the exit code is not 0:
               the shapes its path gives it, with device times (CUDA events
               around a CUDA graph of many calls) of the kernel, the plain
               version and one PyTorch library call, and the bound.  RMSNorm:
-              first a sweep at every width of the port's dense configs (48,
-              64, 2048, 2304, 4096, 5120, 6144, 8192), x and g each in bf16
+              first a sweep at every width of the port's dense configs and
+              deepseek-v3-671b's (48, 64, 2048, 2304, 4096, 5120, 6144,
+              7168, 8192), x and g each in bf16
               and f32, N in {1, 2, 1000, 4100}, plus views one element off
               their allocation and rows not a multiple of 16 bytes, each on
               the path its plan names (bulk / latency / rowwise); then the
-              serving shapes, gpt3-1.5b's training rows (1024 x 2304) and
-              gemma2-2b's serving rows (4100 x 2304 and 1 x 2304), each
+              serving shapes, gpt3-1.5b's training rows (1024 x 2304),
+              gemma2-2b's serving rows (4100 x 2304 and 1 x 2304) and
+              deepseek-v3-671b's (1024 x 7168 and 2 x 7168), each
               with its path (every main-path shape of 1024 rows or more on
               bulk, the decode rows on latency) and timed in turns against
               F.rms_norm (kernel, library, library, kernel), warm (inputs
@@ -34,16 +38,21 @@ launcher runs); any failed check raises and the exit code is not 0:
               and ragged shapes, and gpt3-1.5b's (2304, 2304), (2304, 9216),
               (9216, 2304), all on wgmma, and qwen2-moe-a2.7b's shared
               experts (2048, 5632) and (5632, 2048) on wgmma and its fp32
-              router (2048, 60) on fma: it adds into a clone of acc in
+              router (2048, 60) on fma, and deepseek-v3-671b's mla W ops
+              (7168, 1536), (1536, 24576), (7168, 576) (a ragged last
+              tile), (512, 16384), (16384, 7168) and shared expert (7168,
+              2048), (2048, 7168) on wgmma and its cut's fp32 router
+              (7168, 16) on fma: it adds into a clone of acc in
               place and is held against the plain version on the original;
               its path (wgmma / mma_sync / fma) is printed per shape,
               kernel and library are timed in turns, and the wrapper's
               eager host time per call is measured.
-4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b and qwen2-moe-a2.7b
-              (float32) served on cuda and on cpu: logits within 1e-4 and
-              identical greedy tokens (gemma2's 19-token prompt rolls its
-              ring of 8), and for the moe model identical routing (every
-              moe call's top-k experts and slot positions).
+4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b, qwen2-moe-a2.7b
+              and deepseek-v3-671b (float32) served on cuda and on cpu:
+              logits within 1e-4 and identical greedy tokens (gemma2's
+              19-token prompt rolls its ring of 8), and for the moe models
+              identical routing (every moe call's top-k experts and slot
+              positions).
 5. serve   -- internlm2-1.8b at full width and depth (bf16, random weights
               from a seed): 4 pipeline stages on the one card, 8 request
               groups of 2, 512-token prompts, 16 greedy tokens.  Kernel
@@ -52,8 +61,9 @@ launcher runs); any failed check raises and the exit code is not 0:
               last position of a prefill of s + 1 tokens, at full width.
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
-8. train-reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b and
-              qwen2-moe-a2.7b (float32), p=2, m=4: 3 training steps
+8. train-reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b,
+              qwen2-moe-a2.7b and deepseek-v3-671b (float32), p=2, m=4: 3
+              training steps
               (AdamW + post-validation) on cuda and on cpu under zb-h1 and
               under zb-v (two chunks on the V placement); losses within
               1e-5 relative, grad norms within 1e-4.
@@ -196,9 +206,35 @@ launcher runs); any failed check raises and the exit code is not 0:
               its eager walk's, bit for bit but the embedding's, its
               losses within 1e-6 of the eager ones; launches by path (the
               routers' W ops on fma, the rest on wgmma) == the structure's
-              count; allocated and reserved peaks beside
-              ``HBMPlanner.one_card_bytes`` (printed, not gated; no
-              calibration record, so no remainder).
+              count; each run's reserved peak gated as phase 13 gates
+              the dense runs: at most ``HBMPlanner.one_card_bytes`` of its
+              schedule and executor mode (measured fidelity, the remainder
+              and shares of the calibration record that
+              ``launch/calibrate.py --layers 4 --p 2`` wrote at this cut),
+              which may pass it by at most PLAN_OVERSHOOT_MAX of the peak;
+              the memory window is ``launch/calibrate.py``'s (the profiled
+              step after it is outside).
+22. serve-deepseek-v3 -- deepseek-v3-671b at full width (every matrix at
+              its published shape: d 7168, 128 mla heads of 128 + a
+              shared rope key of 64, q rank 1536, kv rank 512; 256 routed
+              experts of 2048, top-8, 1 shared; vocab 129280; bf16, random
+              weights from a seed, the routers fp32), cut from 61 to 2
+              layers, p=2, served as phase 20 serves qwen2-moe: prefill
+              and decode ms, RMSNorm launches == the structure's count
+              (the 7168-wide rows on bulk in prefill, latency in decode),
+              capacity drops per layer in prefill (40 slots for 1024
+              tokens), none in decode; the absorbed mla decode (cache c and
+              kr, 576 numbers a token and layer) against a prefill of 513
+              tokens: the top-k flips and the unpinned gap printed, the
+              pinned gap within DS_CONSIST_REL_L2.
+23. train-deepseek-v3 -- deepseek-v3-671b's training cut (2 layers, p=2,
+              16 routed experts, vocab 32768; every mla and expert matrix
+              at its published shape), phase 21's checks under zb-h1 and
+              zb-h2: the step-0 gradient against plain autograd, losses,
+              graph against eager bit for bit, the six mla W ops and the
+              shared expert's on wgmma and the router's on fma, the
+              reserved peaks gated against the cut's own calibration
+              record.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -240,7 +276,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
-from repro_torch.launch.calibrate import calibration_record  # noqa: E402
+from repro_torch.launch.calibrate import calibration_record, cut_config  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
 from repro_torch.launch.steps import build_serve_step  # noqa: E402
@@ -275,7 +311,7 @@ P, M, B, PROMPT, NEW = 4, 8, 2, 512, 16  # full-width serving run
 RED_P, RED_M, RED_B, RED_PROMPT, RED_NEW = 2, 4, 2, 16, 4  # reduced cuda-vs-cpu run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
 # phase 3's RMSNorm sweep: every width of the port's dense configs, and rows
-RMS_SWEEP_WIDTHS = (48, 64, 2048, 2304, 4096, 5120, 6144, 8192)
+RMS_SWEEP_WIDTHS = (48, 64, 2048, 2304, 4096, 5120, 6144, 7168, 8192)
 RMS_SWEEP_ROWS = (1, 2, 1000, 4100)
 COLD_BYTES = 100_000_000  # a cold timing's rotation: twice the H100's 50 MB L2
 # full-width consistency in bf16: both paths round every product to bf16 (8
@@ -289,17 +325,20 @@ CONSIST_MAX_ABS = 0.25
 # attn_local and mlp, in prefill (the port reuses the forward's k/v), in
 # decode and in a training forward alike (the norm's backward is plain
 # torch, no kernel)
-NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mlp": 1, "moe": 1}
-# deferred linears (W ops, one wgrad_accum launch each) of each kind: moe's
-# are the router and the three shared-expert weights (its expert stacks are
-# batched products that W adds by torch.bmm, as the JAX W slice does)
-LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mlp": 3, "moe": 4}
+NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mla": 1, "mlp": 1, "moe": 1}
+# deferred linears (W ops, one wgrad_accum launch each) of each kind: mla's
+# are its six products (wdq, wuq, wdkv, wuk, wuv, wo); moe's the router and
+# the three shared-expert weights (its expert stacks are batched products
+# that W adds by torch.bmm, as the JAX W slice does)
+LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mla": 6, "mlp": 3, "moe": 4}
 # ... of which fp32, on wgrad_accum's fma path: the moe router
 FMA_LINEARS_PER_KIND = {"moe": 1}
 # the other archs of phases 4, 8 and 17-21, and their reduced prompts in
 # phase 4 (gemma2's is 2W + 3 for its window W = 8: a rolled ring tail)
 GPT3, GEMMA2, MOE = "gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b"
-RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19, MOE: RED_PROMPT}
+DEEPSEEK = "deepseek_v3_671b"
+RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19, MOE: RED_PROMPT,
+               DEEPSEEK: RED_PROMPT}
 # gemma2 serving at full width: p stages, m groups of b, prompts past the
 # 4096 window and not a multiple of it, new greedy tokens
 GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
@@ -318,6 +357,7 @@ GPT3_STEPS = 4
 GPT3_HEAD_VOCABS = (50257, 50264, 50304)
 GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
 MOE_CHILD = "--moe-phases"  # ... and phases 20-21
+DEEPSEEK_CHILD = "--deepseek-phases"  # ... and phases 22-23
 GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
 
@@ -339,6 +379,15 @@ WGRAD_GPT3 = (("gpt3 wq,wk,wv,wo", 2304, 2304), ("gpt3 wu,wg", 2304, 9216),
 # MHA, (2048, 2048) for all four, as wq above
 WGRAD_MOE = (("qwen2-moe swu,swg", 2048, 5632), ("qwen2-moe swd", 5632, 2048))
 WGRAD_MOE_FP32 = (("qwen2-moe router", 2048, 60),)
+# ... and of deepseek-v3-671b's mla blocks (wdkv's 576 = 512 + 64 leaves a
+# ragged last 128-column tile; wuk and wuv share a shape), its shared
+# expert (2048 wide), bf16 on wgmma, and the training cut's router (16
+# experts), fp32 on fma
+WGRAD_DS = (("deepseek wdq", 7168, 1536), ("deepseek wuq", 1536, 24576),
+            ("deepseek wdkv", 7168, 576), ("deepseek wuk,wuv", 512, 16384),
+            ("deepseek wo", 16384, 7168), ("deepseek swu,swg", 7168, 2048),
+            ("deepseek swd", 2048, 7168))
+WGRAD_DS_FP32 = (("deepseek router", 7168, 16),)
 # its tolerance against the plain version: the kernel adds N = 1024 fp32
 # products in K order, each add rounding at half an ulp of a partial sum of
 # ~8 (sigma 2.7e-7), so an output's error has sigma ~ sqrt(1024) x 2.7e-7 =
@@ -346,7 +395,8 @@ WGRAD_MOE_FP32 = (("qwen2-moe router", 2048, 60),)
 # splits K for a 60-wide output and lands closer (H100, 700 W, against an
 # fp64 sum: kernel 4.6e-5, plain 8.9e-6).  The absolute tolerance is 1e-4,
 # 11 sigma; the relative one stays TOL's 1e-5; both are printed beside the
-# errors against an fp64 sum
+# errors against an fp64 sum.  deepseek's router (7168, 16) sums the same
+# N = 1024 products into 114,688 outputs: the same sigma and limit
 WGRAD_FP32_N1024_ATOL = 1e-4
 # qwen2-moe serving (phase 20) runs phase 5's shape.  Its decode-vs-prefill
 # gap, each routing its own tokens, is printed and not gated: the limit
@@ -368,6 +418,31 @@ MOE_CONSIST_REL_L2 = 6e-2
 # placement pads to 8 layer slots, 5.2 B parameters, ~73 GB)
 MT_LAYERS, MT_P, MT_STEPS = 4, 2, 3
 MT_SCHEDULES = ("zb-h1", "zb-v")
+MOE_TRAIN = dict(tag="train-qwen2-moe", p=MT_P, schedules=MT_SCHEDULES)
+# deepseek-v3-671b serving (phase 22): every matrix at its published shape
+# and the full vocabulary, the depth cut from 61 to 2 layers (24.9 B
+# parameters, ~50 GB in bf16; 3 layers would be ~73 GB before any
+# activation), p=2, one layer a stage; phase 5's groups, prompts and new
+# tokens.  Its pinned decode-vs-prefill limit, derived before any run of it
+# on the card: phase 6's reading puts the card's step at 0.0283 / sqrt(48)
+# = 4.1e-3 a sublayer (every run); the absorbed decode adds its own
+# rounding to each mla sublayer, which tools/serve_consistency.py measures
+# on the CPU, where the other sublayers add none (reduced qwen2-moe at 48
+# sublayers: 0.0 in both packages; reduced deepseek at 2 layers: 0.0103,
+# the mean of 3 seeds, JAX 0.0106): 0.0103 / sqrt(2) = 7.3e-3 a mla
+# sublayer.  Over 2 mla and 2 moe sublayers the walk is
+# sqrt(4 x 4.1e-3^2 + 2 x 7.3e-3^2) = 1.31e-2; twice that is the limit.
+DS_LAYERS, DS_P = 2, 2
+DS_CONSIST_REL_L2 = 2.6e-2
+# deepseek-v3-671b training (phase 23): one card cannot hold a published
+# layer's training state (11.5 B parameters a layer at ~23 bytes each), so
+# every mla and expert matrix keeps its shape and the cut takes 2 layers
+# at p=2 (linear placement: the V one would pad 2 layers into 4 slots),
+# 16 routed experts (top-8 and the shared expert kept) and a vocabulary of
+# 32768: 2.34 B parameters, priced at ~50-52 GiB by the planner's model
+# fidelity before its first run
+DT_LAYERS, DT_P, DT_EXPERTS, DT_VOCAB = 2, 2, 16, 32768
+DS_TRAIN = dict(tag="train-deepseek-v3", p=DT_P, schedules=("zb-h1", "zb-h2"))
 # later full-width losses across schedules: the embedding gradient is a
 # CUDA index_add_ (atomics, no fixed order), so it differs between runs by
 # fp32 rounding (~1e-7 relative); AdamW's first steps are nearly
@@ -585,6 +660,7 @@ def phase_kernels(cfg_full, cfg_red):
     d = cfg_full.d_model
     d2 = get_config(GPT3).d_model
     check(get_config(GEMMA2).d_model == d2, "gpt3-1.5b and gemma2-2b differ in width")
+    d3 = get_config(DEEPSEEK).d_model
     rmsnorm_sweep()
     shapes = [  # (label, N rows, H, x dtype, g dtype, the path the main path takes or None)
         ("prefill", B * PROMPT, d, bf16, bf16, "bulk"),
@@ -594,6 +670,8 @@ def phase_kernels(cfg_full, cfg_red):
         ("gpt3-train", T_B * T_SEQ, d2, bf16, bf16, "bulk"),
         ("gemma2-prefill", GS_B * GS_PROMPT, d2, bf16, bf16, "bulk"),
         ("gemma2-decode", GS_B, d2, bf16, bf16, "latency"),
+        ("deepseek-prefill", B * PROMPT, d3, bf16, bf16, "bulk"),
+        ("deepseek-decode", B, d3, bf16, bf16, "latency"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -813,8 +891,9 @@ def phase_kernels_wgrad(cfg_red):
     ragged N, fp32 (the reduced model's path) and ragged shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     n = T_B * T_SEQ
-    shapes = [(name, n, h, f, bf16) for name, h, f in WGRAD_MAIN + WGRAD_GPT3 + WGRAD_MOE] + [
-        (name, n, h, f, f32) for name, h, f in WGRAD_MOE_FP32] + [
+    shapes = [(name, n, h, f, bf16)
+              for name, h, f in WGRAD_MAIN + WGRAD_GPT3 + WGRAD_MOE + WGRAD_DS] + [
+        (name, n, h, f, f32) for name, h, f in WGRAD_MOE_FP32 + WGRAD_DS_FP32] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -828,7 +907,7 @@ def phase_kernels_wgrad(cfg_red):
         g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
-        if label.startswith(("gpt3", "qwen2-moe")):  # a main-path W op: bf16 on wgmma, fp32 on fma
+        if label.startswith(("gpt3", "qwen2-moe", "deepseek")):  # a main-path W op: bf16 on wgmma, fp32 on fma
             want_path = "wgmma" if dt == bf16 else "fma"
             check(path == want_path, f"the W op {label} takes the {path} path, not {want_path}")
         ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
@@ -839,7 +918,7 @@ def phase_kernels_wgrad(cfg_red):
         err = float((out - ref).abs().max())
         tol = atol = TOL[dt]
         exact = ""
-        if label in {name for name, _, _ in WGRAD_MOE_FP32}:
+        if label in {name for name, _, _ in WGRAD_MOE_FP32 + WGRAD_DS_FP32}:
             atol = WGRAD_FP32_N1024_ATOL
             ref64 = acc.double() + a.double().t() @ g.double()
             exact = (f"; against an fp64 sum: kernel {float((out - ref64).abs().max()):.3g}, "
@@ -2255,32 +2334,36 @@ def _pinned_routes(layer_of, experts, n_tok):
         layers._moe_route = real
 
 
-def phase_serve_moe(cfg):
-    """Phase 20: qwen2-moe-a2.7b served at full width and depth; returns both
-    kernels' launches of the timed run."""
+def phase_serve_moe(cfg, tag="serve-qwen2-moe", p=P, limit=MOE_CONSIST_REL_L2):
+    """Phase 20 (qwen2-moe-a2.7b at full width and depth) and phase 22
+    (deepseek-v3-671b at full width, 2 layers): a moe model served at
+    phase 5's shape on p stages; returns the RMSNorm launches of the timed
+    run, in all and by path."""
     lcfg = layer_cfg(cfg)
-    spec = RunSpec(p=P, n_chunks=1, microbatch=B, seq_len=PROMPT, m=M)
-    blocks, g = group_layout(cfg, P, 1)
-    check(g * P == cfg.n_layers and all(k == ("attn", "moe") for k in blocks),
+    spec = RunSpec(p=p, n_chunks=1, microbatch=B, seq_len=PROMPT, m=M)
+    blocks, g = group_layout(cfg, p, 1)
+    check(g * p == cfg.n_layers and all(k == cfg.block_pattern[0] for k in blocks),
           f"{cfg.name}: {g} blocks a stage of kinds {blocks}")
     t0 = time.perf_counter()
-    stacked, shared = init_params(cfg, spec, Placement.linear(P), seed=0, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    stacked, shared = init_params(cfg, spec, Placement.linear(p), seed=0, device=DEV)
     torch.cuda.synchronize()
     leaves = tree_leaves((stacked, shared))
     n_params = sum(t.numel() for t in leaves)
     routers = {str(t.dtype) for t in (blk[1]["router"] for blk in stacked[0]["blocks"])}
     check(routers == {"torch.float32"}, f"the routers are {routers}, not float32")
-    print(f"[serve-qwen2-moe] init {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_heads} heads, {lcfg['n_experts']} experts of {lcfg['moe_d_ff']} top-"
-          f"{lcfg['topk']} + {lcfg['n_shared_experts']} shared, vocab {cfg.vocab}, {cfg.dtype}, "
-          f"routers float32): {n_params / 1e9:.3f} B parameters, "
+    print(f"[{tag}] init {cfg.name} ({cfg.n_layers} layers of {'+'.join(cfg.block_pattern[0])}, "
+          f"d={cfg.d_model}, {cfg.n_heads} heads, {lcfg['n_experts']} experts of "
+          f"{lcfg['moe_d_ff']} top-{lcfg['topk']} + {lcfg['n_shared_experts']} shared, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, routers float32): {n_params / 1e9:.3f} B parameters, "
           f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB, on {DEV} in "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{time.perf_counter() - t0:.1f}s (peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     layer_of = {blk[1]["router"][st].data_ptr(): st * g + bi
-                for bi, blk in enumerate(stacked[0]["blocks"]) for st in range(P)}
+                for bi, blk in enumerate(stacked[0]["blocks"]) for st in range(p)}
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (M, B, PROMPT))
     with _routes() as log:  # the warm-up (cuBLAS, allocator), its routing logged
-        serve(cfg, stacked, shared, prompts, p=P, new_tokens=1)
+        serve(cfg, stacked, shared, prompts, p=p, new_tokens=1)
     pre = _routes_by_layer(log, layer_of, B * PROMPT)
     dec = _routes_by_layer(log, layer_of, B)
     caps = {c for calls in pre.values() for _, _, c in calls}
@@ -2291,7 +2374,7 @@ def phase_serve_moe(cfg):
                / sum(pos.numel() for _, pos, _ in calls) for layer, calls in sorted(pre.items())}
     check(all(cap == 4 and int((pos >= cap).sum()) == 0 for calls in dec.values()
               for _, pos, cap in calls), "decode dropped a selection or has a capacity but 4")
-    print(f"[serve-qwen2-moe] prefill of {B} x {PROMPT} tokens a group: capacity "
+    print(f"[{tag}] prefill of {B} x {PROMPT} tokens a group: capacity "
           f"{caps.pop()} slots an expert for {B * PROMPT * lcfg['topk']} selections over "
           f"{lcfg['n_experts']} experts; share dropped per layer "
           f"{[round(d, 4) for d in dropped.values()]} (mean {np.mean(list(dropped.values())):.4f},"
@@ -2301,17 +2384,17 @@ def phase_serve_moe(cfg):
 
     torch.cuda.reset_peak_memory_stats()
     res, launches, by_path = _serve_counted(
-        "serve-qwen2-moe", cfg, P, M, NEW,
-        lambda: serve(cfg, stacked, shared, prompts, p=P, new_tokens=NEW,
-                      log=lambda s: print(f"[serve-qwen2-moe] {s}")))
-    want = expected_norm_launches(cfg, P, M, 1 + NEW)
+        tag, cfg, p, M, NEW,
+        lambda: serve(cfg, stacked, shared, prompts, p=p, new_tokens=NEW,
+                      log=lambda s: print(f"[{tag}] {s}")))
+    want = expected_norm_launches(cfg, p, M, 1 + NEW)
     for lg in res.logits:
-        check(lg.shape == (M, B, cfg.vocab), f"qwen2-moe logits shape {tuple(lg.shape)}")
-        check(bool(torch.isfinite(lg.float()).all()), "qwen2-moe: non-finite logits")
+        check(lg.shape == (M, B, cfg.vocab), f"{cfg.name} logits shape {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg.float()).all()), f"{cfg.name}: non-finite logits")
     check(res.tokens.shape == (M, B, NEW + 1), f"tokens shape {tuple(res.tokens.shape)}")
     check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
     decode_ms = [x * 1e3 for x in res.decode_s]
-    print(f"[serve-qwen2-moe] p={P} m={M} b={B} prompt={PROMPT} new={NEW}: "
+    print(f"[{tag}] p={p} m={M} b={B} prompt={PROMPT} new={NEW}: "
           f"prefill_ms={res.prefill_s * 1e3:.1f} "
           f"decode_ms_per_step mean={np.mean(decode_ms):.2f} median={np.median(decode_ms):.2f} "
           f"min={min(decode_ms):.2f} max={max(decode_ms):.2f} "
@@ -2325,10 +2408,10 @@ def phase_serve_moe(cfg):
     cap = B * (PROMPT + 1)
     cfg_all = dataclasses.replace(cfg, extras=cfg.extras + (("capacity", cap),))
     with _routes() as log:
-        res = serve(cfg_all, stacked, shared, prompts, p=P, new_tokens=1)
+        res = serve(cfg_all, stacked, shared, prompts, p=p, new_tokens=1)
     longer = np.concatenate([prompts, res.tokens[..., :1].cpu().numpy()], axis=-1)
     with _routes() as log_ref:
-        ref = serve(cfg_all, stacked, shared, longer, p=P, new_tokens=0)
+        ref = serve(cfg_all, stacked, shared, longer, p=p, new_tokens=0)
     dec = _routes_by_layer(log, layer_of, B)
     pre = _routes_by_layer(log_ref, layer_of, B * (PROMPT + 1))
     check(all(int((pos >= c).sum()) == 0 for calls in (*dec.values(), *pre.values())
@@ -2341,7 +2424,7 @@ def phase_serve_moe(cfg):
     # the same decode with each moe layer's experts pinned to the prefill's
     # choice for that token: what is left is the bf16 walk of phase 6
     with _pinned_routes(layer_of, last, B) as used:
-        pinned = serve(cfg_all, stacked, shared, prompts, p=P, new_tokens=1)
+        pinned = serve(cfg_all, stacked, shared, prompts, p=p, new_tokens=1)
     check(used == [M] * cfg.n_layers, f"pinned decode calls per layer {used}")
     want = ref.logits[0].float()
     gaps = {}
@@ -2349,15 +2432,15 @@ def phase_serve_moe(cfg):
         got = got.float()
         gaps[what] = (float((got - want).norm() / want.norm()), float((got - want).abs().max()),
                       float((got.argmax(-1) == want.argmax(-1)).float().mean()))
-    print(f"[serve-qwen2-moe] decode@{PROMPT} vs prefill of {PROMPT + 1}, capacity {cap} (nothing "
+    print(f"[{tag}] decode@{PROMPT} vs prefill of {PROMPT + 1}, capacity {cap} (nothing "
           f"dropped): (layer, token) top-k sets that differ {differ} of "
           f"{cfg.n_layers * M * B}; each routing its own tokens: rel_l2={gaps['routed'][0]:.3g} "
           f"max_abs={gaps['routed'][1]:.3g} top1_agree={gaps['routed'][2]:.3f} (not gated: the "
           f"flips); the decode's experts pinned to the prefill's: rel_l2={gaps['pinned'][0]:.3g} "
-          f"(limit {MOE_CONSIST_REL_L2}) max_abs={gaps['pinned'][1]:.3g} (limit "
+          f"(limit {limit}) max_abs={gaps['pinned'][1]:.3g} (limit "
           f"{CONSIST_MAX_ABS}) top1_agree={gaps['pinned'][2]:.3f}; prefill of {PROMPT + 1}: "
           f"{ref.prefill_s * 1e3:.1f} ms")
-    check(gaps["pinned"][0] <= MOE_CONSIST_REL_L2 and gaps["pinned"][1] <= CONSIST_MAX_ABS,
+    check(gaps["pinned"][0] <= limit and gaps["pinned"][1] <= CONSIST_MAX_ABS,
           f"{cfg.name}: prefill->decode consistency with the experts pinned")
     del ref, pinned
     del stacked, shared, res, log
@@ -2365,22 +2448,27 @@ def phase_serve_moe(cfg):
     return launches, by_path
 
 
-def _moe_run(cfg, name, mode, seq, eager=None):
-    """One schedule of phase 21 under ``mode``: the seed-0 model (relaid onto
-    the V placement when it has two chunks), the AdamW state allocated, a
-    first walk whose gradient is kept on the host (in graph mode the
-    capture and its replay), then MT_STEPS driver steps from that state,
-    the clip off.  With ``eager`` (this schedule's eager run) the graph's
-    step-0 gradient, loss and later losses are held to it."""
-    sched = make_schedule(name, MT_P, T_M)
+def _moe_run(cfg, tr, name, mode, seq, eager=None):
+    """One schedule of phase 21 or 23 (``tr``: its tag, p and schedules)
+    under ``mode``: the seed-0 model (relaid onto the V placement when it
+    has two chunks), the AdamW state allocated, a first walk whose gradient
+    is kept on the host (in graph mode the capture and its replay), then
+    MT_STEPS driver steps from that state, the clip off; the memory window
+    is ``launch/calibrate.py::measure_run``'s (the cache emptied and the
+    peaks reset after init, read after the steps).  With ``eager`` (this
+    schedule's eager run) the graph's step-0 gradient, loss and later losses
+    are held to it."""
+    tag, p = tr["tag"], tr["p"]
+    sched = make_schedule(name, p, T_M)
     plan = compile_plan(sched)
-    per_step = expected_train_launches(cfg, MT_P, sched.n_chunks, T_M)
-    fma = expected_fma_launches(cfg, MT_P, sched.n_chunks, T_M)
+    per_step = expected_train_launches(cfg, p, sched.n_chunks, T_M)
+    fma = expected_fma_launches(cfg, p, sched.n_chunks, T_M)
     stacked, shared, spec, data = _init_full(cfg, sched, seq)
     step, _ = build_train_step(cfg, spec, plan, sched.placement, TrainStepConfig(
         adamw=adamw.AdamWConfig(grad_clip=None), executor_mode=mode))
     torch.cuda.synchronize()
     base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = init_state(stacked, shared)
     walks = _count_walks(step.grad_fn) if mode == "graph" else None
@@ -2395,39 +2483,40 @@ def _moe_run(cfg, name, mode, seq, eager=None):
     walk = _walk_peaks()
     _reset_counts()
     res = train(cfg, spec, step, stacked, shared, data, MT_STEPS,
-                log=lambda x: print(f"[train-qwen2-moe] {name} {mode}: {x}"), state=state)
+                log=lambda x: print(f"[{tag}] {name} {mode}: {x}"), state=state)
     launches = _read_counts()
-    if mode == "graph" and name == MT_SCHEDULES[0]:  # one more step, profiled, its moments
-        phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
-                            tag="profile-qwen2-moe", opts=(state["opt"], state["shared_opt"]))
-    del state
+    mem = _mem(walk)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    if mode == "graph" and name == tr["schedules"][0]:  # one more step, profiled, its moments
+        phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
+                            tag=tag.replace("train", "profile"),
+                            opts=(state["opt"], state["shared_opt"]))
+    del state
+    what = f"{cfg.name} {name}"
     if mode == "eager":
-        want = _check_counts(f"qwen2-moe {name} eager first walk", first, per_step, 1,
-                             fma_per_step=fma)
-        _check_counts(f"qwen2-moe {name} eager steps", launches, per_step, MT_STEPS,
-                      fma_per_step=fma)
+        want = _check_counts(f"{what} eager first walk", first, per_step, 1, fma_per_step=fma)
+        _check_counts(f"{what} eager steps", launches, per_step, MT_STEPS, fma_per_step=fma)
         counted = _add_counts(first, launches)
     else:
         check(step.grad_fn.captures == 1 and len(walks) == 2,
-              f"qwen2-moe {name}: {step.grad_fn.captures} captures and {len(walks)} walks")
-        for what, (c, _) in zip(("warm-up", "capture"), walks):
-            want = _check_counts(f"qwen2-moe {name} {what}", c, per_step, 1, fma_per_step=fma)
+              f"{what}: {step.grad_fn.captures} captures and {len(walks)} walks")
+        for when, (c, _) in zip(("warm-up", "capture"), walks):
+            want = _check_counts(f"{what} {when}", c, per_step, 1, fma_per_step=fma)
         check(launches == _zero_counts(),
-              f"qwen2-moe {name}: the replayed steps launched {launches} from Python")
+              f"{what}: the replayed steps launched {launches} from Python")
         counted = _add_counts(walks[0][0], walks[1][0])
-    check(res.losses[0] == loss0, f"qwen2-moe {name} {mode}: step-0 loss {res.losses[0]!r} != "
+    check(res.losses[0] == loss0, f"{what} {mode}: step-0 loss {res.losses[0]!r} != "
           f"its first walk's {loss0!r}")
-    check(all(np.isfinite(res.losses + res.grad_norms)), f"qwen2-moe {name}: non-finite metrics")
+    check(all(np.isfinite(res.losses + res.grad_norms)), f"{what}: non-finite metrics")
     gap = ""
     if eager is not None:
-        exact, embed_gap = _graph_vs_eager(f"qwen2-moe {name}", eager["keyed"], keyed)
-        check(loss0 == eager["loss0"], f"qwen2-moe {name}: graph step-0 loss {loss0!r} != eager "
+        exact, embed_gap = _graph_vs_eager(what, eager["keyed"], keyed)
+        check(loss0 == eager["loss0"], f"{what}: graph step-0 loss {loss0!r} != eager "
               f"{eager['loss0']!r}")
         later = max(abs(a - b) / abs(b) for a, b in zip(
             res.losses + res.grad_norms, eager["res"].losses + eager["res"].grad_norms))
-        check(later <= G_RTOL, f"qwen2-moe {name}: graph losses/grad norms differ from eager by "
+        check(later <= G_RTOL, f"{what}: graph losses/grad norms differ from eager by "
               f"{later}")
         gap = (f"; against the eager run: step-0 gradient {exact} of {exact + 1} leaves bit for "
                f"bit, embedding rel_l2 {embed_gap:.3g} (limit {G_RTOL}), step-0 loss equal, "
@@ -2435,7 +2524,7 @@ def _moe_run(cfg, name, mode, seq, eager=None):
     med = float(np.median(res.step_s[1:] if mode == "graph" else res.step_s))
     tokens = T_M * T_B * seq
     capture = (f"capture {step.grad_fn.capture_s[0]:.2f} s, " if mode == "graph" else "")
-    print(f"[train-qwen2-moe] {name} {mode} p={MT_P} m={T_M} b={T_B} seq={seq} "
+    print(f"[{tag}] {name} {mode} p={p} m={T_M} b={T_B} seq={seq} "
           f"({sched.n_chunks} chunk(s) a stage, {plan.n_ticks} ticks): {base_gb:.2f} GB after "
           f"init; {capture}first walk {first_s:.2f} s; ms_per_step median={med * 1e3:.1f} "
           f"all={[round(x * 1e3, 1) for x in res.step_s]} tokens_per_s={tokens / med:.0f}; peak GB "
@@ -2444,75 +2533,87 @@ def _moe_run(cfg, name, mode, seq, eager=None):
           f"{'the first walk and the steps' if mode == 'eager' else 'the warm-up and captured walks'}; "
           f"losses {res.losses} grad_norms {res.grad_norms}{gap}")
     out = dict(res=res, keyed=keyed, loss0=loss0, seq=seq, sched=sched, peak_gb=peak_gb,
-               reserved_gb=reserved_gb, mem=_mem(walk), launches=counted)
+               reserved_gb=reserved_gb, mem=mem, launches=counted)
     del step, stacked, shared
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _moe_schedule(cfg, name, mode, eager=None):
+def _moe_schedule(cfg, tr, name, mode, eager=None):
     """``_moe_run`` at seq T_SEQ, again at 512 when its allocated peak passes
     T_MEM_LIMIT_GB (PERF.md §2's rule), saying so."""
     seq = eager["seq"] if eager is not None else T_SEQ
-    run = _moe_run(cfg, name, mode, seq, eager)
+    run = _moe_run(cfg, tr, name, mode, seq, eager)
     if run["peak_gb"] > T_MEM_LIMIT_GB and seq == T_SEQ:
-        print(f"[train-qwen2-moe] {name} {mode}: peak {run['peak_gb']:.1f} GB > {T_MEM_LIMIT_GB} "
+        print(f"[{tr['tag']}] {name} {mode}: peak {run['peak_gb']:.1f} GB > {T_MEM_LIMIT_GB} "
               f"GB at seq {seq}; running it again at seq 512")
         del run
-        run = _moe_run(cfg, name, mode, 512)
+        run = _moe_run(cfg, tr, name, mode, 512)
     return run
 
 
-def phase_train_moe(cfg):
-    """Phase 21: qwen2-moe-a2.7b at full width, 4 layers, p=2, under zb-h1
-    and zb-v, eager then graph; returns {run: both kernels' launches}."""
-    t0 = time.perf_counter()
-    _pipeline_vs_plain(cfg, "train-qwen2-moe", p=MT_P)
-    print(f"[train-qwen2-moe] eager zb-h1 walk and plain autograd in "
-          f"{time.perf_counter() - t0:.1f}s")
+def phase_train_moe(cfg, tr=MOE_TRAIN):
+    """Phase 21 (qwen2-moe-a2.7b at full width, 4 layers, p=2, zb-h1 and
+    zb-v) and phase 23 (deepseek-v3-671b's cut, p=2, zb-h1 and zb-h2): both
+    schedules of ``tr`` eager then graph, and each run's reserved peak
+    gated against its priced one-card total as phase 13 gates the dense
+    runs; returns {run: both kernels' launches}.  The runs come first in
+    their process (the children run this phase before their serving one)
+    and in ``launch/calibrate.py``'s order, every schedule eager and then
+    every one under the graph, so each run's memory window follows what
+    it follows when the record is measured, as a launcher's fresh process
+    has nothing before its run: after a serving phase in the same process
+    deepseek's eager zb-h2 run reserved 0.48 GiB more (H100, 700 W)."""
+    tag, p, names = tr["tag"], tr["p"], tr["schedules"]
     runs = {}
-    for name in MT_SCHEDULES:
-        runs[(name, "eager")] = _moe_schedule(cfg, name, "eager")
-        runs[(name, "graph")] = _moe_schedule(cfg, name, "graph", runs[(name, "eager")])
-        runs[(name, "eager")].pop("keyed")
-        runs[(name, "graph")].pop("keyed")
+    for mode in ("eager", "graph"):
+        for name in names:
+            runs[(name, mode)] = _moe_schedule(cfg, tr, name, mode, runs.get((name, "eager")))
+    for r in runs.values():
+        r.pop("keyed")
     band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
-    eager = {n: runs[(n, "eager")] for n in MT_SCHEDULES}
+    eager = {n: runs[(n, "eager")] for n in names}
     first = {n: r["res"].losses[0] for n, r in eager.items()}
     for n, l0 in first.items():
-        check(band[0] < l0 < band[1], f"qwen2-moe {n}: step-0 loss {l0} outside {band}")
+        check(band[0] < l0 < band[1], f"{cfg.name} {n}: step-0 loss {l0} outside {band}")
     if len({r["seq"] for r in eager.values()}) == 1:
-        check(len(set(first.values())) == 1, f"qwen2-moe step-0 losses differ: {first}")
-        later = max(abs(a - b) / abs(b) for a, b in zip(eager["zb-v"]["res"].losses[1:],
-                                                        eager["zb-h1"]["res"].losses[1:]))
-        check(later <= T_LATER_LOSS_RTOL, f"qwen2-moe later losses differ by {later}")
-        print(f"[train-qwen2-moe] step-0 loss {first['zb-h1']} in band ({band[0]:.3f}, "
-              f"{band[1]:.3f}) and equal under zb-h1 and zb-v; later losses max rel diff "
-              f"{later:.3g} (limit {T_LATER_LOSS_RTOL})")
+        check(len(set(first.values())) == 1, f"{cfg.name} step-0 losses differ: {first}")
+        later = max(abs(a - b) / abs(b) for a, b in zip(eager[names[1]]["res"].losses[1:],
+                                                        eager[names[0]]["res"].losses[1:]))
+        check(later <= T_LATER_LOSS_RTOL, f"{cfg.name} later losses differ by {later}")
+        print(f"[{tag}] step-0 loss {first[names[0]]} in band ({band[0]:.3f}, {band[1]:.3f}) and "
+              f"equal under {' and '.join(names)}; later losses max rel diff {later:.3g} (limit "
+              f"{T_LATER_LOSS_RTOL})")
     else:
-        print(f"[train-qwen2-moe] step-0 losses {first} in band; the schedules ran at other seq "
-              f"lengths, so no cross-schedule check")
+        print(f"[{tag}] step-0 losses {first} in band; the schedules ran at other seq lengths, so "
+              f"no cross-schedule check")
+    for mode in ("eager", "graph"):
+        rec = cuda_temp_record(cfg.name, mode)
+        check(rec is not None, f"{cfg.name}: no calibration record under the {mode} executor")
+        print(f"[{tag}] {cfg.name} {mode}: priced with the calibration record measured at "
+              f"{rec.get('cut')} on {rec['card']}")
+    overs = []
     for seq in sorted({r["seq"] for r in runs.values()}):
-        kw = dict(p=MT_P, m=T_M, microbatch=T_B, seq_len=seq)
-        planners = {f"{mode} model": HBMPlanner(cfg, executor_mode=mode, **kw)
-                    for mode in ("eager", "graph")}
-        measured = HBMPlanner(cfg, executor_mode="eager", program_factory=stage_program_factory(
-            cfg, MT_P, T_M, T_B, seq, DEV), **kw)
+        kw = dict(p=p, m=T_M, microbatch=T_B, seq_len=seq)
+        model = HBMPlanner(cfg, **kw)
+        measured = HBMPlanner(cfg, program_factory=stage_program_factory(
+            cfg, p, T_M, T_B, seq, DEV), **kw)
         for (name, mode), r in runs.items():
             if r["seq"] != seq:
                 continue
-            model = planners[f"{mode} model"].one_card_bytes(r["sched"])
-            one = measured.one_card_bytes(r["sched"], mode)
-            print(f"[train-qwen2-moe] {name} {mode} at seq {seq}: max_memory_reserved "
-                  f"{_gib(r['mem']['reserved'])} GiB (allocated {_gib(r['mem']['allocated'])}; "
-                  f"{_gib(r['mem']['walk_reserved'])} and {_gib(r['mem']['walk_allocated'])} at "
-                  f"the first walk's end) beside HBMPlanner.one_card_bytes, measured fidelity "
-                  f"{one.report()} (priced - reserved {_gib(one.total - r['mem']['reserved'])} "
-                  f"GiB), model fidelity {_gib(model.total)} GiB; not gated")
+            overs.append(_gate(tag, f"{cfg.name} {mode} {name} at seq {seq}",
+                               measured.one_card_bytes(r["sched"], mode), r["mem"]))
+            print(f"[{tag}] {cfg.name} {mode} {name}: the model fidelity's total "
+                  f"{_gib(model.one_card_bytes(r['sched'], mode).total)} GiB")
         del measured
         torch.cuda.empty_cache()
-    return {f"train-qwen2-moe-{n}-{mode}": r["launches"] for (n, mode), r in runs.items()}
+    print(f"[{tag}] {cfg.name}: overshoot over {len(overs)} runs min {_gib(min(overs))} max "
+          f"{_gib(max(overs))} GiB")
+    t0 = time.perf_counter()
+    _pipeline_vs_plain(cfg, tag, p=p)
+    print(f"[{tag}] eager zb-h1 walk and plain autograd in {time.perf_counter() - t0:.1f}s")
+    return {f"{tag}-{n}-{mode}": r["launches"] for (n, mode), r in runs.items()}
 
 
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
@@ -2547,9 +2648,12 @@ def main() -> int:
     print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     more.update(run_child(MOE_CHILD, "moe_launches"))
     print(f"[time] qwen2-moe phases (child process) done at {time.perf_counter() - t_start:.1f}s")
+    more.update(run_child(DEEPSEEK_CHILD, "deepseek_launches"))
+    print(f"[time] deepseek-v3 phases (child process) done at "
+          f"{time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     wrows = phase_kernels_wgrad(cfg_red)
-    for arch in (ARCH, GPT3, GEMMA2, MOE):
+    for arch in (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK):
         phase_reduced(get_reduced(arch), RED_PROMPTS[arch])
     stacked, shared, prompts, res, serve_launches = phase_serve(cfg_full)
     phase_consistency(cfg_full, stacked, shared, prompts, res)
@@ -2558,7 +2662,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemma2_launches = phase_serve_gemma2(get_config(GEMMA2))
     print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f}s")
-    for arch in (ARCH, GPT3, GEMMA2, MOE):
+    for arch in (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK):
         phase_train_reduced(get_reduced(arch))
     runs = phase_train(cfg_full)
     phase_train_checks(cfg_full, runs)
@@ -2624,19 +2728,43 @@ def gpt3_child_main() -> int:
 
 
 def moe_child_main() -> int:
-    """Phases 20 and 21, alone in this process; the last line is a JSON
-    object with both kernels' launches of each run."""
+    """Phases 21 and 20, in that order (``phase_train_moe`` says why),
+    alone in this process; the last line is a JSON object with both
+    kernels' launches of each run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build()
     t0 = time.perf_counter()
     cfg = get_config(MOE)
+    counts = phase_train_moe(dataclasses.replace(cfg, n_layers=MT_LAYERS))
+    print(f"[time] qwen2-moe training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
     rms, rms_by_path = phase_serve_moe(cfg)
     print(f"[time] qwen2-moe serving phase done at {time.perf_counter() - t0:.1f}s (child)")
-    counts = {"serve-qwen2-moe": (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)}
-    counts.update(phase_train_moe(dataclasses.replace(cfg, n_layers=MT_LAYERS)))
-    print(f"[time] qwen2-moe training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    counts["serve-qwen2-moe"] = (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)
     print(json.dumps({"moe_launches": counts}))
+    return 0
+
+
+def deepseek_child_main() -> int:
+    """Phases 23 and 22, in that order (``phase_train_moe`` says why),
+    alone in this process; the last line is a JSON object with both
+    kernels' launches of each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    cfg = get_config(DEEPSEEK)
+    counts = phase_train_moe(cut_config(cfg, DT_LAYERS, DT_EXPERTS, DT_VOCAB), DS_TRAIN)
+    print(f"[time] deepseek-v3 training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rms, rms_by_path = phase_serve_moe(dataclasses.replace(cfg, n_layers=DS_LAYERS),
+                                       tag="serve-deepseek-v3", p=DS_P, limit=DS_CONSIST_REL_L2)
+    print(f"[time] deepseek-v3 serving phase done at {time.perf_counter() - t0:.1f}s (child)")
+    counts["serve-deepseek-v3"] = (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)
+    print(json.dumps({"deepseek_launches": counts}))
     return 0
 
 
@@ -2684,7 +2812,8 @@ def run_child(flag, key, eager_runs=None):
     graph runs reserve up to ~80 GB of the card's 85, and after the
     internlm2 phases in this process they came within 1.1 GB of it;
     ``MOE_CHILD`` runs phases 20-21 next, for the same reason (28.6 GB of
-    weights to serve, ~60 GiB to train).
+    weights to serve, ~60 GiB to train), and ``DEEPSEEK_CHILD`` phases
+    22-23 after it (50 GB of weights to serve, ~50-65 GiB to train).
     ``GRAPH_CHILD`` runs phase 16 and its gate against ``eager_runs``
     (phase 9's results, passed in a file), ``HELDOUT_CHILD`` the held-out
     runs: in this process, after phases 3-15, the graph runs reserved up to
@@ -2719,6 +2848,8 @@ if __name__ == "__main__":
         sys.exit(gpt3_child_main())
     if sys.argv[1:2] == [MOE_CHILD]:
         sys.exit(moe_child_main())
+    if sys.argv[1:2] == [DEEPSEEK_CHILD]:
+        sys.exit(deepseek_child_main())
     if sys.argv[1:2] == [GRAPH_CHILD]:
         sys.exit(graph_child_main(sys.argv[2]))
     if sys.argv[1:2] == [HELDOUT_CHILD]:

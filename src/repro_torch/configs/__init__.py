@@ -3,7 +3,7 @@
 Each module exposes ``CONFIG`` (the exact published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), as in
 ``src/repro/configs/``.  Input-shape cells are defined in ``shapes.py``.
-The port carries the dense family and the ``moe`` kind: of the JAX
+The port carries the dense family and the ``moe`` and ``mla`` kinds: of the JAX
 package's assigned architectures those in ``ARCH_IDS``, and the paper's
 models (``PAPER_IDS``).  The others raise ``NotImplementedError`` naming
 what they lack.
@@ -19,6 +19,7 @@ __all__ = ["ARCH_IDS", "PAPER_IDS", "UNPORTED_ARCHS", "get_config", "get_reduced
 
 # the JAX package's assigned architectures that the port carries, in its order
 ARCH_IDS = [
+    "deepseek_v3_671b",
     "qwen2_moe_a2_7b",
     "deepseek_67b",
     "minitron_8b",
@@ -31,7 +32,6 @@ PAPER_IDS = ["gpt3_1_5b", "gpt3_6_2b", "gpt3_14_6b", "gpt3_28_3b"]
 # the rest of the JAX package's assigned architectures: what each lacks here
 UNPORTED_ARCHS = {
     "whisper_tiny": "the encdec family (the encdec kind)",
-    "deepseek_v3_671b": "the moe family (the mla kind)",
     "llava_next_mistral_7b": "the vlm family (its patch-embedding front)",
     "xlstm_350m": "the ssm family (the slstm and mlstm kinds)",
     "recurrentgemma_9b": "the hybrid family (the rglru kind)",

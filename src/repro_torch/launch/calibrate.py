@@ -1,7 +1,8 @@
 """Calibrate the planner's CUDA remainder on the card.
 
   python -m repro_torch.launch.calibrate [--arch internlm2_1_8b gpt3_1_5b] \\
-      [--executor eager graph] [--out PATH]
+      [--executor eager graph] [--out PATH] \\
+      [--layers N] [--p P] [--schedules zb-h1 zb-v] [--experts E] [--vocab V]
 
 Counterpart of the ``--calibration-out`` path of the JAX package's
 ``launch/dryrun.py`` (``write_calibration_table``), but not a dry run: for
@@ -22,7 +23,16 @@ the optimizer added after it, as a share of its priced transient) and a
 reuse (what the transient held less than itself, as a share of the walk);
 the record keeps the largest remainder parts and overhang and the
 smallest reuse over the schedules, a ceiling.
-Records are
+
+A config too large for the card at the cell is measured at a cut:
+``--layers`` (the depth), ``--p`` (the stages on the card), ``--experts``
+(the routed experts of a moe config) and ``--vocab`` replace the config's
+and the cell's; ``--schedules`` trains only those of the launcher's.  Every
+other width and the cell's m, microbatch and seq_len stay.  A record
+measured at a cut stores it under ``cut`` (the layers, p and schedules it
+ran, and the experts and vocab when cut), and ``weights_bytes`` /
+``m_b_bytes`` are the cut's, so the planner scales the remainder from the
+cut to the run it prices.  Records are
 merged into the table (``configs/cuda_temp_calibration.json`` unless
 ``--out`` names another), keyed by arch name and executor mode, keeping
 every other record.  Without a CUDA card it raises: it never measures on
@@ -49,7 +59,7 @@ from .steps import TrainStepConfig, build_train_step
 from .train import SCHEDULES, init_state, make_schedule, side_from_batch, train
 
 __all__ = ["card_name", "measure_run", "calibration_record", "write_calibration_table", "calibrate",
-           "main"]
+           "cut_config", "main"]
 
 
 def card_name() -> str:
@@ -62,7 +72,7 @@ def card_name() -> str:
 
 def calibration_record(cfg, executor_mode: str, runs: Dict[str, Dict[str, float]], *, p: int,
                        m: int, microbatch: int, seq_len: int, weights_bytes: float, card: str,
-                       steps: int, seed: int) -> dict:
+                       steps: int, seed: int, cut: Optional[dict] = None) -> dict:
     """The table record of one arch and executor mode from its runs:
     ``runs[schedule]`` holds the run's ``reserved`` and ``allocated``
     peaks, the same at the end of its first walk (``walk_reserved``,
@@ -83,7 +93,8 @@ def calibration_record(cfg, executor_mode: str, runs: Dict[str, Dict[str, float]
     bytes it reused (``(transient - (reserved - walk_reserved)) / walk``,
     at least 0).  ``m_b_bytes`` (the cell's modeled M_B unit) and
     ``weights_bytes`` (its weights and moments on one card) are the scale
-    references of ``core/memory.py::default_cuda_temp_bytes``."""
+    references of ``core/memory.py::default_cuda_temp_bytes``.  ``cut``
+    (see :func:`cut_config`), when given, is stored as measured."""
     bm = ActivationByteModel.from_config(cfg, microbatch, seq_len, p, n_chunks=1)
     rem = {name: r["walk_reserved"] - r["priced"] for name, r in runs.items()}
     fixed = max(0.0, max(r["walk_reserved"] - r["walk_allocated"] for r in runs.values()))
@@ -93,6 +104,7 @@ def calibration_record(cfg, executor_mode: str, runs: Dict[str, Dict[str, float]
              for name, r in runs.items()}
     worst = max(rem, key=rem.get)
     return {
+        **({} if cut is None else {"cut": dict(cut)}),
         "arch_id": cfg.name,
         "cuda_temp_bytes": fixed + scaled,
         "cuda_temp_fixed_bytes": fixed,
@@ -158,30 +170,60 @@ def measure_run(cfg, step, stacked, shared, spec, data, steps: int):
 # one card, m microbatches of microbatch x seq_len tokens), its steps and seed
 CELL = dict(p=4, m=8, microbatch=1, seq_len=1024)
 STEPS, SEED = 3, 0
+DEVICE = "cuda"  # the card it measures on
 
 
-def calibrate(archs: Sequence[str], modes: Sequence[str], log=print) -> list:
-    """Train every schedule of each arch under each executor mode on the
-    card at :data:`CELL` and return one :func:`calibration_record` for
-    each pair."""
+def cut_config(cfg, layers: Optional[int] = None, experts: Optional[int] = None,
+               vocab: Optional[int] = None):
+    """``cfg`` at a cut: ``layers`` for its depth, ``experts`` routed experts
+    (a moe config; top-k and the shared experts stay), ``vocab``; None
+    keeps the config's."""
+    if experts is not None:
+        ex = dict(cfg.extras)
+        if "n_experts" not in ex:
+            raise ValueError(f"{cfg.name} has no routed experts to cut")
+        ex["n_experts"] = experts
+        cfg = dataclasses.replace(cfg, extras=tuple(ex.items()))
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, vocab=vocab or cfg.vocab)
+
+
+def calibrate(archs: Sequence[str], modes: Sequence[str], log=print, *,
+              layers: Optional[int] = None, p: Optional[int] = None,
+              schedules: Optional[Sequence[str]] = None, experts: Optional[int] = None,
+              vocab: Optional[int] = None) -> list:
+    """Train the launcher's schedules (``schedules``, default all) of each
+    arch under each executor mode on the card at :data:`CELL` (its ``p``
+    replaced by ``p``, the config cut by :func:`cut_config`) and return one
+    :func:`calibration_record` for each pair; a record of a cut stores
+    it."""
     if not torch.cuda.is_available():
         raise RuntimeError("launch/calibrate.py measures on a CUDA card and none is visible")
     for mode in modes:
         if mode not in EXECUTOR_MODES:
             raise ValueError(f"unknown executor mode {mode!r}")
-    device = torch.device("cuda")
+    names = list(schedules or SCHEDULES)
+    unknown = [n for n in names if n not in SCHEDULES]
+    if unknown:
+        raise ValueError(f"unknown schedules {unknown} (the launcher's: {sorted(SCHEDULES)})")
+    cell = dict(CELL, p=p or CELL["p"])
+    cutting = (layers, p, schedules, experts, vocab) != (None,) * 5
+    device = torch.device(DEVICE)
     card = card_name()
-    p, m, microbatch, seq_len = (CELL[k] for k in ("p", "m", "microbatch", "seq_len"))
+    p, m, microbatch, seq_len = (cell[k] for k in ("p", "m", "microbatch", "seq_len"))
     records = []
     for arch in archs:
-        cfg = get_config(arch)
-        planner = HBMPlanner(cfg, **CELL, program_factory=stage_program_factory(
+        cfg = cut_config(get_config(arch), layers, experts, vocab)
+        cut = None
+        if cutting:
+            cut = {"layers": cfg.n_layers, "p": p, "schedules": names}
+            cut.update({k: v for k, v in (("experts", experts), ("vocab", vocab)) if v is not None})
+        planner = HBMPlanner(cfg, **cell, program_factory=stage_program_factory(
             cfg, p, m, microbatch, seq_len, device, SEED))
-        for c in (1, 2):  # the slots, measured on the card once
-            planner.slot_bytes(c)
+        for c in sorted({make_schedule(n, p, m).n_chunks for n in names}):
+            planner.slot_bytes(c)  # the slots, measured on the card once
         for mode in modes:
             runs = {}
-            for name in SCHEDULES:
+            for name in names:
                 sched = make_schedule(name, p, m)
                 spec = RunSpec(p=p, n_chunks=sched.n_chunks, microbatch=microbatch,
                                seq_len=seq_len, m=m)
@@ -210,9 +252,9 @@ def calibrate(archs: Sequence[str], modes: Sequence[str], log=print) -> list:
                 del stacked, shared, step
                 torch.cuda.empty_cache()
             st = planner.state(1)
-            rec = calibration_record(cfg, mode, runs, **CELL,
+            rec = calibration_record(cfg, mode, runs, **cell,
                                      weights_bytes=st.params_card + st.optim_card, card=card,
-                                     steps=STEPS, seed=SEED)
+                                     steps=STEPS, seed=SEED, cut=cut)
             log(f"[calibrate] {cfg.name} {mode}: remainder {rec['cuda_temp_bytes'] / 2**30:.3f} "
                 f"GiB (one card: allocator {rec['cuda_temp_fixed_bytes'] / 2**30:.3f} + unpriced "
                 f"live {rec['cuda_temp_scaled_bytes'] / 2**30:.3f}), optimizer overhang "
@@ -228,8 +270,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                     choices=list(EXECUTOR_MODES))
     ap.add_argument("--out", default=None,
                     help=f"the table to merge the records into (default {CUDA_TEMP_TABLE})")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
+    ap.add_argument("--p", type=int, default=None, help=f"stages on the card (default {CELL['p']})")
+    ap.add_argument("--schedules", nargs="+", default=None, choices=sorted(SCHEDULES),
+                    help="train only these schedules (default: all of the launcher's)")
+    ap.add_argument("--experts", type=int, default=None, help="cut the routed experts to this many")
+    ap.add_argument("--vocab", type=int, default=None, help="cut the vocabulary to this size")
     args = ap.parse_args(argv)
-    records = calibrate(args.arch, args.executor)
+    records = calibrate(args.arch, args.executor, layers=args.layers, p=args.p,
+                        schedules=args.schedules, experts=args.experts, vocab=args.vocab)
     write_calibration_table(records, args.out)
     print(f"[calibrate] wrote {len(records)} record(s) to {args.out or CUDA_TEMP_TABLE}")
     return records

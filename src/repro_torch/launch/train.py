@@ -108,10 +108,19 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
         print(f"per-device HBM breakdown (slots measured on the run's device, temp of the "
               f"{tcfg.executor_mode} executor):")
         print(report.chosen.breakdown.report())
-        if cuda_temp_record(cfg.name, tcfg.executor_mode) is None:
+        rec = cuda_temp_record(cfg.name, tcfg.executor_mode)
+        if rec is None:
             print(f"temp remainder 0: no calibration record for {cfg.name} under the "
                   f"{tcfg.executor_mode} executor in {CUDA_TEMP_TABLE.name} (accumulators and "
                   f"optimizer transient priced; run launch/calibrate.py on the card)")
+        else:
+            cut = rec.get("cut")
+            at = (f"{cut['layers']} layers at p={cut['p']}, {' '.join(cut['schedules'])}"
+                  + "".join(f", {k} {cut[k]}" for k in ("experts", "vocab") if k in cut)
+                  if cut else f"the full depth at p={rec['p']}, every schedule")
+            print(f"temp remainder from the calibration record of {cfg.name} under the "
+                  f"{tcfg.executor_mode} executor, measured at {at} ({rec.get('card')}), "
+                  f"scaled to this run")
         one_card = report.planner.one_card_bytes(sched)
         print(f"priced on one card holding all {pipe_size} stages: {one_card.report()}")
         if torch.device(device).type == "cuda":

@@ -1,10 +1,11 @@
 """Model assembly of the port: configs, group layout, parameters, the
 split chunk modules, the embedding source and the loss sink.
 
-Counterpart of ``src/repro/models/lm.py`` (the dense and moe families).  Blocks are assigned to (stage, chunk) groups of uniform size; when
-``n_layers`` does not divide evenly, groups are padded with blocks whose
-``mask`` leaf is 0, which leave the activation unchanged.  Parameters keep
-the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
+Counterpart of ``src/repro/models/lm.py`` (the dense and moe families, the
+latter with the ``moe`` and ``mla`` kinds).  Blocks are assigned to (stage,
+chunk) groups of uniform size; when ``n_layers`` does not divide evenly,
+groups are padded with blocks whose ``mask`` leaf is 0, which leave the
+activation unchanged.  Parameters keep the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
 ...)}`` with every leaf stage-stacked on a leading ``(p,)`` axis, and shared
 ``{"embed": (V, d), "head": (d, V), "final_ln": (d,)}``.  Random weights are
 drawn from an explicit ``torch.Generator`` with the JAX package's
@@ -23,6 +24,8 @@ import torch
 
 from ..core.executor import PipelineProgram
 from ..core.passes import FBWModule, SequentialFBW, autograd_fbw, linear
+from ..tree import tree_map
+from . import modules
 from .modules import ShardCtx, apply_block, init_layer, pad_to_multiple, rmsnorm, vocab_parallel_ce
 
 __all__ = [
@@ -235,14 +238,28 @@ def init_shared(cfg: ArchConfig, gen: torch.Generator, ctx: ShardCtx):
     }
 
 
-def _stack(trees):
-    """Stack identically structured trees of tensors along a new axis 0."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _stack([t[k] for t in trees]) for k in t0}
-    if isinstance(t0, tuple):
-        return tuple(_stack(list(xs)) for xs in zip(*trees))
-    return torch.stack(trees)
+def _init_stacked_chunk(cfg: ArchConfig, gen: torch.Generator, chunk: int, p: int,
+                        n_chunks: int, ctx: ShardCtx, masks: np.ndarray):
+    """Chunk ``chunk``'s parameters for all p stages, stage-stacked: each
+    leaf is allocated once at ``(p, ...)`` and filled stage by stage, in
+    :func:`init_chunk_params`'s draw order, so the weights are its bits
+    and the card never holds a stage's tree beside the stack (a
+    full-width deepseek_v3_671b layer is 23 GB in bf16)."""
+    shapes = []
+    with modules.leaves_into(lambda shape, dtype: shapes.append(
+            torch.empty(shape, dtype=dtype, device="meta")) or shapes[-1]):
+        meta = init_chunk_params(cfg, gen, 0, chunk, p, n_chunks, ctx, masks)["blocks"]
+    stack = [torch.empty((p, *t.shape), dtype=t.dtype, device=gen.device) for t in shapes]
+    for s in range(p):
+        views = iter([t[s] for t in stack])
+        with modules.leaves_into(lambda shape, dtype: next(views)):
+            init_chunk_params(cfg, gen, s, chunk, p, n_chunks, ctx, masks)
+    index = {id(t): i for i, t in enumerate(shapes)}
+    return {
+        "mask": torch.as_tensor(np.ascontiguousarray(masks[:, chunk]), dtype=torch.float32,
+                                device=gen.device),
+        "blocks": tree_map(lambda t: stack[index[id(t)]], meta),
+    }
 
 
 def init_params(cfg: ArchConfig, spec: RunSpec, placement, *, seed: int = 0, device):
@@ -256,13 +273,8 @@ def init_params(cfg: ArchConfig, spec: RunSpec, placement, *, seed: int = 0, dev
     gen.manual_seed(seed)
     ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
     masks = group_masks(cfg, spec.p, spec.n_chunks, placement)
-    stacked = tuple(
-        _stack([
-            init_chunk_params(cfg, gen, s, c, spec.p, spec.n_chunks, ctx, masks)
-            for s in range(spec.p)
-        ])
-        for c in range(spec.n_chunks)
-    )
+    stacked = tuple(_init_stacked_chunk(cfg, gen, c, spec.p, spec.n_chunks, ctx, masks)
+                    for c in range(spec.n_chunks))
     shared = init_shared(cfg, gen, ctx)
     return stacked, shared
 

@@ -1,24 +1,30 @@
 """Layer library of the port: the dense GQA kinds ``attn``, ``attn_local`` and
-``mlp``, and the ``moe`` kind (shared + routed top-k experts), at tp=1.
+``mlp``, DeepSeek-V3's latent attention ``mla``, and the ``moe`` kind
+(shared + routed top-k experts), at tp=1.
 
 Counterpart of ``src/repro/models/modules.py``: the same functions, names,
 parameter layouts (linear weights ``(in, out)``, applied as ``x @ w``) and
 numerics, written as plain PyTorch on tensors.  Every RMSNorm goes through
 ``kernels.ops.rmsnorm`` (the CUDA kernel on the card; differentiable).  The
-seven weight products of a block go through ``core.passes.linear``: plain
+weight products of a block go through ``core.passes.linear``: plain
 ``x @ w`` when serving, the deferred linear of the B/W split when a training
 block collects its W-context.  Attention stays plain tensor code, as the JAX
 package leaves it to XLA: einsum products, the ``-1e30`` mask, softmax in
 fp32; ``attn_local`` adds the sliding window (a key is seen by the queries
-less than ``window`` positions after it).  ``moe`` routes each token to its
-top-k experts with a per-expert capacity; the router product goes through
-``linear`` (fp32), the expert products through ``core.passes.expert_linear``
-and the shared experts through ``linear``.  Every other layer kind raises
+less than ``window`` positions after it).  ``mla`` projects q through a
+low-rank latent and k/v from one shared latent ``c`` plus a single rope key
+broadcast to every head (qk width ``head_dim + qk_rope_head_dim``, v width
+``head_dim``); its six products all go through ``linear``.  ``moe`` routes
+each token to its top-k experts with a per-expert capacity; the router
+product goes through ``linear`` (fp32), the expert products through
+``core.passes.expert_linear`` and the shared experts through ``linear``.  Every other layer kind raises
 ``NotImplementedError`` naming the kind.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
@@ -41,11 +47,12 @@ __all__ = [
     "rope",
     "attention",
     "pad_to_multiple",
+    "leaves_into",
 ]
 
 # kinds of the JAX layer library that this port does not carry yet
-UNPORTED_KINDS = ("mla", "slstm", "mlstm", "rglru", "encdec")
-PORTED_KINDS = ("attn", "attn_local", "mlp", "moe")
+UNPORTED_KINDS = ("slstm", "mlstm", "rglru", "encdec")
+PORTED_KINDS = ("attn", "attn_local", "mla", "mlp", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +96,59 @@ def _window(kind: str, cfg) -> Optional[int]:
 # --------------------------------------------------------------------- #
 # primitives
 # --------------------------------------------------------------------- #
+# where an initialiser's leaves live: None allocates each afresh on the
+# generator's device; a callable ``alloc(shape, dtype)`` hands out the
+# tensor to fill instead (``models/lm.py`` fills stage-stacked leaves in
+# place; a "meta" tensor is left unfilled and draws nothing)
+_LEAF_ALLOC: contextvars.ContextVar[Optional[Callable]] = contextvars.ContextVar(
+    "repro_torch_leaf_alloc", default=None)
+# a leaf of more elements is drawn in slices of this many (1 GiB of fp32):
+# the fp32 draw of a whole (256, 7168, 2048) expert stack would take 15 GB.
+# No config ported before deepseek_v3_671b has a block leaf this large
+# (deepseek_67b's widest is 180 M), so their weights keep the bits of one
+# whole draw
+DRAW_SLICE = 1 << 28
+
+
+@contextlib.contextmanager
+def leaves_into(alloc: Callable):
+    """While active, every leaf the initialisers make is ``alloc(shape,
+    dtype)``, in draw order, filled in place."""
+    token = _LEAF_ALLOC.set(alloc)
+    try:
+        yield
+    finally:
+        _LEAF_ALLOC.reset(token)
+
+
+def _leaf(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    alloc = _LEAF_ALLOC.get()
+    if alloc is None:
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    out = alloc(tuple(shape), dtype)
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype:
+        raise ValueError(f"leaf allocator gave {tuple(out.shape)} {out.dtype} for {shape} {dtype}")
+    return out
+
+
+def _zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    out = _leaf(gen, shape, dtype)
+    return out if out.is_meta else out.zero_()
+
+
 def _normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
-    out = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (out * scale).to(dtype)
+    """``N(0, 1) * scale`` drawn in fp32, cast to ``dtype``; a leaf of more
+    than :data:`DRAW_SLICE` elements is drawn slice by slice."""
+    out = _leaf(gen, shape, dtype)
+    if out.is_meta:
+        return out
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), DRAW_SLICE):
+        k = min(DRAW_SLICE, flat.numel() - i)
+        draw = torch.randn(shape if k == flat.numel() else (k,), generator=gen,
+                           device=gen.device, dtype=torch.float32)
+        flat[i:i + k].copy_((draw * scale).reshape(-1))
+    return out
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -179,7 +236,7 @@ def init_attn(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
     sc = 1.0 / math.sqrt(h)
     so = sc / math.sqrt(2 * cfg["n_layers"])
     return {
-        "ln": torch.zeros((h,), dtype=dtype, device=gen.device),
+        "ln": _zeros(gen, (h,), dtype),
         "wq": _normal(gen, (h, hq * dh), sc, dtype),
         "wk": _normal(gen, (h, hk * dh), sc, dtype),
         "wv": _normal(gen, (h, hk * dh), sc, dtype),
@@ -212,7 +269,7 @@ def init_mlp(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
     h, f = cfg["d_model"], cfg["d_ff"]
     sc = 1.0 / math.sqrt(h)
     return {
-        "ln": torch.zeros((h,), dtype=dtype, device=gen.device),
+        "ln": _zeros(gen, (h,), dtype),
         "wu": _normal(gen, (h, f), sc, dtype),
         "wg": _normal(gen, (h, f), sc, dtype),
         "wd": _normal(gen, (f, h), sc / math.sqrt(2 * cfg["n_layers"]), dtype),
@@ -224,6 +281,60 @@ def apply_mlp(p, x, cfg, ctx: ShardCtx):
     up = linear(xin, p["wu"])
     gate = torch.nn.functional.silu(linear(xin, p["wg"]))
     return x + linear(up * gate, p["wd"])
+
+
+# --------------------------------------------------------------------- #
+# MLA (DeepSeek-V3): latent-compressed attention
+# --------------------------------------------------------------------- #
+def _mla_dims(cfg) -> Tuple[int, int, int, int]:
+    """(head_dim, q_lora_rank, kv_lora_rank, qk_rope_head_dim), with the
+    JAX package's defaults."""
+    return (_head_dim(cfg), cfg.get("q_lora_rank") or 1536, cfg.get("kv_lora_rank") or 512,
+            cfg.get("qk_rope_head_dim") or 64)
+
+
+def init_mla(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    h, hq = cfg["d_model"], cfg["n_heads"]
+    dh, d_q, d_kv, d_rope = _mla_dims(cfg)
+    sc = 1.0 / math.sqrt(h)
+    return {
+        "ln": _zeros(gen, (h,), dtype),
+        "wdq": _normal(gen, (h, d_q), sc, dtype),
+        "wuq": _normal(gen, (d_q, hq * (dh + d_rope)), 1 / math.sqrt(d_q), dtype),
+        "wdkv": _normal(gen, (h, d_kv + d_rope), sc, dtype),
+        "wuk": _normal(gen, (d_kv, hq * dh), 1 / math.sqrt(d_kv), dtype),
+        "wuv": _normal(gen, (d_kv, hq * dh), 1 / math.sqrt(d_kv), dtype),
+        "wo": _normal(gen, (hq * dh, h), sc / math.sqrt(2 * cfg["n_layers"]), dtype),
+    }
+
+
+def mla_forward(p, x, positions, cfg, ctx: ShardCtx):
+    """``apply_mla`` that also returns what the serve cache keeps: the
+    latent c (b, s, kv_lora_rank) and the roped shared key (b, s,
+    qk_rope_head_dim).  q is (head_dim + rope) wide per head, v head_dim
+    wide, so the scale is 1/sqrt(head_dim + rope), as the JAX attention
+    takes it from q's width."""
+    b, s, _ = x.shape
+    hq = cfg["n_heads"]
+    dh, _, d_kv, d_rope = _mla_dims(cfg)
+    xin = rmsnorm(p["ln"], x)
+    q_all = linear(linear(xin, p["wdq"]), p["wuq"]).reshape(b, s, hq, dh + d_rope)
+    q_nope, q_rope = q_all[..., :dh], q_all[..., dh:]
+    ckv = linear(xin, p["wdkv"])
+    c, k_rope = ckv[..., :d_kv], ckv[..., d_kv:]
+    k_nope = linear(c, p["wuk"]).reshape(b, s, hq, dh)
+    v = linear(c, p["wuv"]).reshape(b, s, hq, dh)
+    q_rope = rope(q_rope, positions)
+    k_rope = rope(k_rope[:, :, None, :], positions)  # one key, shared by the heads
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, hq, d_rope)], dim=-1)
+    o = attention(q, k, v)
+    o = linear(o.reshape(b, s, hq * dh), p["wo"])
+    return x + o, c, k_rope[:, :, 0]
+
+
+def apply_mla(p, x, positions, cfg, ctx: ShardCtx):
+    return mla_forward(p, x, positions, cfg, ctx)[0]
 
 
 # --------------------------------------------------------------------- #
@@ -241,7 +352,7 @@ def init_moe(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
     sc = 1.0 / math.sqrt(h)
     so = sc / math.sqrt(2 * cfg["n_layers"])
     params = {
-        "ln": torch.zeros((h,), dtype=dtype, device=gen.device),
+        "ln": _zeros(gen, (h,), dtype),
         "router": _normal(gen, (h, cfg["n_experts"]), sc, torch.float32),
         "wu": _normal(gen, (e_p, h, f), sc, dtype),
         "wg": _normal(gen, (e_p, h, f), sc, dtype),
@@ -426,6 +537,7 @@ LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
         ),
     ),
     "mlp": (init_mlp, lambda p, x, pos, cfg, ctx: apply_mlp(p, x, cfg, ctx)),
+    "mla": (init_mla, apply_mla),
     "moe": (init_moe, lambda p, x, pos, cfg, ctx: apply_moe(p, x, cfg, ctx)),
 }
 

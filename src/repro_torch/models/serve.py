@@ -1,5 +1,5 @@
 """Serving path of the port: prefill (cache build) and decode (one token)
-for the kinds ``attn``, ``attn_local``, ``mlp`` and ``moe``.
+for the kinds ``attn``, ``attn_local``, ``mla``, ``mlp`` and ``moe``.
 
 Counterpart of ``src/repro/models/serve.py``.  Where the JAX version is
 pure and returns updated caches, the port writes each group's cache slice in
@@ -9,7 +9,12 @@ assignments below write through those views.  ``attn_local`` keeps a ring
 of ``min(S, window)`` slots: position P lives in slot ``P % Sc``, after a
 prefill as after a decode step (the JAX prefill of a prompt longer than the
 ring stores its tail from slot 0 instead, which its decode then misreads
-unless the prompt length is a multiple of the ring).  ``mlp`` and ``moe``
+unless the prompt length is a multiple of the ring).  ``mla`` caches the
+latent ``c`` and the roped shared key ``kr``, ``kv_lora_rank +
+qk_rope_head_dim`` numbers a token, and decodes in the absorbed form, as
+the JAX ``decode_block`` does: the query is taken into the latent space
+through ``wuk`` and the context out of it through ``wuv``, so no per-head
+key or value is ever built from the cache.  ``mlp`` and ``moe``
 keep no cache; ``moe`` routes the step's tokens alone, so a decode step's
 capacity is that of its b tokens (at least 4 slots an expert) and drops
 nothing that a prefill of the same tokens might drop.  Every other kind
@@ -34,7 +39,9 @@ from .modules import (
     _window,
     apply_mlp,
     apply_moe,
+    _mla_dims,
     attn_forward,
+    mla_forward,
     pad_to_multiple,
     rmsnorm,
     rope,
@@ -55,8 +62,16 @@ __all__ = [
 def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
                device, lead=()) -> Dict[str, torch.Tensor]:
     """Zero cache of one layer, shaped ``lead + (b, Sc, hk, dh)`` for attn
-    (Sc = S) and attn_local (Sc = min(S, window))."""
+    (Sc = S) and attn_local (Sc = min(S, window)); mla keeps ``c`` ``lead +
+    (b, S, kv_lora_rank)`` and ``kr`` ``lead + (b, S, qk_rope_head_dim)``."""
     _check_kind(kind)
+    if kind == "mla":
+        _, _, d_kv, d_rope = _mla_dims(cfg)
+        lead = tuple(lead) + (b, S)
+        return {
+            "c": torch.zeros(lead + (d_kv,), dtype=dtype, device=device),
+            "kr": torch.zeros(lead + (d_rope,), dtype=dtype, device=device),
+        }
     if kind in ("attn", "attn_local"):
         window = _window(kind, cfg)
         sc = min(S, window) if window else S
@@ -100,6 +115,8 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
         return apply_mlp(p, x, cfg, ctx), cache
     if kind == "moe":
         return apply_moe(p, x, cfg, ctx), cache
+    if kind == "mla":
+        return _decode_mla(p, x, cache, pos, cfg), cache
     b = x.shape[0]
     hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
     dh = _head_dim(cfg)
@@ -118,25 +135,62 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
     return x + o, cache
 
 
+def _decode_mla(p, x, cache, pos: int, cfg):
+    """The absorbed MLA decode, in the JAX ``decode_block``'s order of
+    products (prefill and decode round differently in bf16, and the
+    consistency gates compare the same difference in both packages):
+    ``q_lat = q_nope . wuk`` as (kv_lora_rank, hq, dh), scores ``q_lat . c
+    + q_rope . kr`` summed in x's dtype, a latent context ``probs . c``,
+    then ``. wuv`` and ``@ wo``.  Writes c and kr in place at ``pos``."""
+    b = x.shape[0]
+    hq = cfg["n_heads"]
+    dh, _, d_kv, d_rope = _mla_dims(cfg)
+    posv = torch.full((1,), pos, device=x.device)
+    xin = rmsnorm(p["ln"], x)
+    q_all = ((xin @ p["wdq"]) @ p["wuq"]).reshape(b, 1, hq, dh + d_rope)
+    q_nope, q_rope = q_all[..., :dh], rope(q_all[..., dh:], posv)
+    ckv = xin @ p["wdkv"]
+    cache["c"][:, pos : pos + 1] = ckv[..., :d_kv]  # dynamic_update_slice, in place
+    cache["kr"][:, pos : pos + 1] = rope(ckv[..., None, d_kv:], posv)[:, :, 0]
+    cc, krc = cache["c"], cache["kr"]
+    q_lat = torch.einsum("bqhd,khd->bqhk", q_nope, p["wuk"].reshape(d_kv, hq, dh))
+    s_lat = torch.einsum("bqhk,bsk->bhqs", q_lat, cc)
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope, krc)
+    logits = (s_lat + s_rope).float() / math.sqrt(dh + d_rope)
+    kpos = torch.arange(cc.shape[1], device=x.device)
+    logits = torch.where(kpos[None, None, None, :] <= pos, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhqs,bsk->bqhk", probs, cc)
+    o = torch.einsum("bqhk,khd->bqhd", ctx_lat, p["wuv"].reshape(d_kv, hq, dh))
+    return x + o.reshape(b, 1, hq * dh) @ p["wo"]
+
+
 # --------------------------------------------------------------------- #
 # prefill: full sequence through one block, emitting the cache
 # --------------------------------------------------------------------- #
 def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
     """x: (b, s, h) -> (y, cache); writes k/v of positions [0, s) in place,
     position P to slot P (an attn_local ring shorter than s keeps the last
-    Sc positions, P in slot ``P % Sc``).
+    Sc positions, P in slot ``P % Sc``); mla writes c and the roped kr of
+    positions [0, s).
 
     The JAX version runs the train forward and then recomputes rmsnorm and
-    the k/v projections for the cache (``src/repro/models/serve.py``
-    ``prefill_block``); the port keeps the k/v of the one forward.  The
-    numbers are the same, and each attention block launches one RMSNorm
-    kernel in prefill instead of two.
+    the k/v projections (for mla: ``xin @ wdkv`` and the rope) for the cache
+    (``src/repro/models/serve.py`` ``prefill_block``); the port keeps what
+    the one forward computed.  The numbers are the same, and each attention
+    block launches one RMSNorm kernel in prefill instead of two.
     """
     _check_kind(kind)
     if kind == "mlp":
         return apply_mlp(p, x, cfg, ctx), cache
     if kind == "moe":
         return apply_moe(p, x, cfg, ctx), cache
+    if kind == "mla":
+        s = x.shape[1]
+        y, c, kr = mla_forward(p, x, positions, cfg, ctx)
+        cache["c"][:, :s] = c
+        cache["kr"][:, :s] = kr
+        return y, cache
     s = x.shape[1]
     window = _window(kind, cfg)
     y, k, v = attn_forward(p, x, positions, cfg, ctx, window=window)

@@ -1,14 +1,14 @@
 """The port's registry (``repro_torch.configs``: the dense family and the moe
-``qwen2_moe_a2_7b``) against the JAX package's.
+``qwen2_moe_a2_7b`` and ``deepseek_v3_671b``) against the JAX package's.
 
 * Every ported arch (``ARCH_IDS`` + ``PAPER_IDS``): ``CONFIG`` and
   ``reduced()`` equal the JAX package's field for field.
 * ``shapes.cells_for`` and ``all_cells`` give the JAX package's cells and
   skip reasons over the ported archs.
 * Every JAX arch outside the dense family either raises
-  ``NotImplementedError`` naming the arch and the family it lacks
-  (``deepseek_v3_671b`` the ``mla`` kind alone), or, once ported
-  (``qwen2_moe_a2_7b``), loads.
+  ``NotImplementedError`` naming the arch and the family it lacks, or,
+  once ported (``qwen2_moe_a2_7b``; ``deepseek_v3_671b`` with the ``mla``
+  kind), loads.
 * ``fixed_state_bytes`` and ``ActivationByteModel.from_config`` equal the
   JAX package's exactly on the reduced and full-width gpt3_1_5b,
   gemma2_2b (period-2 pattern, padded groups) and qwen2_moe_a2_7b (3-D
@@ -50,11 +50,11 @@ from repro_torch.tree import keyed_leaves  # noqa: E402
 PORTED = configs.ARCH_IDS + configs.PAPER_IDS
 DENSE = ["gpt3_1_5b", "gpt3_6_2b", "gpt3_14_6b", "gpt3_28_3b", "deepseek_67b", "minitron_8b",
          "gemma2_2b", "internlm2_1_8b"]
-MOE = ["qwen2_moe_a2_7b"]
+MOE = ["deepseek_v3_671b", "qwen2_moe_a2_7b"]
 # the JAX archs outside the dense family, ported since or not
 UNPORTED = [a for a in jconfigs.ARCH_IDS if a not in DENSE]
 FAMILIES = ("moe", "mla", "encdec", "vlm", "ssm", "hybrid")
-NEW = ["gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b"]
+NEW = ["gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b", "deepseek_v3_671b"]
 
 
 def test_the_port_carries_the_dense_family():
@@ -97,9 +97,10 @@ def test_unported_arch_raises_naming_what_it_lacks(arch):
     if arch in configs.ARCH_IDS:  # ported since: it loads, and nothing names it
         assert arch in MOE and configs.get_config(arch).family == family
         assert arch not in configs.UNPORTED_ARCHS
+        if arch == "deepseek_v3_671b":  # with its mla kind
+            assert "mla" in configs.get_config(arch).block_pattern[0]
+            assert "mla" in tmod.PORTED_KINDS
         return
-    if arch == "deepseek_v3_671b":  # its moe kind is ported, its mla kind is not
-        assert configs.UNPORTED_ARCHS[arch] == "the moe family (the mla kind)"
     for get in (configs.get_config, configs.get_reduced):
         with pytest.raises(NotImplementedError, match=arch) as err:
             get(arch)
@@ -180,6 +181,9 @@ def test_params_carry_over_leaf_for_leaf(arch, n_chunks):
     blocks = stacked_t[0]["blocks"]
     if arch == "gemma2_2b":  # the group holds whole periods of the pattern
         assert len(blocks) % 2 == 0
+    if arch == "deepseek_v3_671b":  # mla: one latent feeds k and v
+        assert blocks[0][0]["wuk"].shape == blocks[0][0]["wuv"].shape
+        return
     attn = blocks[0][0]
     assert attn["wk"].shape == attn["wv"].shape
     if arch == "gpt3_1_5b":  # multi-head: as many kv heads as q heads

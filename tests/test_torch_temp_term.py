@@ -32,6 +32,15 @@ Reduced configs; parameters and gradients from numpy with a seed.
 * (g) ``launch/calibrate.py`` raises without a card.
 * The checked-in table holds both training configs under both modes, each
   naming its card.
+* (h) ``launch/calibrate.py``'s cut (``--layers``, ``--p``,
+  ``--schedules``, ``--experts``, ``--vocab``) reaches the record it
+  writes (run on the CPU with the card's calls stubbed, reduced configs,
+  seq 32), with the cut's weights and M_B as its scale references, and
+  the default cell's checked-in records stay byte for byte; a record of
+  the default cell has no ``cut``.  The checked-in qwen2-moe record
+  (phase 21's cut: 4 layers, p=2, zb-h1 and zb-v, both modes) gives its
+  planner a remainder and calibrated optimizer shares, and the launcher
+  names the record instead of saying it is missing.
 """
 
 import dataclasses
@@ -308,3 +317,101 @@ def test_checked_in_table_holds_both_training_configs():
             assert rec["tokens"] == 1024 and rec["cuda_temp_bytes"] >= 0
             assert "H100" in rec["card"] and rec["card"].rstrip().endswith("W")
             assert set(rec["runs"]) == set(launcher.SCHEDULES)
+
+
+# --------------------------------------------------------------------- (h)
+def _fake_card(monkeypatch, arch_reduced=True):
+    """``launch/calibrate.py`` on the CPU: the card's calls stubbed, peaks
+    from a counter, reduced configs for full ones."""
+    peaks = iter(range(10**9, 10**12, 10**6))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: float(next(peaks)))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: float(next(peaks)))
+    monkeypatch.setattr(calibrate, "DEVICE", "cpu")
+    monkeypatch.setattr(calibrate, "card_name", lambda: "a card, 700.00 W")
+    monkeypatch.setattr(calibrate, "CELL", dict(calibrate.CELL, seq_len=32))
+    if arch_reduced:
+        monkeypatch.setattr(calibrate, "get_config", get_reduced)
+
+
+@pytest.mark.parametrize("arch,argv,cut", [
+    ("qwen2_moe_a2_7b", ["--layers", "4", "--p", "2", "--schedules", "zb-h1", "zb-v"],
+     {"layers": 4, "p": 2, "schedules": ["zb-h1", "zb-v"]}),
+    ("deepseek_v3_671b", ["--layers", "2", "--p", "2", "--schedules", "zb-h1", "zb-h2",
+                          "--experts", "4", "--vocab", "128"],
+     {"layers": 2, "p": 2, "schedules": ["zb-h1", "zb-h2"], "experts": 4, "vocab": 128}),
+])
+def test_calibrate_cut_reaches_the_record(arch, argv, cut, monkeypatch, tmp_path):
+    _fake_card(monkeypatch)
+    out = tmp_path / "t.json"
+    out.write_text((tmem.CUDA_TEMP_TABLE).read_text())
+    recs = calibrate.main(["--arch", arch, "--executor", "eager"] + argv + ["--out", str(out)])
+    (rec,) = recs
+    cfg = calibrate.cut_config(get_reduced(arch), cut["layers"], cut.get("experts"),
+                               cut.get("vocab"))
+    assert rec["cut"] == cut and rec["p"] == cut["p"] and rec["arch_id"] == cfg.name
+    assert set(rec["runs"]) == set(cut["schedules"]) and rec["shape"] == "p2_m8_b1_s32"
+    st = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=32).state(1)
+    assert rec["weights_bytes"] == st.params_card + st.optim_card
+    assert rec["m_b_bytes"] == tmem.ActivationByteModel.from_config(cfg, 1, 32, 2).m_b_bytes
+    table = json.loads(out.read_text())
+    assert table[cfg.name]["eager"] == rec
+    # the default cell's records stay byte for byte
+    before = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
+    for name in ("internlm2-1.8b", "gpt3_1_5b"):
+        assert json.dumps(table[name], sort_keys=True) == json.dumps(before[name],
+                                                                     sort_keys=True)
+
+
+def test_default_cell_record_has_the_checked_in_form():
+    """No cut given, no ``cut`` key: a record of the default cell has the
+    keys of the checked-in ones, which were measured there."""
+    table = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
+    cfg = get_reduced("internlm2_1_8b")
+    rec = calibrate.calibration_record(
+        cfg, "eager", _runs((10e6, 12e6, 9e6), (9.5e6, 10e6, 8.5e6), (9e6, 9e6, 9.5e6),
+                            (1e6, 2e6, 0.0)), **calibrate.CELL, weights_bytes=5e6,
+        card="a card, 700.00 W", steps=3, seed=0)
+    for name in ("internlm2-1.8b", "gpt3_1_5b"):
+        for mode, old in table[name].items():
+            assert "cut" not in old and set(old) == set(rec), (name, mode)
+            assert old["shape"] == "p4_m8_b1_s1024"
+    assert calibrate.cut_config(cfg) == cfg
+    with pytest.raises(ValueError, match="no routed experts"):
+        calibrate.cut_config(cfg, experts=4)
+    with pytest.raises(SystemExit):
+        calibrate.main(["--schedules", "no-such-schedule"])
+
+
+MOE_CUT = dict(layers=4, p=2, schedules=["zb-h1", "zb-v"])
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+def test_qwen2_moe_is_priced_with_a_remainder(mode):
+    """The checked-in qwen2-moe record (measured on the card at phase 21's
+    cut) gives its planner a remainder and calibrated optimizer shares,
+    where without it the planner had only the structural shares."""
+    from repro_torch.configs import get_config
+
+    rec = tmem.cuda_temp_record("qwen2-moe-a2.7b", mode)
+    assert rec is not None and rec["cut"] == MOE_CUT and rec["executor_mode"] == mode
+    assert "H100" in rec["card"] and set(rec["runs"]) == set(MOE_CUT["schedules"])
+    cfg = dataclasses.replace(get_config("qwen2_moe_a2_7b"), n_layers=4)
+    planner = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=1024, executor_mode=mode)
+    assert planner.remainder() > 0
+    assert tmem.cuda_optimizer_shares(cfg.name, mode) == (rec["optimizer_overhang"],
+                                                          rec["optimizer_reuse"])
+    # at the cut the remainder is the record's own, a device's share
+    assert planner.remainder() * 2 == pytest.approx(rec["cuda_temp_bytes"], rel=1e-9)
+
+
+def test_launcher_names_the_record_that_prices_qwen2_moe(capsys):
+    launcher.main(["--arch", "qwen2_moe_a2_7b", "--reduced", "--device", "cpu", "--pipe-size",
+                   "2", "--m", "4", "--microbatch", "1", "--seq-len", "16", "--steps", "1",
+                   "--memory-budget-mb", "64"])
+    out = capsys.readouterr().out
+    assert "no calibration record" not in out
+    assert ("temp remainder from the calibration record of qwen2-moe-a2.7b under the eager "
+            "executor, measured at 4 layers at p=2, zb-h1 zb-v") in out
