@@ -69,21 +69,61 @@
 //    block with 8 warps of 64 x 32, 32-row slices of a and g through a
 //    two-stage cp.async ring (plain loads where H or F is not a multiple
 //    of 8).  ~10% of the tensor cores' rate; no training-step call takes it.
-//  * "fma" -- float32 inputs: plain fp32 FMA, never TF32 (the reduced f32
-//    model is held to ~1e-5 on the card).  A block computes a 64 x 64 tile,
-//    4 x 4 outputs a thread, over 16-row slices in shared memory.
+//  * "fma" -- float32 inputs (the moe router's W op on the training path,
+//    and every W op of the reduced f32 models): plain fp32 FMA, never TF32
+//    (the reduced f32 model is held to ~1e-5 on the card).
+//    Bound: at the routers' shapes (N = 1024) the operations bound
+//    (H, F) = (2048, 60), 0.25 GFLOP = 3.8 us at 67 TFLOP/s against 9.6 MB
+//    = 2.9 us, and bytes bound (7168, 16), 30.3 MB = 9.1 us against 3.5 us;
+//    both are a few microseconds, so the walk over N and the launch are
+//    what a design pays for.  The first design (one block a 64 x 64 tile over
+//    all of N, 16-row steps through one shared buffer with two barriers a
+//    step, 4 x 4 outputs a thread fed by scalar shared reads) took 0.128 ms
+//    at both shapes on the H100: 64 exposed loads in a row on 32 or 112 blocks of 132
+//    SMs, 75% of the FMAs on padding at F = 16, and one fmaf chain of 1024
+//    terms an output (4.6e-5 from an fp64 sum).  This design
+//    (kernels/wgrad_accum.py::plan_fp32 fixes its numbers from (N, H, F,
+//    SMs) alone):
+//      - the tile is 16, 32, 64 or 128 columns wide, the narrowest that
+//        holds F (F = 16 pads nothing, F = 60 four columns), by 128 rows
+//        (64 at 32 and 64 columns; kF32TileHs); each thread holds 8 x 4
+//        outputs (8 x 8 at 128 columns) and reads shared memory as float4;
+//      - where the tiles do not fill the SMs, a thread-block cluster of 2,
+//        4 or 8 blocks (cudaLaunchKernelEx, cluster dimension = the split,
+//        the largest the steps of N allow) computes a tile, each block
+//        over its own slice of N, so the routers' N = 1024 runs as 8
+//        slices of 128, on 256 blocks at (2048, 60) and 448 at (7168, 16);
+//      - each block walks its slice in steps of 16 or 32 rows (kF32BKs)
+//        through a ring of 4 stages filled by
+//        cp.async (16-byte vectors where H, F and the bases allow, else
+//        4-byte copies with the same masks), one barrier a step, so a
+//        step's loads overlap the FMAs on the steps before it;
+//      - the reduction: each block leaves its partial tile in its own
+//        shared memory (the ring's space) and, after a cluster barrier,
+//        block q sums rows [q 128/split, (q + 1) 128/split) of the tile
+//        over the cluster's partials, read through distributed shared
+//        memory in rank order 0 .. split-1, and adds the sum into acc
+//        once; a second cluster barrier keeps every block alive until no
+//        peer reads its shared memory.  No atomics and no workspace: each
+//        element of acc gets one read-add-write in an order the plan
+//        fixes, so two launches agree bit for bit (the vector and 4-byte
+//        copies move the same numbers in the same order), and an output
+//        sums runs of N / split products (128 at the routers) rather than
+//        one of 1024.
 //  The mma_sync and fma paths read acc[o] and write acc[o] from the same
 //  thread, so acc is not declared __restrict__ anywhere.
 //
 // Plain C interface, bound with ctypes: the wrapper passes raw pointers,
-// the shape, the path code (0 = fma, 1 = mma_sync, 2 = wgmma) and the
-// CUDA stream.  It returns
+// the shape, the path code (0 = fma, 1 = mma_sync, 2 = wgmma), the fp32
+// plan's tile width and split (ignored by the other paths) and the CUDA
+// stream.  It returns
 // cudaGetLastError()'s code, or -1 when the driver has no
 // cuTensorMapEncodeTiled, or -2 when the driver refuses a tensor map; the
 // wrapper raises on anything but 0.  cuTensorMapEncodeTiled lives in the
 // driver (libcuda); it is fetched once through the runtime's driver entry
 // point, so the library links nothing beyond the runtime.
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +133,7 @@
 namespace {
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------- //
@@ -482,66 +523,193 @@ wgrad_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ g, float*
 }
 
 // ---------------------------------------------------------------------- //
-// float32 path (FMA, no TF32)
+// float32 path: FMA (no TF32), N split across a thread-block cluster
 // ---------------------------------------------------------------------- //
-constexpr int kSBM = 64;
-constexpr int kSBN = 64;
-constexpr int kSBK = 16;
-constexpr int kSThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+// Per tile width BN (16, 32, 64, 128 columns of F): the tile's rows (H) and
+// a ring stage's rows (N).  Measured on the H100 (tools/wgrad_fp32_variants.py):
+// at 64 columns (qwen2-moe's router) 64-row tiles on 32-row stages put two
+// blocks on most SMs and beat 128 x 16 by 25%; at 16 columns (deepseek-v3's
+// router, bytes-bound) and at 128 (the square shape) 128 x 16 is fastest.
+constexpr int kF32Widths[4] = {16, 32, 64, 128};
+constexpr int kF32TileHs[4] = {128, 64, 64, 128};
+constexpr int kF32BKs[4] = {16, 32, 32, 16};
+constexpr int kF32Stages = 4;    // ring stages
+constexpr int kF32MaxSplit = 8;  // blocks of a cluster, at most (the portable cluster size)
+constexpr int kF32TM = 8;        // output rows a thread: 4 at 4 ty and 4 at BM/2 + 4 ty
 
-__global__ void __launch_bounds__(kSThreads)
+constexpr int f32_width_index(int bn) { return bn == 16 ? 0 : bn == 32 ? 1 : bn == 64 ? 2 : 3; }
+
+// A tile of BM x BN outputs: its threads, ring stage and shared memory
+template <int BN>
+struct F32Tile {
+  static constexpr int BM = kF32TileHs[f32_width_index(BN)];
+  static constexpr int BK = kF32BKs[f32_width_index(BN)];
+  static constexpr int kTN = BN == 128 ? 8 : 4;  // columns a thread: 4 at 4 tx (and 4 at BN/2 + 4 tx)
+  static constexpr int kThreadsF = BN / kTN;
+  static constexpr int kThreads = (BM / kF32TM) * kThreadsF;  // 64, 64, 128, 256
+  static constexpr int kStageFloats = BK * (BM + BN);  // a[BK][BM], then g[BK][BN]
+  static constexpr int kRingBytes = kF32Stages * kStageFloats * 4;
+  static constexpr int kPartBytes = BM * BN * 4;  // the partial tile, over the ring
+  static constexpr int kSmemBytes = kRingBytes > kPartBytes ? kRingBytes : kPartBytes;
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  // src_bytes = 0 writes a zero and reads nothing
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// Rows [n0, n0 + BK) of src (rows < n_end and cols valid, row-major with
+// pitch `cols`) at columns [c0, c0 + W) into dst[BK][W]; zeros outside.
+// kVec: cols % 4 == 0 and a 16-byte aligned base, so a 4-column chunk lies
+// wholly inside or wholly outside.
+template <int BK, int W, int kThreads, bool kVec>
+__device__ __forceinline__ void f32_load_rows(const float* __restrict__ src, int n_end, int cols,
+                                              int n0, int c0, float* dst) {
+  if (kVec) {
+    for (int c = threadIdx.x; c < BK * W / 4; c += kThreads) {
+      const int r = c / (W / 4), col = (c % (W / 4)) * 4;
+      const int gr = n0 + r, gc = c0 + col;
+      const bool in = gr < n_end && gc < cols;
+      cp_async16(dst + r * W + col, in ? src + (size_t)gr * cols + gc : src, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BK * W; e += kThreads) {
+      const int r = e / W, col = e % W;
+      const int gr = n0 + r, gc = c0 + col;
+      const bool in = gr < n_end && gc < cols;
+      cp_async4(dst + r * W + col, in ? src + (size_t)gr * cols + gc : src, in ? 4 : 0);
+    }
+  }
+}
+
+// One launch: grid = tiles x split blocks, clusters of split consecutive
+// blocks (the cluster dimension set at launch), F-tiles fastest.
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(F32Tile<BN>::kThreads, 2)
 wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ g, float* acc, int n,
                  int h, int f) {
-  __shared__ float as[kSBK][kSBM];
-  __shared__ float bs[kSBK][kSBN];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int h0 = blockIdx.y * kSBM;
-  const int f0 = blockIdx.x * kSBN;
-  float c[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+  using T = F32Tile<BN>;
+  constexpr int BM = T::BM, BK = T::BK;
+  extern __shared__ __align__(16) float f32_smem[];
+  auto cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / split;
+  const int tiles_f = (f - 1) / BN + 1;
+  const int h0 = (tile / tiles_f) * BM;
+  const int f0 = (tile % tiles_f) * BN;
+  // this block's slice of N: steps [s0, s1) of the ceil(N / BK), as the
+  // wrapper's Fp32Plan.slice cuts them
+  const int k_steps = (n - 1) / BK + 1;
+  const int s0 = static_cast<int>(static_cast<long long>(rank) * k_steps / split);
+  const int s1 = static_cast<int>(static_cast<long long>(rank + 1) * k_steps / split);
+  const long long slice_end = static_cast<long long>(s1) * BK;
+  const int n_end = slice_end < n ? static_cast<int>(slice_end) : n;
+  const int steps = s1 - s0;
+  const int tx = threadIdx.x % T::kThreadsF;
+  const int ty = threadIdx.x / T::kThreadsF;
 
-  for (int k0 = 0; k0 < n; k0 += kSBK) {
-    for (int e = threadIdx.x; e < kSBK * kSBM; e += kSThreads) {
-      const int r = e / kSBM, col = e % kSBM;
-      const int gr = k0 + r, gc = h0 + col;
-      as[r][col] = (gr < n && gc < h) ? a[(size_t)gr * h + gc] : 0.f;
-    }
-    for (int e = threadIdx.x; e < kSBK * kSBN; e += kSThreads) {
-      const int r = e / kSBN, col = e % kSBN;
-      const int gr = k0 + r, gc = f0 + col;
-      bs[r][col] = (gr < n && gc < f) ? g[(size_t)gr * f + gc] : 0.f;
-    }
-    __syncthreads();
+  float c[kF32TM][T::kTN];
 #pragma unroll
-    for (int k = 0; k < kSBK; ++k) {
-      float av[4], bv[4];
+  for (int i = 0; i < kF32TM; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[k][ty * 4 + i];
+    for (int j = 0; j < T::kTN; ++j) c[i][j] = 0.f;
+
+  // the ring: stage s holds step s0 + t for t = s (mod kF32Stages)
+  auto load = [&](int t) {
+    float* st = f32_smem + (t % kF32Stages) * T::kStageFloats;
+    const int n0 = (s0 + t) * BK;
+    f32_load_rows<BK, BM, T::kThreads, kVec>(a, n_end, h, n0, h0, st);
+    f32_load_rows<BK, BN, T::kThreads, kVec>(g, n_end, f, n0, f0, st + BK * BM);
+  };
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
-    }
-    __syncthreads();
+  for (int t = 0; t < kF32Stages - 1; ++t) {
+    if (t < steps) load(t);
+    cp_async_commit();  // an empty group past the slice keeps the count uniform
   }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kF32Stages - 2>();  // step t has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; and everyone is done with step t - 1's stage
+    if (t + kF32Stages - 1 < steps) load(t + kF32Stages - 1);  // into step t - 1's stage
+    cp_async_commit();
+    const float* as = f32_smem + (t % kF32Stages) * T::kStageFloats;
+    const float* gs = as + BK * BM;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gh = h0 + ty * 4 + i;
+    for (int k = 0; k < BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * BM + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * BM + BM / 2 + 4 * ty);
+      const float av[kF32TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float gv[T::kTN];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gf = f0 + tx * 4 + j;
-      if (gh < h && gf < f) {
-        const size_t o = (size_t)gh * f + gf;
-        acc[o] = acc[o] + c[i][j];
+      for (int q = 0; q < T::kTN / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(gs + k * BN + q * (BN / 2) + 4 * tx);
+        gv[4 * q] = v.x;
+        gv[4 * q + 1] = v.y;
+        gv[4 * q + 2] = v.z;
+        gv[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kF32TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::kTN; ++j) c[i][j] = fmaf(av[i], gv[j], c[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is done: its space holds the partial tile from here
+
+  // this block's partial tile, row-major [BM][BN]
+  float* part = f32_smem;
+#pragma unroll
+  for (int i = 0; i < kF32TM; ++i) {
+    const int r = (i / 4) * (BM / 2) + 4 * ty + i % 4;
+#pragma unroll
+    for (int q = 0; q < T::kTN / 4; ++q)
+      *reinterpret_cast<float4*>(part + r * BN + q * (BN / 2) + 4 * tx) =
+          make_float4(c[i][4 * q], c[i][4 * q + 1], c[i][4 * q + 2], c[i][4 * q + 3]);
+  }
+  cluster.sync();  // every partial of the cluster is written and visible
+
+  // block `rank` reduces rows [rank R, rank R + R) of the tile, R = BM / split:
+  // the partials summed in rank order, then added into acc once
+  const int rows = BM / split;
+  for (int e = threadIdx.x; e < rows * (BN / 4); e += T::kThreads) {
+    const int r = rank * rows + e / (BN / 4);
+    const int col = (e % (BN / 4)) * 4;
+    const int off = r * BN + col;
+    float4 p[kF32MaxSplit];  // every peer's load in flight at once
+#pragma unroll
+    for (int q = 0; q < kF32MaxSplit; ++q)
+      if (q < split) p[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) + off);
+    float4 s = p[0];
+#pragma unroll
+    for (int q = 1; q < kF32MaxSplit; ++q) {
+      if (q < split) {
+        s.x += p[q].x;
+        s.y += p[q].y;
+        s.z += p[q].z;
+        s.w += p[q].w;
       }
     }
+    const int gh = h0 + r, gf = f0 + col;
+    if (gh >= h || gf >= f) continue;
+    float* o = acc + (size_t)gh * f + gf;
+    if (kVec) {  // f % 4 == 0 and acc 16-byte aligned: the chunk lies wholly inside
+      float4 v = *reinterpret_cast<float4*>(o);
+      v.x = v.x + s.x;
+      v.y = v.y + s.y;
+      v.z = v.z + s.z;
+      v.w = v.w + s.w;
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gf + j < f) o[j] = o[j] + sv[j];
+    }
   }
+  cluster.sync();  // no block exits while a peer may still read its shared memory
 }
 
 // ---------------------------------------------------------------------- //
@@ -617,10 +785,80 @@ int launch_wgmma(const void* a, const void* g, float* acc, int n, int h, int f, 
   return (int)cudaGetLastError();
 }
 
+// One fp32 launch: clusters of `split` blocks, tiles x split blocks.
+template <int BN, bool kVec>
+cudaError_t launch_f32_as(const float* a, const float* g, float* acc, int n, int h, int f,
+                          int split, long long tiles, cudaStream_t s) {
+  using T = F32Tile<BN>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * split));
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, wgrad_f32_kernel<BN, kVec>, a, g, acc, n, h, f);
+}
+
+template <int BN, bool kVec>
+cudaError_t f32_smem_opt_in() {
+  return cudaFuncSetAttribute(wgrad_f32_kernel<BN, kVec>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              F32Tile<BN>::kSmemBytes);
+}
+
+// The fp32 path at the wrapper's plan (tile_f, split); vector copies where
+// H, F and every base allow them.
+int launch_f32(const float* a, const float* g, float* acc, int n, int h, int f, int tile_f,
+               int split, cudaStream_t s) {
+  if (split != 1 && split != 2 && split != 4 && split != kF32MaxSplit)
+    return (int)cudaErrorInvalidValue;
+  // per device, once: every instantiation's shared-memory opt-in
+  constexpr int kMaxDevices = 64;
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    const cudaError_t opt[] = {f32_smem_opt_in<16, true>(),  f32_smem_opt_in<16, false>(),
+                               f32_smem_opt_in<32, true>(),  f32_smem_opt_in<32, false>(),
+                               f32_smem_opt_in<64, true>(),  f32_smem_opt_in<64, false>(),
+                               f32_smem_opt_in<128, true>(), f32_smem_opt_in<128, false>()};
+    for (cudaError_t e : opt)
+      if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
+  }
+  const int bm = kF32TileHs[f32_width_index(tile_f)];
+  const long long tiles = ((h + bm - 1LL) / bm) * ((f + tile_f - 1LL) / tile_f);
+  if (tiles * split > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = h % 4 == 0 && f % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+  switch (tile_f * 2 + (vec ? 1 : 0)) {
+    case 33: ce = launch_f32_as<16, true>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 32: ce = launch_f32_as<16, false>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 65: ce = launch_f32_as<32, true>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 64: ce = launch_f32_as<32, false>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 129: ce = launch_f32_as<64, true>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 128: ce = launch_f32_as<64, false>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 257: ce = launch_f32_as<128, true>(a, g, acc, n, h, f, split, tiles, s); break;
+    case 256: ce = launch_f32_as<128, false>(a, g, acc, n, h, f, split, tiles, s); break;
+    default: return (int)cudaErrorInvalidValue;  // a tile width the kernel was not built for
+  }
+  if (ce != cudaSuccess) return (int)ce;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int wgrad_accum(const void* a, const void* g, void* acc, long long n, long long h,
-                           long long f, int path, void* stream) {
+                           long long f, int path, int tile_f, int split, void* stream) {
   if (n < 1 || h < 1 || f < 1 || n > 0x7fffffffLL || h > 0x7fffffffLL || f > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -628,13 +866,9 @@ extern "C" int wgrad_accum(const void* a, const void* g, void* acc, long long n,
   float* accf = static_cast<float*>(acc);
   const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  if (path == 0) {  // fma
-    const dim3 grid((unsigned)((f + kSBN - 1) / kSBN), (unsigned)((h + kSBM - 1) / kSBM));
-    if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-    wgrad_f32_kernel<<<grid, kSThreads, 0, s>>>(static_cast<const float*>(a),
-                                                static_cast<const float*>(g), accf, ni, hi, fi);
-    return (int)cudaGetLastError();
-  }
+  if (path == 0)  // fma
+    return launch_f32(static_cast<const float*>(a), static_cast<const float*>(g), accf, ni, hi,
+                      fi, tile_f, split, s);
   const bf16* ab = static_cast<const bf16*>(a);
   const bf16* gb = static_cast<const bf16*>(g);
   if (path == 1) {  // mma_sync

@@ -20,18 +20,33 @@ captured launch replays with the maps of capture time.  That is right only
 while every a, g and acc sits at its captured address.  On the training
 path all three are allocated by the captured walk, so the graph's private
 memory pool holds them at those addresses on every replay.
+
+The ``fma`` path launches by :func:`plan_fp32` (plain Python, so the tests
+reach it): output tiles the narrowest of 16, 32, 64 or 128 columns that
+holds F wide, and where those tiles do not fill the card's SMs, N cut
+into ``split`` slices of whole steps, one block each, the ``split`` blocks
+of a tile forming one thread-block cluster that reduces its partials in
+distributed shared memory in rank order.  The plan depends on (N, H, F,
+SMs) alone, never on addresses, so a launch and its captured replay sum in
+the same order: two launches agree bit for bit
+(``tools/wgrad_fp32_variants.py`` times other splits and layouts on the
+card).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Tuple
+
 import torch
 
 from . import build
+from .rmsnorm import _sms  # the card's SM count, once per device
 
-__all__ = ["wgrad_accum_cuda", "check_args", "plan_launch", "launches", "launches_by_path",
-           "PATHS"]
+__all__ = ["wgrad_accum_cuda", "check_args", "plan_launch", "plan_fp32", "Fp32Plan",
+           "launches", "launches_by_path", "PATHS"]
 
 PATHS = ("wgmma", "mma_sync", "fma")
 launches = 0  # kernel launches since the caller last set it to 0
@@ -40,6 +55,14 @@ launches_by_path = {p: 0 for p in PATHS}  # the same, per path
 _PATH_CODE = {"fma": 0, "mma_sync": 1, "wgmma": 2}
 _ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
            -2: "the CUDA driver refused a tensor map"}
+
+# The fp32 plan's constants; csrc/wgrad_accum.cu holds the same numbers.
+FP32_TILES_F = (16, 32, 64, 128)  # output columns (F) of a tile, one of these
+FP32_TILE_H = {16: 128, 32: 64, 64: 64, 128: 128}  # ... and its rows (H), by width
+FP32_BK = {16: 16, 32: 32, 64: 32, 128: 16}  # contraction rows (N) of a ring stage: a step
+FP32_SPLITS = (1, 2, 4, 8)        # blocks of a cluster that split N
+FP32_STAGES = 4                   # ring stages
+_FP32_TM = 8                      # output rows a thread
 
 
 def check_args(a: torch.Tensor, g: torch.Tensor, acc: torch.Tensor) -> None:
@@ -86,11 +109,72 @@ def plan_launch(n: int, h: int, f: int, dtype: torch.dtype, a_ptr: int, g_ptr: i
     return path
 
 
+@dataclasses.dataclass(frozen=True)
+class Fp32Plan:
+    """The ``fma`` path's launch: ``tiles`` output tiles of ``tile_h`` x
+    ``tile_f``, each computed by a cluster of ``split`` blocks, block r over
+    the r-th slice of the ``k_steps`` steps of ``bk`` rows of N."""
+    tile_h: int
+    tile_f: int
+    bk: int
+    split: int
+    tiles: int
+    k_steps: int
+
+    @property
+    def grid(self) -> int:
+        """Blocks of the launch: the clusters' blocks, tile after tile."""
+        return self.tiles * self.split
+
+    @property
+    def threads(self) -> int:
+        """Threads a block: 8 x 4 outputs each (8 x 8 at 128 columns)."""
+        return (self.tile_h // _FP32_TM) * (self.tile_f // (8 if self.tile_f == 128 else 4))
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's dynamic shared memory: the ring, whose space then holds
+        the block's partial tile."""
+        ring = FP32_STAGES * self.bk * (self.tile_h + self.tile_f) * 4
+        return max(ring, self.tile_h * self.tile_f * 4)
+
+    def slice(self, rank: int, n: int) -> Tuple[int, int]:
+        """Rows [begin, end) of N that block ``rank`` of a cluster sums, as
+        the kernel cuts them: steps [rank K / split, (rank + 1) K / split)."""
+        s0, s1 = rank * self.k_steps // self.split, (rank + 1) * self.k_steps // self.split
+        return min(n, s0 * self.bk), min(n, s1 * self.bk)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_fp32(n: int, h: int, f: int, sms: int) -> Fp32Plan:
+    """The ``fma`` launch of a (N, H), g (N, F), acc (H, F) on a card of
+    ``sms`` SMs.
+
+    The tile is the narrowest of 16, 32, 64, 128 columns that holds F (128
+    past that), by 64 rows at 32 and 64 columns and 128 rows at 16 and 128,
+    whose steps are 32 and 16 rows of N (``FP32_TILE_H``, ``FP32_BK``).
+    The split is 1 where the tiles alone fill the card (at least ``sms`` of
+    them), else the largest of 2, 4, 8 that the steps of N allow: the
+    routers' N = 1024 runs as 8 slices of 128, which also keeps each
+    output's fp32 runs short (an fp64-exact sum is within ~1e-5 of it,
+    where one run of 1024 was 4.6e-5 off)."""
+    tile_f = next((t for t in FP32_TILES_F if t >= f), FP32_TILES_F[-1])
+    tile_h, bk = FP32_TILE_H[tile_f], FP32_BK[tile_f]
+    tiles = -(-h // tile_h) * -(-f // tile_f)
+    k_steps = -(-n // bk)
+    split = 1
+    if tiles < sms:
+        while split < FP32_SPLITS[-1] and 2 * split <= k_steps:
+            split *= 2
+    return Fp32Plan(tile_h, tile_f, bk, split, tiles, k_steps)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn():
     f = build.load("wgrad_accum").wgrad_accum
     f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -105,8 +189,10 @@ def wgrad_accum_cuda(a: torch.Tensor, g: torch.Tensor, acc: torch.Tensor) -> tor
     (n, h), f = a.shape, g.shape[1]
     dev = a.device.index
     path = plan_launch(n, h, f, a.dtype, a.data_ptr(), g.data_ptr(), acc.data_ptr())
-    args = (a.data_ptr(), g.data_ptr(), acc.data_ptr(), n, h, f, _PATH_CODE[path],
-            torch.cuda.current_stream(dev).cuda_stream)
+    plan = plan_fp32(n, h, f, _sms(dev)) if path == "fma" else None
+    tile_f, split = (plan.tile_f, plan.split) if plan is not None else (0, 0)
+    args = (a.data_ptr(), g.data_ptr(), acc.data_ptr(), n, h, f, _PATH_CODE[path], tile_f,
+            split, torch.cuda.current_stream(dev).cuda_stream)
     if dev == torch.cuda.current_device():
         err = _fn()(*args)
     else:  # the launch goes to the calling thread's current device
@@ -114,7 +200,7 @@ def wgrad_accum_cuda(a: torch.Tensor, g: torch.Tensor, acc: torch.Tensor) -> tor
             err = _fn()(*args)
     if err != 0:
         why = _ERRORS.get(err, f"CUDA error {err}")
-        raise RuntimeError(f"wgrad_accum launch failed ({path}): {why} "
+        raise RuntimeError(f"wgrad_accum launch failed ({path}, {plan}): {why} "
                            f"(n={n}, h={h}, f={f})")
     launches += 1
     launches_by_path[path] += 1

@@ -18,6 +18,12 @@ JAX package.
 * The wrapper refuses what the CUDA kernel would refuse, on the CPU too, and
   ``plan_launch`` picks the kernel path (wgmma / mma_sync / fma) by shape,
   dtype and alignment, without a card.
+* ``plan_fp32``, the fp32 path's launch plan, at the routers' shapes, the
+  square fp32 shape, the reduced model's and a ragged one, on 132 SMs: the
+  tile width follows F, the split is 1, 2, 4 or 8 (1 where the tiles fill
+  the card), the slices of N cover it once, the grid, block and shared
+  memory stay within CUDA's limits, the plan reads no address, and its
+  constants are those compiled into ``csrc/wgrad_accum.cu``.
 * The RMSNorm ``autograd.Function`` backward against the JAX ``_rms_bwd``
   and against ``jax.grad`` of ``modules.rmsnorm`` (f32, 1e-5: one rsqrt and
   a few sums in another order).
@@ -25,6 +31,9 @@ JAX package.
   skip here, and ``chip_smoke.py`` holds the kernel against the plain
   version on the H100 at the training path's shapes.
 """
+
+import inspect
+import re
 
 import pytest
 
@@ -40,6 +49,7 @@ from repro.kernels.wgrad_accum import wgrad_accum as jax_wgrad_pallas  # noqa: E
 from repro.models import modules as jmod  # noqa: E402
 
 from repro_torch.interop import to_torch  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import wgrad_accum as twg  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_bwd_ref, wgrad_accum_ref  # noqa: E402
@@ -159,6 +169,105 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(a, g, acc, err):
         ops.wgrad_accum(a, g, acc)
 
 
+SMS = 132  # an H100 SXM's SMs
+# (n, h, f) of chip_smoke.py phase 3's fp32 shapes, and the tile width each takes
+FP32_SHAPES = {
+    "qwen2-moe router": ((1024, 2048, 60), 64),
+    "deepseek router": ((1024, 7168, 16), 16),
+    "fp32": ((1024, 2048, 2048), 128),
+    "reduced": ((64, 48, 96), 128),
+    "ragged-fp32": ((77, 129, 257), 128),
+}
+
+
+@pytest.mark.parametrize("label", list(FP32_SHAPES))
+def test_plan_fp32_tile_follows_f(label):
+    (n, h, f), want = FP32_SHAPES[label]
+    plan = twg.plan_fp32(n, h, f, SMS)
+    assert plan.tile_f == want
+    assert (plan.tile_h, plan.bk) == (twg.FP32_TILE_H[want], twg.FP32_BK[want])
+    # the narrowest tile that holds F: the next narrower one would not
+    assert plan.tile_f >= f or plan.tile_f == twg.FP32_TILES_F[-1]
+    narrower = [t for t in twg.FP32_TILES_F if t < plan.tile_f]
+    assert not narrower or narrower[-1] < f
+    assert plan.tiles == -(-h // plan.tile_h) * -(-f // plan.tile_f)
+
+
+@pytest.mark.parametrize("label", list(FP32_SHAPES))
+def test_plan_fp32_splits_n_only_where_the_tiles_do_not_fill(label):
+    (n, h, f), _ = FP32_SHAPES[label]
+    plan = twg.plan_fp32(n, h, f, SMS)
+    assert plan.split in twg.FP32_SPLITS
+    if plan.tiles >= SMS:
+        assert plan.split == 1
+    else:  # as many slices as the 16-row steps of N allow, up to 8
+        assert plan.split == min(8, 1 << (plan.k_steps.bit_length() - 1))
+    want = {"qwen2-moe router": 8, "deepseek router": 8, "fp32": 1, "reduced": 4,
+            "ragged-fp32": 4}[label]
+    assert plan.split == want
+
+
+@pytest.mark.parametrize("label", list(FP32_SHAPES))
+def test_plan_fp32_slices_cover_n_once(label):
+    (n, h, f), _ = FP32_SHAPES[label]
+    plan = twg.plan_fp32(n, h, f, SMS)
+    assert plan.k_steps == -(-n // plan.bk)
+    slices = [plan.slice(r, n) for r in range(plan.split)]
+    assert slices[0][0] == 0 and slices[-1][1] == n
+    for (b0, e0), (b1, _) in zip(slices, slices[1:]):
+        assert e0 == b1  # contiguous: no row twice, none left out
+    for b, e in slices:
+        assert b < e and b % plan.bk == 0  # whole steps, none empty
+    if (n, label) == (1024, "qwen2-moe router") or label == "deepseek router":
+        assert slices == [(128 * r, 128 * (r + 1)) for r in range(8)]
+
+
+@pytest.mark.parametrize("label", list(FP32_SHAPES))
+def test_plan_fp32_launch_stays_within_cuda_limits(label):
+    (n, h, f), _ = FP32_SHAPES[label]
+    plan = twg.plan_fp32(n, h, f, SMS)
+    assert plan.grid == plan.tiles * plan.split and 1 <= plan.grid <= 2**31 - 1
+    assert plan.grid % plan.split == 0  # whole clusters
+    assert plan.split <= 8  # the portable cluster size
+    assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
+    assert plan.smem_bytes <= 232448  # 227 KB, the most a block may opt into
+    # the partial tile fits the ring's space, and each block of a cluster
+    # reduces a whole number of its rows
+    assert plan.tile_h * plan.tile_f * 4 <= plan.smem_bytes
+    assert plan.tile_h % plan.split == 0
+
+
+def test_plan_fp32_reads_no_address():
+    assert list(inspect.signature(twg.plan_fp32).parameters) == ["n", "h", "f", "sms"]
+    for offsets in ((0, 0, 0), (4, 4, 4), (4, 0, 8)):
+        base = 1 << 20
+        assert twg.plan_launch(1024, 2048, 60, torch.float32,
+                               *(base + o for o in offsets)) == "fma"
+    # the same shapes plan alike on every call, and the plan is a value
+    assert twg.plan_fp32(1024, 2048, 60, SMS) == twg.plan_fp32(1024, 2048, 60, SMS)
+    assert hash(twg.plan_fp32(1024, 7168, 16, SMS)) == hash(twg.Fp32Plan(128, 16, 16, 8, 56, 64))
+
+
+def test_plan_fp32_constants_match_the_kernel_source():
+    src = (build.CSRC / "wgrad_accum.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    def table(name):
+        body = re.search(rf"constexpr int {name}\[4\] = \{{([\d, ]+)\}};", src).group(1)
+        return tuple(int(v) for v in body.split(","))
+
+    widths = table("kF32Widths")
+    assert widths == twg.FP32_TILES_F
+    assert dict(zip(widths, table("kF32TileHs"))) == twg.FP32_TILE_H
+    assert dict(zip(widths, table("kF32BKs"))) == twg.FP32_BK
+    assert const("kF32Stages") == twg.FP32_STAGES
+    assert const("kF32MaxSplit") == twg.FP32_SPLITS[-1]
+    for tile_f in twg.FP32_TILES_F:  # every tile width has its two launches
+        assert f"launch_f32_as<{tile_f}, true>" in src and f"launch_f32_as<{tile_f}, false>" in src
+
+
 def test_kernel_launcher_never_takes_cpu_tensors():
     before, by_path = twg.launches, dict(twg.launches_by_path)
     with pytest.raises(ValueError, match="CUDA"):
@@ -213,6 +322,9 @@ def test_rmsnorm_backward_keeps_dtypes():
     (40, 200, 296, torch.bfloat16, "wgmma"),  # every edge ragged, TMA zero fill
     (32, 48, 96, torch.float32, "fma"),
     (77, 129, 257, torch.bfloat16, "mma_sync"),
+    (1024, 2048, 60, torch.float32, "fma"),  # qwen2-moe's router: split 8
+    (1024, 7168, 16, torch.float32, "fma"),  # deepseek-v3's cut's router: split 8
+    (77, 129, 257, torch.float32, "fma"),  # ragged: 4-byte copies
 ])
 def test_cuda_kernel_matches_plain(n, h, f, dtype, path):
     if not torch.cuda.is_available():
@@ -236,3 +348,5 @@ def test_cuda_kernel_matches_plain(n, h, f, dtype, path):
     torch.cuda.synchronize()
     assert acc.data_ptr() == ptr
     torch.testing.assert_close(acc, want, rtol=tol, atol=tol)
+    # two launches on the same inputs agree bit for bit: no atomics, a fixed order
+    assert torch.equal(acc.view(torch.int32), got.view(torch.int32))
