@@ -8,7 +8,9 @@ their own (gpt3-1.5b's graph runs need the card to themselves), 20-21
 next in another (qwen2-moe-a2.7b: 28.6 GB of weights to serve, ~60 GiB to
 train), 22-23 next in a third (deepseek-v3-671b: 50 GB of weights to
 serve; in both the training phase first, in a fresh process, as the
-memory record it is gated against was measured), 17 after 7, and 16 with its half of 13, then 13's held-out runs,
+memory record it is gated against was measured), 24-27 next in a fourth
+(whisper-tiny and llava-next-mistral-7b, the training phases first), 17
+after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
 launcher runs); any failed check raises and the exit code is not 0:
 
@@ -42,7 +44,13 @@ launcher runs); any failed check raises and the exit code is not 0:
               (7168, 1536), (1536, 24576), (7168, 576) (a ragged last
               tile), (512, 16384), (16384, 7168) and shared expert (7168,
               2048), (2048, 7168) on wgmma and its cut's fp32 router
-              (7168, 16) on fma: it adds into a clone of acc in
+              (7168, 16) on fma, and llava-next-mistral-7b's W ops
+              (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096) at
+              N = 1600 and its front_proj (1024, 4096) at N = 576, and
+              whisper-tiny's (384, 384), (384, 1536), (1536, 384) at the
+              encoder's N = 1500 and the decoder's N = 448, on wgmma
+              (RMSNorm: llava's and whisper's rows too, 384 in the sweep):
+              it adds into a clone of acc in
               place and is held against the plain version on the original,
               and a second launch on another clone must agree bit for bit;
               its path (wgmma / mma_sync / fma) is printed per shape, and
@@ -53,8 +61,10 @@ launcher runs); any failed check raises and the exit code is not 0:
               WGRAD_FP32_N1024_ATOL); kernel and library are timed in
               turns, and the wrapper's eager host time per call is
               measured.
-4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b, qwen2-moe-a2.7b
-              and deepseek-v3-671b (float32) served on cuda and on cpu:
+4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b, qwen2-moe-a2.7b,
+              deepseek-v3-671b, llava-next-mistral-7b and whisper-tiny
+              (float32; the last two with their patches and frames)
+              served on cuda and on cpu:
               logits within 1e-4 and identical greedy tokens (gemma2's
               19-token prompt rolls its ring of 8), and for the moe models
               identical routing (every moe call's top-k experts and slot
@@ -68,14 +78,15 @@ launcher runs); any failed check raises and the exit code is not 0:
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
 8. train-reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b,
-              qwen2-moe-a2.7b and deepseek-v3-671b (float32), p=2, m=4: 3
+              qwen2-moe-a2.7b, deepseek-v3-671b, llava-next-mistral-7b and
+              whisper-tiny (float32), p=2, m=4: 3
               training steps
               (AdamW + post-validation) on cuda and on cpu under zb-h1 and
               under zb-v (two chunks on the V placement); losses within
               1e-5 relative, grad norms within 1e-4.
 9. train   -- internlm2-1.8b at full width and depth (bf16, random weights
               from a seed): 4 stages on the one card, 8 microbatches of
-              1 x 1024 tokens from the synthetic stream, 3 steps each under
+              1 x 1024 tokens from the synthetic stream, 2 steps each under
               all eight schedules of the launcher (1f1b, zb-h1, zb-h2,
               zb-1p, zb-2p on one chunk a stage; zb-v, v-min, v-half on two,
               with the seed-0 weights relaid layer by layer onto the V
@@ -92,7 +103,7 @@ launcher runs); any failed check raises and the exit code is not 0:
               stated tolerance; the step-0 full-width gradient of the
               B/W-split pipeline against plain torch.autograd through the
               same model, and zb-v's step-0 gradient, relaid back, against
-              zb-h1's; then zb-h1 and zb-v once more, 3 steps each with
+              zb-h1's; then zb-h1 and zb-v once more, 2 steps each with
               the clip off, where their losses and grad norms must agree
               within the same tolerance.
 11. profile-train -- torch.profiler over one full-width step of zb-h1 and
@@ -120,8 +131,8 @@ launcher runs); any failed check raises and the exit code is not 0:
               Then the remainder and shares ``launch/calibrate.py`` would
               write from these runs, beside the checked-in ones (printed,
               not gated).  After phase 16, runs the calibration never saw:
-              internlm2 at seq 512 under the graph executor, zb-h1 and
-              zb-v, 2 steps each, must stay under their priced totals too
+              internlm2 at seq 512 under the graph executor, zb-v, 2
+              steps, must stay under its priced total too
               (their launches counted with the main path's).
 14. launch  -- ``launch.train.main`` at full width and depth under a memory
               budget at which the planner picks a zero-bubble schedule,
@@ -149,11 +160,11 @@ launcher runs); any failed check raises and the exit code is not 0:
               fresh eager walk's bit for bit (the embedding's within 1e-6
               relative), the step-0 loss equals phase 9's bit for bit, the
               losses and grad norms of phase 9's later steps within 1e-6
-              relative, over 8 steps (7 replayed); each capture
+              relative, over 4 steps (3 replayed); each capture
               launches both kernels as often as one eager step (all W ops
               on wgmma) and the replays launch nothing from Python; capture
-              seconds, replay step time (median of 7) beside phase 9's
-              eager one (median of 2),
+              seconds, replay step time (median of 3) beside phase 9's
+              eager one (its step 1),
               tokens/s, allocated and reserved peaks; for zb-h1 and zb-v a
               profiled replayed step (host spans, device busy share, kernel
               counts, the two kernels' among them).
@@ -170,11 +181,12 @@ launcher runs); any failed check raises and the exit code is not 0:
               96, d_ff 9216, vocab 50257; bf16, random weights from a seed):
               the step-0 gradient of the eager zb-h1 walk against plain
               torch.autograd; then 4 stages on the one card, 8 microbatches
-              of 1 x 1024 tokens, 4 steps under all eight schedules with the
+              of 1 x 1024 tokens, 4 steps under one schedule of each
+              placement, zb-h1 and zb-v (phase 16 runs all eight under the
+              graph), with the
               pipeline captured in a CUDA graph (the AdamW state allocated
               first, as the launcher's driver does): step-0 loss in band and
-              equal across schedules, later losses within 1e-4 among the
-              schedules of one placement, and zb-v's within 1e-4 of
+              equal across schedules, and zb-v's later losses within 1e-4 of
               zb-h1's with the clip off (phase 10's reason); under zb-h1
               the graph's step-0 gradient equals the eager walk's bit for
               bit but the embedding's; launches per capture, replay ms,
@@ -241,6 +253,32 @@ launcher runs); any failed check raises and the exit code is not 0:
               shared expert's on wgmma and the router's on fma, the
               reserved peaks gated against the cut's own calibration
               record.
+24. train-whisper -- whisper-tiny whole (4 joint encdec blocks, d 384,
+              6 heads, d_ff 1536, vocab 51865; bf16, random weights from a
+              seed), p=2, 8 microbatches of 1 x (1500 frames + 448 tokens),
+              zb-h1 and zb-v, phase 21's checks (zero frames, as the
+              launcher feeds; random frames in the gradient check, so
+              front_proj's gradient is held too): 18 wgrad_accum launches a
+              block and one for front_proj a microbatch, all on wgmma, 5
+              norms a block and the sink's, all on bulk; the reserved peaks
+              gated against its own record.
+25. train-llava -- llava-next-mistral-7b at full width (d 4096, 32 q / 8
+              kv heads, d_ff 14336, vocab 32000, 576 patches of 1024) and a
+              depth cut, the deepest of LT_DEPTHS layers priced at most
+              LT_PRICE_GIB (the price printed first), p=2, 8 microbatches
+              of 1 x (576 patches + 1024 tokens), zb-h1 and zb-v: phase
+              21's checks and gate, the 8 front_proj launches a step
+              counted.
+26. serve-llava -- llava-next-mistral-7b at full width and depth (32
+              layers, 7.25 B parameters), p=4, phase 5's groups, 576
+              patches + 512-token prompts, 16 greedy tokens, the cache
+              holding the patches: prefill and decode ms, tok/s, RMSNorm
+              launches == the structure's count, decoding token 512
+              against a prefill of 513 within LS_CONSIST_REL_L2.
+27. serve-whisper -- whisper-tiny whole, p=2, phase 5's groups, 1500
+              frames, 432-token prompts, 16 greedy tokens (the decoder's
+              448 positions; a decode step runs 3 of a block's 5 norms),
+              gated as phase 26 at WS_CONSIST_REL_L2.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -283,7 +321,7 @@ from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
 from repro_torch.launch.calibrate import calibration_record, cut_config  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.serve import draw_front, serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
 from repro_torch.launch.steps import build_serve_step  # noqa: E402
 from repro_torch.launch.train import init_state, make_data_at, make_schedule, make_step_fn  # noqa: E402
@@ -292,6 +330,7 @@ from repro_torch.launch.train import TrainResult, side_from_batch, train  # noqa
 from repro_torch.models.lm import (  # noqa: E402
     RunSpec,
     build_program,
+    front_spec,
     group_layout,
     init_params,
     make_chunk_fn,
@@ -317,7 +356,7 @@ P, M, B, PROMPT, NEW = 4, 8, 2, 512, 16  # full-width serving run
 RED_P, RED_M, RED_B, RED_PROMPT, RED_NEW = 2, 4, 2, 16, 4  # reduced cuda-vs-cpu run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
 # phase 3's RMSNorm sweep: every width of the port's dense configs, and rows
-RMS_SWEEP_WIDTHS = (48, 64, 2048, 2304, 4096, 5120, 6144, 7168, 8192)
+RMS_SWEEP_WIDTHS = (48, 64, 384, 2048, 2304, 4096, 5120, 6144, 7168, 8192)
 RMS_SWEEP_ROWS = (1, 2, 1000, 4100)
 COLD_BYTES = 100_000_000  # a cold timing's rotation: twice the H100's 50 MB L2
 # full-width consistency in bf16: both paths round every product to bf16 (8
@@ -330,21 +369,26 @@ CONSIST_MAX_ABS = 0.25
 # norm launches of each ported kind per call: one rmsnorm in attn,
 # attn_local and mlp, in prefill (the port reuses the forward's k/v), in
 # decode and in a training forward alike (the norm's backward is plain
-# torch, no kernel)
-NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mla": 1, "mlp": 1, "moe": 1}
+# torch, no kernel); encdec's five (enc_attn, enc_mlp, dec_attn, xattn,
+# dec_mlp), of which a decode step runs the decoder's three
+NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mla": 1, "mlp": 1, "moe": 1, "encdec": 5}
+DECODE_NORMS_PER_KIND = dict(NORMS_PER_KIND, encdec=3)
 # deferred linears (W ops, one wgrad_accum launch each) of each kind: mla's
 # are its six products (wdq, wuq, wdkv, wuk, wuv, wo); moe's the router and
 # the three shared-expert weights (its expert stacks are batched products
-# that W adds by torch.bmm, as the JAX W slice does)
-LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mla": 6, "mlp": 3, "moe": 4}
+# that W adds by torch.bmm, as the JAX W slice does); encdec's 4 in each of
+# enc_attn, dec_attn and xattn, 3 in each of enc_mlp and dec_mlp.  A vlm or
+# encdec model adds one a microbatch: front_proj's, in the source's W
+LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mla": 6, "mlp": 3, "moe": 4, "encdec": 18}
 # ... of which fp32, on wgrad_accum's fma path: the moe router
 FMA_LINEARS_PER_KIND = {"moe": 1}
 # the other archs of phases 4, 8 and 17-21, and their reduced prompts in
 # phase 4 (gemma2's is 2W + 3 for its window W = 8: a rolled ring tail)
 GPT3, GEMMA2, MOE = "gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b"
-DEEPSEEK = "deepseek_v3_671b"
+DEEPSEEK, LLAVA, WHISPER = "deepseek_v3_671b", "llava_next_mistral_7b", "whisper_tiny"
 RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19, MOE: RED_PROMPT,
-               DEEPSEEK: RED_PROMPT}
+               DEEPSEEK: RED_PROMPT, LLAVA: RED_PROMPT, WHISPER: RED_PROMPT}
+RED_ARCHS = (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK, LLAVA, WHISPER)
 # gemma2 serving at full width: p stages, m groups of b, prompts past the
 # 4096 window and not a multiple of it, new greedy tokens
 GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
@@ -357,18 +401,22 @@ GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
 # twice that is the limit.  A misplaced ring slot moves the logits by
 # O(1) of their norm.
 GS_CONSIST_REL_L2 = 6e-2
-# gpt3-1.5b training: phase 9's run shape, GPT3_STEPS steps a schedule, and
-# the LM head's GEMMs timed at the odd vocabulary and padded ones
+# gpt3-1.5b training: phase 9's run shape, GPT3_STEPS steps a schedule, one
+# schedule a placement (phase 16 runs all eight under the graph on
+# internlm2), and the LM head's GEMMs timed at the odd vocabulary and
+# padded ones
 GPT3_STEPS = 4
+GPT3_SCHEDULES = ("zb-h1", "zb-v")
 GPT3_HEAD_VOCABS = (50257, 50264, 50304)
 GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
 MOE_CHILD = "--moe-phases"  # ... and phases 20-21
 DEEPSEEK_CHILD = "--deepseek-phases"  # ... and phases 22-23
+FRONT_CHILD = "--front-phases"  # ... and phases 24-27
 GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq
-T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 3
+T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 2
 T_SCHEDULES = ("1f1b", "zb-h1", "zb-h2", "zb-1p", "zb-2p", "zb-v", "v-min", "v-half")
 T_PROFILED = ("zb-h1", "zb-v")  # one chunk a stage, and two on the V placement
 T_MEM_LIMIT_GB = 75.0  # above this peak, the schedule runs again at seq 512
@@ -394,6 +442,16 @@ WGRAD_DS = (("deepseek wdq", 7168, 1536), ("deepseek wuq", 1536, 24576),
             ("deepseek wo", 16384, 7168), ("deepseek swu,swg", 7168, 2048),
             ("deepseek swd", 2048, 7168))
 WGRAD_DS_FP32 = (("deepseek router", 7168, 16),)
+# ... and of llava-next-mistral-7b's blocks (GQA: wk and wv are 1024 wide;
+# N = 576 patches + 1024 tokens) and its front_proj (1024 -> 4096, N = the
+# 576 patches), and of whisper-tiny's encdec blocks: every attention
+# product (384, 384), the mlp's (384, 1536) and (1536, 384), at the
+# encoder's N = 1500 (its front_proj's and the cross-attention's k and v
+# too) and at the decoder's N = 448
+WGRAD_LLAVA = (("llava wq,wo", 4096, 4096), ("llava wk,wv", 4096, 1024),
+               ("llava wu,wg", 4096, 14336), ("llava wd", 14336, 4096))
+WGRAD_LLAVA_FRONT = (1024, 4096)
+WGRAD_WHISPER = (("wq,wk,wv,wo", 384, 384), ("wu,wg", 384, 1536), ("wd", 1536, 384))
 # the routers' tolerance: each is held at the stock TOL[float32] against an
 # fp64 sum, and qwen2-moe's also against the plain version.  deepseek's
 # router is held against the plain version at 1e-4 absolute (1e-5
@@ -451,6 +509,45 @@ DS_CONSIST_REL_L2 = 2.6e-2
 # fidelity before its first run
 DT_LAYERS, DT_P, DT_EXPERTS, DT_VOCAB = 2, 2, 16, 32768
 DS_TRAIN = dict(tag="train-deepseek-v3", p=DT_P, schedules=("zb-h1", "zb-h2"))
+# llava-next-mistral-7b training (phase 25): full width (its 7.25 B
+# parameters would need ~100 GB of weights, moments and accumulators), p=2,
+# m=8 microbatches of 1 x (576 patches + 1024 tokens), zb-h1 and zb-v; the
+# depth is the deepest of LT_DEPTHS whose priced one-card graph total
+# (``HBMPlanner.one_card_bytes``, measured fidelity, the calibration
+# record's remainder) stays within LT_PRICE_GIB of the card's 80 GB.  6
+# layers are no candidate: the V placement's 4 groups would hold 8 layer
+# slots, 2 of them padded, which the seed-0 relay onto it refuses (the
+# linear placement holds 6)
+LT_DEPTHS, LT_P, LT_PRICE_GIB = (8, 4), 2, 70.0
+LLAVA_TRAIN = dict(tag="train-llava", p=LT_P, schedules=("zb-h1", "zb-v"), seq=T_SEQ)
+# whisper-tiny training (phase 24): full width and depth (4 joint blocks),
+# p=2, m=8 microbatches of 1 x (1500 frames + 448 tokens, its decoder's
+# length), zb-h1 and zb-v
+WT_SEQ = 448
+WHISPER_TRAIN = dict(tag="train-whisper", p=2, schedules=("zb-h1", "zb-v"), seq=WT_SEQ)
+# llava serving (phase 26): full width and depth (32 layers, 7.25 B
+# parameters, 14.5 GB in bf16), p=4, phase 5's groups and batch, 576
+# patches + PROMPT tokens, NEW greedy tokens.  Its decode-vs-prefill limit,
+# derived before any run of it as gemma2's is: phase 6's reading puts the
+# card's bf16 step at 0.0283 / sqrt(48) = 4.1e-3 a sublayer (H100, 700 W,
+# every run); llava's 64 sublayers (32 x attn + mlp) walk to sqrt(64) x
+# 4.1e-3 = 3.3e-2, and twice that is the limit.  The max bound scales
+# phase 6's CONSIST_MAX_ABS (0.25 at a 3e-2 limit, logits of std ~0.02 x
+# sqrt(2048) at the init's head scale) to this limit and to llava's logits
+# (std ~0.02 x sqrt(4096)): 0.25 x (6.6e-2 / 3e-2) x sqrt(2) = 0.78, which
+# an error of O(1) in a few logits still passes.  A patch position the
+# cache dropped or a rope position off by the patches moves the logits by
+# O(1) of their norm
+LS_P, LS_CONSIST_REL_L2, LS_CONSIST_MAX_ABS = 4, 6.6e-2, 0.78
+# whisper serving (phase 27): full width and depth, p=2, phase 5's groups
+# and batch, 1500 frames, 432-token prompts and 16 new tokens: the
+# decoder's 448 positions.  Its limit by the same rule: the encoder stream
+# is the same in both prefills (its shapes do not depend on the prompt),
+# so the walk runs over the decoder's 12 sublayers (4 x self-attention,
+# cross-attention, mlp): sqrt(12) x 4.1e-3 = 1.4e-2, twice that 2.8e-2,
+# rounded up to 3e-2; the max bound scales CONSIST_MAX_ABS to whisper's
+# logits (std ~0.02 x sqrt(384)): 0.25 x sqrt(384 / 2048) = 0.108
+WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS = 2, 432, 3e-2, 0.108
 # later full-width losses across schedules: the embedding gradient is a
 # CUDA index_add_ (atomics, no fixed order), so it differs between runs by
 # fp32 rounding (~1e-7 relative); AdamW's first steps are nearly
@@ -493,7 +590,7 @@ L_BUDGET_MB, L_STEPS = 36864, 4
 # relative), and every later loss and grad norm, within 1e-6 relative; it
 # runs G_STEPS steps, the first T_STEPS against phase 9, and its step time is
 # the median of the G_STEPS - 1 replayed steps after the capturing one
-G_RTOL, G_STEPS = 1e-6, 8
+G_RTOL, G_STEPS = 1e-6, 4
 # the driver's failure replay: full width, 1 layer a stage (a 6.3 GB
 # checkpoint against the full depth's 19 GB; 2 a stage, 8.8 GB, until the
 # moe phases lengthened the script), a failure at step 3 restored
@@ -509,8 +606,10 @@ R_SCHEDULE, R_LAYERS_PER_STAGE, R_STEPS, R_EVERY, R_FAIL_AT, R_RTOL = "zb-h1", 1
 # the peak, so the term tracks the card and is no blanket constant
 PLAN_OVERSHOOT_MAX = 0.10
 # ... and on runs the calibration never saw: internlm2 at seq 512 (M_B 0.41
-# of the calibration cell's) under the graph executor
-H_SEQ, H_SCHEDULES, H_STEPS = 512, ("zb-h1", "zb-v"), 2
+# of the calibration cell's) under the graph executor, on the V placement
+# (two chunks a stage: two slot sizes priced; zb-h1's held-out run, its
+# one-chunk twin, was cut for the script's time)
+H_SEQ, H_SCHEDULES, H_STEPS = 512, ("zb-v",), 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -669,6 +768,8 @@ def phase_kernels(cfg_full, cfg_red):
     d2 = get_config(GPT3).d_model
     check(get_config(GEMMA2).d_model == d2, "gpt3-1.5b and gemma2-2b differ in width")
     d3 = get_config(DEEPSEEK).d_model
+    lv, wh = get_config(LLAVA), get_config(WHISPER)
+    n_lv, n_wh = front_spec(lv)[1], front_spec(wh)[1]
     rmsnorm_sweep()
     shapes = [  # (label, N rows, H, x dtype, g dtype, the path the main path takes or None)
         ("prefill", B * PROMPT, d, bf16, bf16, "bulk"),
@@ -680,6 +781,19 @@ def phase_kernels(cfg_full, cfg_red):
         ("gemma2-decode", GS_B, d2, bf16, bf16, "latency"),
         ("deepseek-prefill", B * PROMPT, d3, bf16, bf16, "bulk"),
         ("deepseek-decode", B, d3, bf16, bf16, "latency"),
+        # llava: its blocks' rows in training (patches and tokens) and its
+        # sink's (tokens), prefill's blocks, decode's and the prefill sink's
+        ("llava-train", T_B * (n_lv + T_SEQ), lv.d_model, bf16, bf16, "bulk"),
+        ("llava-sink", T_B * T_SEQ, lv.d_model, bf16, bf16, "bulk"),
+        ("llava-prefill", B * (n_lv + PROMPT), lv.d_model, bf16, bf16, "bulk"),
+        ("llava-decode", B, lv.d_model, bf16, bf16, "latency"),
+        # whisper: the encoder's and the decoder's rows (the decoder's also
+        # its sink's) in training and in prefill, and decode's
+        ("whisper-encoder", T_B * n_wh, wh.d_model, bf16, bf16, "bulk"),
+        ("whisper-decoder", T_B * WT_SEQ, wh.d_model, bf16, bf16, "bulk"),
+        ("whisper-prefill-encoder", B * n_wh, wh.d_model, bf16, bf16, "bulk"),
+        ("whisper-prefill-decoder", B * WS_PROMPT, wh.d_model, bf16, bf16, "bulk"),
+        ("whisper-decode", B, wh.d_model, bf16, bf16, "latency"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -754,13 +868,15 @@ def _routes():
 def phase_reduced(cfg, prompt=RED_PROMPT):
     spec = RunSpec(p=RED_P, n_chunks=1, microbatch=RED_B, seq_len=prompt, m=RED_M)
     stacked, shared = init_params(cfg, spec, Placement.linear(RED_P), seed=1, device="cpu")
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (RED_M, RED_B, prompt))
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab, (RED_M, RED_B, prompt))
+    front = draw_front(cfg, rng, RED_M, RED_B)  # a vlm's patches, an encdec's frames
     with _routes() as cpu_routes:
-        on_cpu = serve(cfg, stacked, shared, prompts, p=RED_P, new_tokens=RED_NEW)
+        on_cpu = serve(cfg, stacked, shared, prompts, p=RED_P, new_tokens=RED_NEW, front=front)
     to_cuda = lambda a: a.to("cuda")  # noqa: E731
     with _routes() as gpu_routes:
         on_gpu = serve(cfg, tree_map(to_cuda, stacked), tree_map(to_cuda, shared), prompts,
-                       p=RED_P, new_tokens=RED_NEW)
+                       p=RED_P, new_tokens=RED_NEW, front=front)
     errs = []
     for a, b in zip(on_gpu.logits, on_cpu.logits):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
@@ -781,10 +897,16 @@ def phase_reduced(cfg, prompt=RED_PROMPT):
           f"tokens identical ({on_gpu.tokens.numel()}){routing}")
 
 
+def _norms_per_group(cfg, p, per_kind):
+    blocks, _ = group_layout(cfg, p, 1)
+    return p * sum(per_kind[k] for kinds in blocks for k in kinds) + 1  # + sink
+
+
 def expected_norm_launches(cfg, p, m, steps):
-    blocks, g = group_layout(cfg, p, 1)
-    per_group = p * sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds) + 1  # + sink
-    return steps * m * per_group
+    """RMSNorm launches of a serve call of ``steps`` steps: a prefill, then
+    ``steps - 1`` decode steps, m groups each."""
+    return m * (_norms_per_group(cfg, p, NORMS_PER_KIND)
+                + (steps - 1) * _norms_per_group(cfg, p, DECODE_NORMS_PER_KIND))
 
 
 def expected_serve_paths(cfg, p, m, new_tokens):
@@ -814,6 +936,16 @@ def _serve_counted(what, cfg, p, m, new_tokens, run):
     return res, launches, by_path
 
 
+def _check_served(cfg, res, m, b, new_tokens):
+    """A serve call's output: finite logits (m, b, V) at every step and
+    greedy tokens (m, b, new_tokens + 1) inside the vocabulary."""
+    for lg in res.logits:
+        check(lg.shape == (m, b, cfg.vocab), f"{cfg.name} logits shape {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg.float()).all()), f"{cfg.name}: non-finite logits")
+    check(res.tokens.shape == (m, b, new_tokens + 1), f"tokens shape {tuple(res.tokens.shape)}")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
+
+
 def phase_serve(cfg):
     spec = RunSpec(p=P, n_chunks=1, microbatch=B, seq_len=PROMPT, m=M)
     t0 = time.perf_counter()
@@ -829,11 +961,7 @@ def phase_serve(cfg):
         "serve", cfg, P, M, NEW, lambda: serve(cfg, stacked, shared, prompts, p=P, new_tokens=NEW,
                                                log=lambda s: print(f"[serve] {s}")))
     want = expected_norm_launches(cfg, P, M, 1 + NEW)
-    for lg in res.logits:
-        check(lg.shape == (M, B, cfg.vocab), f"logits shape {tuple(lg.shape)}")
-        check(bool(torch.isfinite(lg.float()).all()), "non-finite logits")
-    check(res.tokens.shape == (M, B, NEW + 1), f"tokens shape {tuple(res.tokens.shape)}")
-    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
+    _check_served(cfg, res, M, B, NEW)
     decode_ms = [s * 1e3 for s in res.decode_s]
     print(f"[serve] p={P} m={M} b={B} prompt={PROMPT} new={NEW}: "
           f"prefill_ms={res.prefill_s * 1e3:.1f} "
@@ -849,20 +977,20 @@ def phase_serve(cfg):
 
 
 def phase_consistency(cfg, stacked, shared, prompts, res, p=P, limit=CONSIST_REL_L2,
-                      tag="consistency"):
+                      tag="consistency", front=None, max_abs=CONSIST_MAX_ABS):
     s = prompts.shape[-1]
     longer = np.concatenate([prompts, res.tokens[..., :1].cpu().numpy()], axis=-1)
-    res2 = serve(cfg, stacked, shared, longer, p=p, new_tokens=0)
+    res2 = serve(cfg, stacked, shared, longer, p=p, new_tokens=0, front=front)
     dec, ref = res.logits[1].float(), res2.logits[0].float()
     rel = float((dec - ref).norm() / ref.norm())
     mx = float((dec - ref).abs().max())
     control = float((res.logits[0].float() - ref).norm() / ref.norm())  # one position off
     agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
     print(f"[{tag}] decode@{s} vs prefill of {s + 1}: rel_l2={rel:.3g} "
-          f"(limit {limit}) max_abs={mx:.3g} (limit {CONSIST_MAX_ABS}) "
+          f"(limit {limit}) max_abs={mx:.3g} (limit {max_abs}) "
           f"top1_agree={agree:.3f}; control, prefill@{s - 1} vs it: rel_l2={control:.3g}; "
           f"prefill of {s + 1}: {res2.prefill_s * 1e3:.1f} ms")
-    check(rel <= limit and mx <= CONSIST_MAX_ABS, f"{cfg.name}: prefill->decode consistency")
+    check(rel <= limit and mx <= max_abs, f"{cfg.name}: prefill->decode consistency")
 
 
 def wgrad_bound_ms(n: int, h: int, f: int, in_dtype):
@@ -899,9 +1027,14 @@ def phase_kernels_wgrad(cfg_red):
     ragged N, fp32 (the reduced model's path) and ragged shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     n = T_B * T_SEQ
+    n_lv, n_wh = front_spec(get_config(LLAVA))[1], front_spec(get_config(WHISPER))[1]
     shapes = [(name, n, h, f, bf16)
               for name, h, f in WGRAD_MAIN + WGRAD_GPT3 + WGRAD_MOE + WGRAD_DS] + [
         (name, n, h, f, f32) for name, h, f in WGRAD_MOE_FP32 + WGRAD_DS_FP32] + [
+        (name, T_B * (n_lv + T_SEQ), h, f, bf16) for name, h, f in WGRAD_LLAVA] + [
+        ("llava front_proj", T_B * n_lv, *WGRAD_LLAVA_FRONT, bf16)] + [
+        (f"whisper {stream}{name}", rows, h, f, bf16) for stream, rows in (
+            ("enc ", T_B * n_wh), ("dec ", T_B * WT_SEQ)) for name, h, f in WGRAD_WHISPER] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -916,7 +1049,7 @@ def phase_kernels_wgrad(cfg_red):
         g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
-        if label.startswith(("gpt3", "qwen2-moe", "deepseek")):  # a main-path W op: bf16 on wgmma, fp32 on fma
+        if label.startswith(("gpt3", "qwen2-moe", "deepseek", "llava", "whisper")):  # a main-path W op: bf16 on wgmma, fp32 on fma
             want_path = "wgmma" if dt == bf16 else "fma"
             check(path == want_path, f"the W op {label} takes the {path} path, not {want_path}")
         ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
@@ -1017,10 +1150,12 @@ def expected_train_launches(cfg, p, n_chunks, m):
     """Per training step: (wgrad_accum, rmsnorm) launches the port's
     structure implies -- one wgrad per deferred linear per W op, one norm
     per attn/mlp forward plus the sink's, per microbatch, over every
-    (stage, chunk) group."""
+    (stage, chunk) group; a vlm or encdec model's front_proj adds one wgrad
+    a microbatch."""
     blocks, _ = group_layout(cfg, p, n_chunks)
     groups = p * n_chunks
     wgrad = m * groups * sum(LINEARS_PER_KIND[k] for kinds in blocks for k in kinds)
+    wgrad += m * (front_spec(cfg) is not None)
     norms = m * (groups * sum(NORMS_PER_KIND[k] for kinds in blocks for k in kinds) + 1)
     return wgrad, norms
 
@@ -1205,7 +1340,7 @@ def phase_train(cfg):
     """Full-width training under each schedule, from the same weights."""
     out = {}
     for name in T_SCHEDULES:
-        seq = T_SEQ
+        seq, t_sched = T_SEQ, time.perf_counter()
         res, launches, peak_gb, base_gb, plan, state, mem = _train_full(cfg, name, seq)
         if peak_gb > T_MEM_LIMIT_GB:
             print(f"[train] {name}: peak {peak_gb:.1f} GB > {T_MEM_LIMIT_GB} GB at seq {seq}; "
@@ -1246,6 +1381,7 @@ def phase_train(cfg):
             phase_profile_train(name, plan, state)
         del state
         torch.cuda.empty_cache()
+        print(f"[train] {name}: {time.perf_counter() - t_sched:.1f} s in all")
     return out
 
 
@@ -1301,17 +1437,24 @@ def phase_train_checks(cfg, runs):
     _pipeline_vs_plain(cfg, "train-checks", v_check=True)
 
 
-def _pipeline_vs_plain(cfg, tag, v_check=False, keep=False, p=T_P):
+def _pipeline_vs_plain(cfg, tag, v_check=False, keep=False, p=T_P, seq=T_SEQ):
     """The step-0 gradient of the B/W-split pipeline (an eager zb-h1 walk at
     p stages, seed-0 weights, batch 0) against plain autograd through the
     same model; with ``v_check`` zb-v's (relaid weights) against the walk's
-    as well.  With ``keep`` returns the walk's gradient leaves, keyed, on
-    the host, and its loss."""
+    as well.  A vlm or encdec model gets random patches or frames here (the
+    launcher's are zeros), so front_proj's gradient is not zero.  With
+    ``keep`` returns the walk's gradient leaves, keyed, on the host, and
+    its loss."""
     sched = make_schedule("zb-h1", p, T_M)
-    spec = RunSpec(p=p, n_chunks=1, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+    spec = RunSpec(p=p, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
     stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
-    data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=T_SEQ, vocab=cfg.vocab))
-    side = side_from_batch(data.batch_at(0), spec, DEV)
+    data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
+    side = side_from_batch(data.batch_at(0), spec, DEV, cfg)
+    front = front_spec(cfg)
+    if front is not None:
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        side[front[0]] = torch.randn(side[front[0]].shape, generator=gen,
+                                     device=DEV).to(cfg.torch_dtype())
     grad_fn = PipelineExecutor(build_program(cfg, spec, sched.placement),
                                compile_plan(sched)).build_grad_fn()
     g_pipe, sg_pipe, loss_pipe = grad_fn(stacked, shared, side)
@@ -1400,26 +1543,28 @@ def _check_v_grads(cfg, stacked, shared, side, g_lin, sg_lin, loss_lin):
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(name, plan, state, tag="profile-train", opts=None):
+def phase_profile_train(name, plan, state, tag="profile-train", opts=None, cfg=None):
     """Device busy share of one full-width training step under ``name``
     (from fresh AdamW moments, or ``opts`` = (opt, shared_opt)); returns
     {kernel name: launches} of that step as the profiler saw them (empty
-    when it recorded no device activity)."""
+    when it recorded no device activity).  ``cfg`` gives a vlm or encdec
+    model its front's side input."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked, shared, spec, sched, step, data = state
     opt, sopt = opts if opts is not None else (adamw.init(stacked), adamw.init(shared))
-    side = side_from_batch(data.batch_at(T_STEPS), spec, DEV)
+    side = side_from_batch(data.batch_at(T_STEPS), spec, DEV, cfg)
     torch.cuda.synchronize()
+    t_phase = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(stacked, shared, opt, sopt, side)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = {}
-    for e in prof.events():
-        if e.name.startswith("train_step.") and e.device_type == torch.autograd.DeviceType.CPU:
-            spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for start, end, span, device in _profile_events(prof):
+        if span.startswith("train_step.") and device == torch.autograd.DeviceType.CPU:
+            spans[span] = spans.get(span, 0.0) + (end - start)
     print(f"[{tag}] {name} host spans: " + ", ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in sorted(spans.items())))
     # the spans show up on the device timeline too, as annotations: not kernels
@@ -1440,13 +1585,27 @@ def phase_profile_train(name, plan, state, tag="profile-train", opts=None):
           f"activities; wgrad_accum kernels {wg / 1e3:.1f} ms = {wg / total:.1%} of device time")
     for kernel, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[{tag}] {us / total:6.1%} {us / 1e3:9.2f} ms {n_by_name[kernel]:6d}x  {kernel[:100]}")
+    print(f"[{tag}] {name}: profiled step and its reading took "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return n_by_name
+
+
+def _profile_events(prof):
+    """(start_us, end_us, name, device type) of every event of a profile,
+    read from its kineto results as recorded: ``prof.events()`` would build
+    the profiler's event tree first, which took ~30 s of host time for one
+    eager training step's ~10^5 events (H100, 700 W) and measures nothing
+    more."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    return [((e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3, e.name(), e.device_type())
+            for e in res.events()]
 
 
 def _device_intervals(prof):
     """(start_us, end_us, name) of every device activity in a profile."""
-    return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(start, end, name) for start, end, name, device in _profile_events(prof)
+            if device == torch.autograd.DeviceType.CUDA]
 
 
 def _union_us(intervals) -> float:
@@ -1465,7 +1624,7 @@ def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 4):
     it shows is an upper bound on the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
 
-    runs = {}
+    runs, t_phase = {}, time.perf_counter()
     for new in (0, new_tokens):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1487,6 +1646,8 @@ def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 4):
     total = sum(by_name.values())
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
+    print(f"[profile] both profiled runs and their reading took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def _gib(x: float) -> str:
@@ -1889,7 +2050,7 @@ def phase_train_graph(cfg, runs):
     {schedule: run for phase 13's graph gate})."""
     out, mem_runs = {}, {}
     for name in T_SCHEDULES:
-        eager = runs[name]
+        eager, t_sched = runs[name], time.perf_counter()
         seq, sched, plan = eager["seq"], eager["sched"], eager["plan"]
         per_step = expected_train_launches(cfg, T_P, sched.n_chunks, T_M)
         stacked, shared, spec, data = _init_full(cfg, sched, seq)
@@ -1980,6 +2141,7 @@ def phase_train_graph(cfg, runs):
         out[name] = _add_counts(walks[0][0], walks[1][0])
         del step, gf, stacked, shared, res
         torch.cuda.empty_cache()
+        print(f"[train-graph] {name}: {time.perf_counter() - t_sched:.1f} s in all")
     return out, mem_runs
 
 
@@ -2055,11 +2217,7 @@ def phase_serve_gemma2(cfg):
         lambda: serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=GS_NEW,
                       log=lambda s: print(f"[serve-gemma2] {s}")))
     want = expected_norm_launches(cfg, GS_P, GS_M, 1 + GS_NEW)
-    for lg in res.logits:
-        check(lg.shape == (GS_M, GS_B, cfg.vocab), f"gemma2 logits shape {tuple(lg.shape)}")
-        check(bool(torch.isfinite(lg.float()).all()), "gemma2: non-finite logits")
-    check(res.tokens.shape == (GS_M, GS_B, GS_NEW + 1), f"tokens shape {tuple(res.tokens.shape)}")
-    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
+    _check_served(cfg, res, GS_M, GS_B, GS_NEW)
     decode_ms = [s * 1e3 for s in res.decode_s]
     print(f"[serve-gemma2] p={GS_P} m={GS_M} b={GS_B} prompt={GS_PROMPT} new={GS_NEW}: "
           f"prefill_ms={res.prefill_s * 1e3:.1f} "
@@ -2213,7 +2371,7 @@ def phase_train_gpt3(cfg):
     ref, loss_ref = _pipeline_vs_plain(cfg, "train-gpt3", keep=True)
     print(f"[train-gpt3] eager zb-h1 walk and plain autograd in {time.perf_counter() - t0:.1f}s")
     runs = {name: _gpt3_schedule(cfg, name, ref if name == "zb-h1" else None, loss_ref)
-            for name in T_SCHEDULES}
+            for name in GPT3_SCHEDULES}
     del ref
     band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
     for seq in sorted({r["seq"] for r in runs.values()}, reverse=True):
@@ -2415,11 +2573,7 @@ def phase_serve_moe(cfg, tag="serve-qwen2-moe", p=P, limit=MOE_CONSIST_REL_L2):
         lambda: serve(cfg, stacked, shared, prompts, p=p, new_tokens=NEW,
                       log=lambda s: print(f"[{tag}] {s}")))
     want = expected_norm_launches(cfg, p, M, 1 + NEW)
-    for lg in res.logits:
-        check(lg.shape == (M, B, cfg.vocab), f"{cfg.name} logits shape {tuple(lg.shape)}")
-        check(bool(torch.isfinite(lg.float()).all()), f"{cfg.name}: non-finite logits")
-    check(res.tokens.shape == (M, B, NEW + 1), f"tokens shape {tuple(res.tokens.shape)}")
-    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token out of range")
+    _check_served(cfg, res, M, B, NEW)
     decode_ms = [x * 1e3 for x in res.decode_s]
     print(f"[{tag}] p={p} m={M} b={B} prompt={PROMPT} new={NEW}: "
           f"prefill_ms={res.prefill_s * 1e3:.1f} "
@@ -2475,9 +2629,9 @@ def phase_serve_moe(cfg, tag="serve-qwen2-moe", p=P, limit=MOE_CONSIST_REL_L2):
     return launches, by_path
 
 
-def _moe_run(cfg, tr, name, mode, seq, eager=None):
-    """One schedule of phase 21 or 23 (``tr``: its tag, p and schedules)
-    under ``mode``: the seed-0 model (relaid onto the V placement when it
+def _cut_run(cfg, tr, name, mode, seq, eager=None):
+    """One schedule of phase 21, 23, 24 or 25 (``tr``: its tag, p,
+    schedules and seq) under ``mode``: the seed-0 model (relaid onto the V placement when it
     has two chunks), the AdamW state allocated, a first walk whose gradient
     is kept on the host (in graph mode the capture and its replay), then
     MT_STEPS driver steps from that state, the clip off; the memory window
@@ -2501,7 +2655,8 @@ def _moe_run(cfg, tr, name, mode, seq, eager=None):
     walks = _count_walks(step.grad_fn) if mode == "graph" else None
     _reset_counts()
     t0 = time.perf_counter()
-    g, sg, loss0 = step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, DEV))
+    g, sg, loss0 = step.grad_fn(stacked, shared,
+                                side_from_batch(data.batch_at(0), spec, DEV, cfg))
     torch.cuda.synchronize()
     first_s, first = time.perf_counter() - t0, _read_counts()
     keyed = [(k, t.cpu()) for k, t in keyed_leaves((g, sg))]
@@ -2518,7 +2673,7 @@ def _moe_run(cfg, tr, name, mode, seq, eager=None):
     if mode == "graph" and name == tr["schedules"][0]:  # one more step, profiled, its moments
         phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
                             tag=tag.replace("train", "profile"),
-                            opts=(state["opt"], state["shared_opt"]))
+                            opts=(state["opt"], state["shared_opt"]), cfg=cfg)
     del state
     what = f"{cfg.name} {name}"
     if mode == "eager":
@@ -2567,25 +2722,28 @@ def _moe_run(cfg, tr, name, mode, seq, eager=None):
     return out
 
 
-def _moe_schedule(cfg, tr, name, mode, eager=None):
-    """``_moe_run`` at seq T_SEQ, again at 512 when its allocated peak passes
-    T_MEM_LIMIT_GB (PERF.md §2's rule), saying so."""
-    seq = eager["seq"] if eager is not None else T_SEQ
-    run = _moe_run(cfg, tr, name, mode, seq, eager)
+def _cut_schedule(cfg, tr, name, mode, eager=None):
+    """``_cut_run`` at the seq of ``tr`` (default T_SEQ), again at 512 when
+    its allocated peak passes T_MEM_LIMIT_GB at seq T_SEQ (PERF.md §2's
+    rule), saying so."""
+    seq = eager["seq"] if eager is not None else tr.get("seq", T_SEQ)
+    run = _cut_run(cfg, tr, name, mode, seq, eager)
     if run["peak_gb"] > T_MEM_LIMIT_GB and seq == T_SEQ:
         print(f"[{tr['tag']}] {name} {mode}: peak {run['peak_gb']:.1f} GB > {T_MEM_LIMIT_GB} "
               f"GB at seq {seq}; running it again at seq 512")
         del run
-        run = _moe_run(cfg, tr, name, mode, 512)
+        run = _cut_run(cfg, tr, name, mode, 512)
     return run
 
 
-def phase_train_moe(cfg, tr=MOE_TRAIN):
+def phase_train_cut(cfg, tr=MOE_TRAIN):
     """Phase 21 (qwen2-moe-a2.7b at full width, 4 layers, p=2, zb-h1 and
-    zb-v) and phase 23 (deepseek-v3-671b's cut, p=2, zb-h1 and zb-h2): both
-    schedules of ``tr`` eager then graph, and each run's reserved peak
-    gated against its priced one-card total as phase 13 gates the dense
-    runs; returns {run: both kernels' launches}.  The runs come first in
+    zb-v), phase 23 (deepseek-v3-671b's cut, p=2, zb-h1 and zb-h2), phase
+    24 (whisper-tiny whole, p=2, zb-h1 and zb-v) and phase 25
+    (llava-next-mistral-7b at full width and a depth cut, p=2, zb-h1 and
+    zb-v): both schedules of ``tr`` eager then graph, and each run's
+    reserved peak gated against its priced one-card total as phase 13
+    gates the dense runs; returns {run: both kernels' launches}.  The runs come first in
     their process (the children run this phase before their serving one)
     and in ``launch/calibrate.py``'s order, every schedule eager and then
     every one under the graph, so each run's memory window follows what
@@ -2596,7 +2754,7 @@ def phase_train_moe(cfg, tr=MOE_TRAIN):
     runs = {}
     for mode in ("eager", "graph"):
         for name in names:
-            runs[(name, mode)] = _moe_schedule(cfg, tr, name, mode, runs.get((name, "eager")))
+            runs[(name, mode)] = _cut_schedule(cfg, tr, name, mode, runs.get((name, "eager")))
     for r in runs.values():
         r.pop("keyed")
     band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
@@ -2638,9 +2796,91 @@ def phase_train_moe(cfg, tr=MOE_TRAIN):
     print(f"[{tag}] {cfg.name}: overshoot over {len(overs)} runs min {_gib(min(overs))} max "
           f"{_gib(max(overs))} GiB")
     t0 = time.perf_counter()
-    _pipeline_vs_plain(cfg, tag, p=p)
+    _pipeline_vs_plain(cfg, tag, p=p, seq=tr.get("seq", T_SEQ))
     print(f"[{tag}] eager zb-h1 walk and plain autograd in {time.perf_counter() - t0:.1f}s")
     return {f"{tag}-{n}-{mode}": r["launches"] for (n, mode), r in runs.items()}
+
+
+# --------------------------------------------------------------------- #
+# phases 24-27: whisper-tiny and llava-next-mistral-7b, the fronted families
+# --------------------------------------------------------------------- #
+def _llava_depth(cfg):
+    """The training cut's depth: the deepest of LT_DEPTHS whose priced
+    one-card total under the graph executor (``HBMPlanner.one_card_bytes``,
+    measured fidelity, the slots measured on the card, the calibration
+    record's remainder), the larger of zb-h1's and zb-v's, is at most
+    LT_PRICE_GIB; each price printed before any step runs."""
+    names = LLAVA_TRAIN["schedules"]
+    for layers in LT_DEPTHS:
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        planner = HBMPlanner(cut, p=LT_P, m=T_M, microbatch=T_B, seq_len=T_SEQ,
+                             executor_mode="graph", program_factory=stage_program_factory(
+                                 cut, LT_P, T_M, T_B, T_SEQ, DEV))
+        priced = {n: planner.one_card_bytes(make_schedule(n, LT_P, T_M)) for n in names}
+        del planner
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = max(one.total for one in priced.values())
+        for n, one in priced.items():
+            print(f"[train-llava] {layers} layers, p={LT_P}, {n} graph: priced one-card total "
+                  f"{one.report()}")
+        if worst <= LT_PRICE_GIB * 2**30:
+            print(f"[train-llava] depth {layers} of {cfg.n_layers}: priced at most "
+                  f"{_gib(worst)} GiB <= {LT_PRICE_GIB} GiB")
+            return layers
+        print(f"[train-llava] depth {layers}: priced {_gib(worst)} GiB > {LT_PRICE_GIB} GiB")
+    check(False, f"no depth of {LT_DEPTHS} prices llava's training within {LT_PRICE_GIB} GiB")
+
+
+def phase_serve_front(cfg, tag, p, prompt, limit, max_abs):
+    """Phase 26 (llava-next-mistral-7b at full width and depth) and phase 27
+    (whisper-tiny whole): served at phase 5's groups, batch and new tokens,
+    prompts of ``prompt`` tokens behind the front (patches or frames from
+    the seed, as the launcher draws them); prefill and decode ms, tok/s,
+    RMSNorm launches == the structure's count (prefill blocks on bulk, the
+    sinks and decode on latency), then decoding token ``prompt`` against a
+    prefill of ``prompt + 1`` within ``limit`` and ``max_abs``.  Returns
+    the RMSNorm launches of the timed run, in all and by path."""
+    spec = RunSpec(p=p, n_chunks=1, microbatch=B, seq_len=prompt, m=M)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    stacked, shared = init_params(cfg, spec, Placement.linear(p), seed=0, device=DEV)
+    torch.cuda.synchronize()
+    leaves = tree_leaves((stacked, shared))
+    key, n_front, width = front_spec(cfg)
+    print(f"[{tag}] init {cfg.name} ({cfg.n_layers} layers of {'+'.join(cfg.block_pattern[0])}, "
+          f"d={cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv), d_ff={cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {n_front} {key} of {width}, {cfg.dtype}): "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB, on {DEV} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (M, B, prompt))
+    front = draw_front(cfg, rng, M, B)
+    serve(cfg, stacked, shared, prompts, p=p, new_tokens=1, front=front)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, by_path = _serve_counted(
+        tag, cfg, p, M, NEW,
+        lambda: serve(cfg, stacked, shared, prompts, p=p, new_tokens=NEW, front=front,
+                      log=lambda x: print(f"[{tag}] {x}")))
+    _check_served(cfg, res, M, B, NEW)
+    decode_ms = [x * 1e3 for x in res.decode_s]
+    cached = n_front if cfg.family == "vlm" else 0
+    print(f"[{tag}] p={p} m={M} b={B} {key}={n_front} prompt={prompt} new={NEW} (cache of "
+          f"{cached + prompt + NEW} positions, decode from position {cached + prompt}): "
+          f"prefill_ms={res.prefill_s * 1e3:.1f} "
+          f"decode_ms_per_step mean={np.mean(decode_ms):.2f} median={np.median(decode_ms):.2f} "
+          f"min={min(decode_ms):.2f} max={max(decode_ms):.2f} "
+          f"generated_tok_per_s={M * B * NEW / sum(res.decode_s):.1f} "
+          f"max_memory_allocated_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}; "
+          f"rmsnorm launches {launches} == expected {expected_norm_launches(cfg, p, M, 1 + NEW)}, "
+          f"by path {by_path}")
+    phase_consistency(cfg, stacked, shared, prompts, res, p=p, limit=limit, tag=tag,
+                      front=front, max_abs=max_abs)
+    del stacked, shared, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_path
 
 
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
@@ -2671,6 +2911,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     phase_card()
+    print(f"[time] build and card done at {time.perf_counter() - t_start:.1f}s")
     more = run_child(GPT3_CHILD, "gpt3_launches")
     print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     more.update(run_child(MOE_CHILD, "moe_launches"))
@@ -2678,21 +2919,32 @@ def main() -> int:
     more.update(run_child(DEEPSEEK_CHILD, "deepseek_launches"))
     print(f"[time] deepseek-v3 phases (child process) done at "
           f"{time.perf_counter() - t_start:.1f}s")
+    more.update(run_child(FRONT_CHILD, "front_launches"))
+    print(f"[time] whisper and llava phases (child process) done at "
+          f"{time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
+    print(f"[time] rmsnorm kernel phase done at {time.perf_counter() - t_start:.1f}s")
     wrows = phase_kernels_wgrad(cfg_red)
-    for arch in (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK):
+    print(f"[time] wgrad_accum kernel phase done at {time.perf_counter() - t_start:.1f}s")
+    for arch in RED_ARCHS:
         phase_reduced(get_reduced(arch), RED_PROMPTS[arch])
+    print(f"[time] reduced serving phase done at {time.perf_counter() - t_start:.1f}s")
     stacked, shared, prompts, res, serve_launches = phase_serve(cfg_full)
+    print(f"[time] serve phase (5) done at {time.perf_counter() - t_start:.1f}s")
     phase_consistency(cfg_full, stacked, shared, prompts, res)
     phase_profile(cfg_full, stacked, shared, prompts)
+    print(f"[time] internlm2 serving phases (5-7) done at {time.perf_counter() - t_start:.1f}s")
     del stacked, shared, res
     torch.cuda.empty_cache()
     gemma2_launches = phase_serve_gemma2(get_config(GEMMA2))
     print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f}s")
-    for arch in (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK):
+    for arch in RED_ARCHS:
         phase_train_reduced(get_reduced(arch))
+    print(f"[time] reduced training phase done at {time.perf_counter() - t_start:.1f}s")
     runs = phase_train(cfg_full)
+    print(f"[time] train phase (9) done at {time.perf_counter() - t_start:.1f}s")
     phase_train_checks(cfg_full, runs)
+    print(f"[time] train-checks phase (10) done at {time.perf_counter() - t_start:.1f}s")
     phase_train_noclip(cfg_full, runs)
     print(f"[time] training phases done at {time.perf_counter() - t_start:.1f}s")
     planners = phase_plan(cfg_full)
@@ -2704,6 +2956,7 @@ def main() -> int:
     print(f"[time] replay phase done at {time.perf_counter() - t_start:.1f}s")
     del planners
     more.update(run_child(GRAPH_CHILD, "graph_launches", runs))
+    print(f"[time] graph phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     more.update(run_child(HELDOUT_CHILD, "heldout_launches"))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
@@ -2750,12 +3003,13 @@ def gpt3_child_main() -> int:
     print(f"[time] gpt3 training phase done at {time.perf_counter() - t0:.1f}s (child)")
     counts = {f"train-gpt3-{n}": r["launches"] for n, r in runs.items()}
     counts["launcher-gpt3"] = phase_launch_gpt3(cfg, runs, planners)
+    print(f"[time] gpt3 launcher phase done at {time.perf_counter() - t0:.1f}s (child)")
     print(json.dumps({"gpt3_launches": counts}))
     return 0
 
 
 def moe_child_main() -> int:
-    """Phases 21 and 20, in that order (``phase_train_moe`` says why),
+    """Phases 21 and 20, in that order (``phase_train_cut`` says why),
     alone in this process; the last line is a JSON object with both
     kernels' launches of each run."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2763,7 +3017,7 @@ def moe_child_main() -> int:
     build.build()
     t0 = time.perf_counter()
     cfg = get_config(MOE)
-    counts = phase_train_moe(dataclasses.replace(cfg, n_layers=MT_LAYERS))
+    counts = phase_train_cut(dataclasses.replace(cfg, n_layers=MT_LAYERS))
     print(f"[time] qwen2-moe training phase done at {time.perf_counter() - t0:.1f}s (child)")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2775,7 +3029,7 @@ def moe_child_main() -> int:
 
 
 def deepseek_child_main() -> int:
-    """Phases 23 and 22, in that order (``phase_train_moe`` says why),
+    """Phases 23 and 22, in that order (``phase_train_cut`` says why),
     alone in this process; the last line is a JSON object with both
     kernels' launches of each run."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2783,7 +3037,7 @@ def deepseek_child_main() -> int:
     build.build()
     t0 = time.perf_counter()
     cfg = get_config(DEEPSEEK)
-    counts = phase_train_moe(cut_config(cfg, DT_LAYERS, DT_EXPERTS, DT_VOCAB), DS_TRAIN)
+    counts = phase_train_cut(cut_config(cfg, DT_LAYERS, DT_EXPERTS, DT_VOCAB), DS_TRAIN)
     print(f"[time] deepseek-v3 training phase done at {time.perf_counter() - t0:.1f}s (child)")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2792,6 +3046,35 @@ def deepseek_child_main() -> int:
     print(f"[time] deepseek-v3 serving phase done at {time.perf_counter() - t0:.1f}s (child)")
     counts["serve-deepseek-v3"] = (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)
     print(json.dumps({"deepseek_launches": counts}))
+    return 0
+
+
+def front_child_main() -> int:
+    """Phases 24-27: whisper-tiny's and llava's training phases first, each
+    in ``launch/calibrate.py``'s order (``phase_train_cut`` says why),
+    whisper's first, as small as it is, then both served; alone in this
+    process; the last line is a JSON object with both kernels' launches of
+    each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    whisper, llava = get_config(WHISPER), get_config(LLAVA)
+    counts = phase_train_cut(whisper, WHISPER_TRAIN)
+    print(f"[time] whisper training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    layers = _llava_depth(llava)
+    counts.update(phase_train_cut(dataclasses.replace(llava, n_layers=layers), LLAVA_TRAIN))
+    print(f"[time] llava training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = {k: 0 for k in wgrad_kernel.PATHS}
+    for cfg, tag, p, prompt, limit, max_abs in (
+            (llava, "serve-llava", LS_P, PROMPT, LS_CONSIST_REL_L2, LS_CONSIST_MAX_ABS),
+            (whisper, "serve-whisper", WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS)):
+        rms, rms_by_path = phase_serve_front(cfg, tag, p, prompt, limit, max_abs)
+        counts[tag] = (0, rms, zero, rms_by_path)
+        print(f"[time] {tag} phase done at {time.perf_counter() - t0:.1f}s (child)")
+    print(json.dumps({"front_launches": counts}))
     return 0
 
 
@@ -2839,8 +3122,10 @@ def run_child(flag, key, eager_runs=None):
     graph runs reserve up to ~80 GB of the card's 85, and after the
     internlm2 phases in this process they came within 1.1 GB of it;
     ``MOE_CHILD`` runs phases 20-21 next, for the same reason (28.6 GB of
-    weights to serve, ~60 GiB to train), and ``DEEPSEEK_CHILD`` phases
-    22-23 after it (50 GB of weights to serve, ~50-65 GiB to train).
+    weights to serve, ~60 GiB to train), ``DEEPSEEK_CHILD`` phases
+    22-23 after it (50 GB of weights to serve, ~50-65 GiB to train), and
+    ``FRONT_CHILD`` phases 24-27 after that (llava: 14.5 GB of weights to
+    serve, up to LT_PRICE_GIB to train).
     ``GRAPH_CHILD`` runs phase 16 and its gate against ``eager_runs``
     (phase 9's results, passed in a file), ``HELDOUT_CHILD`` the held-out
     runs: in this process, after phases 3-15, the graph runs reserved up to
@@ -2877,6 +3162,8 @@ if __name__ == "__main__":
         sys.exit(moe_child_main())
     if sys.argv[1:2] == [DEEPSEEK_CHILD]:
         sys.exit(deepseek_child_main())
+    if sys.argv[1:2] == [FRONT_CHILD]:
+        sys.exit(front_child_main())
     if sys.argv[1:2] == [GRAPH_CHILD]:
         sys.exit(graph_child_main(sys.argv[2]))
     if sys.argv[1:2] == [HELDOUT_CHILD]:

@@ -3,10 +3,11 @@
 Each module exposes ``CONFIG`` (the exact published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), as in
 ``src/repro/configs/``.  Input-shape cells are defined in ``shapes.py``.
-The port carries the dense family and the ``moe`` and ``mla`` kinds: of the JAX
-package's assigned architectures those in ``ARCH_IDS``, and the paper's
-models (``PAPER_IDS``).  The others raise ``NotImplementedError`` naming
-what they lack.
+The port carries the dense, moe (with the ``moe`` and ``mla`` kinds), vlm
+(the patch-embedding front) and encdec (the ``encdec`` kind) families: of
+the JAX package's assigned architectures those in ``ARCH_IDS``, and the
+paper's models (``PAPER_IDS``).  The two recurrent ones raise
+``NotImplementedError`` naming what they lack.
 """
 
 from importlib import import_module
@@ -19,20 +20,20 @@ __all__ = ["ARCH_IDS", "PAPER_IDS", "UNPORTED_ARCHS", "get_config", "get_reduced
 
 # the JAX package's assigned architectures that the port carries, in its order
 ARCH_IDS = [
+    "whisper_tiny",
     "deepseek_v3_671b",
     "qwen2_moe_a2_7b",
     "deepseek_67b",
     "minitron_8b",
     "gemma2_2b",
     "internlm2_1_8b",
+    "llava_next_mistral_7b",
 ]
 
 PAPER_IDS = ["gpt3_1_5b", "gpt3_6_2b", "gpt3_14_6b", "gpt3_28_3b"]
 
 # the rest of the JAX package's assigned architectures: what each lacks here
 UNPORTED_ARCHS = {
-    "whisper_tiny": "the encdec family (the encdec kind)",
-    "llava_next_mistral_7b": "the vlm family (its patch-embedding front)",
     "xlstm_350m": "the ssm family (the slstm and mlstm kinds)",
     "recurrentgemma_9b": "the hybrid family (the rglru kind)",
 }

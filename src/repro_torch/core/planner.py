@@ -65,7 +65,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..launch.steps import optimizer_transient_bytes
-from ..models.lm import RunSpec, build_program, init_params, side_inputs
+from ..models.lm import RunSpec, build_program, front_len, init_params, side_inputs
 from ..optim.sharding import zero1_state_bytes
 from ..tree import tree_leaves, tree_map
 from .executor import PipelineExecutor, slot_bytes
@@ -431,8 +431,11 @@ class HBMPlanner:
 
     # -- analytic inbox/sink estimates (model fidelity) ------------------ #
     def _act_msg_bytes(self) -> float:
+        """A channel message: the front's positions (vlm patches, encdec
+        frames) ride ahead of the tokens, as the JAX planner counts them."""
         dtype_bytes = self.bytes_1c.dtype_bytes or 4
-        return float(self.microbatch * self.seq_len * self.cfg.d_model * dtype_bytes)
+        s_total = front_len(self.cfg) + self.seq_len
+        return float(self.microbatch * s_total * self.cfg.d_model * dtype_bytes)
 
     def _sink_slot_bytes(self) -> Tuple[float, float]:
         """(sink residual, sink W-context) rough per-slot estimate: the

@@ -2,7 +2,8 @@
 
   python -m repro_torch.launch.calibrate [--arch internlm2_1_8b gpt3_1_5b] \\
       [--executor eager graph] [--out PATH] \\
-      [--layers N] [--p P] [--schedules zb-h1 zb-v] [--experts E] [--vocab V]
+      [--layers N] [--p P] [--schedules zb-h1 zb-v] [--experts E] [--vocab V] \\
+      [--seq-len S]
 
 Counterpart of the ``--calibration-out`` path of the JAX package's
 ``launch/dryrun.py`` (``write_calibration_table``), but not a dry run: for
@@ -26,11 +27,12 @@ smallest reuse over the schedules, a ceiling.
 
 A config too large for the card at the cell is measured at a cut:
 ``--layers`` (the depth), ``--p`` (the stages on the card), ``--experts``
-(the routed experts of a moe config) and ``--vocab`` replace the config's
-and the cell's; ``--schedules`` trains only those of the launcher's.  Every
-other width and the cell's m, microbatch and seq_len stay.  A record
+(the routed experts of a moe config), ``--vocab`` and ``--seq-len`` (the
+tokens a microbatch, after a vlm or encdec front) replace the config's and
+the cell's; ``--schedules`` trains only those of the launcher's.  Every
+other width and the cell's m and microbatch stay.  A record
 measured at a cut stores it under ``cut`` (the layers, p and schedules it
-ran, and the experts and vocab when cut), and ``weights_bytes`` /
+ran, and the experts, vocab and seq_len when cut), and ``weights_bytes`` /
 ``m_b_bytes`` are the cut's, so the planner scales the remainder from the
 cut to the run it prices.  Records are
 merged into the table (``configs/cuda_temp_calibration.json`` unless
@@ -156,7 +158,8 @@ def measure_run(cfg, step, stacked, shared, spec, data, steps: int):
     ({reserved, allocated, walk_reserved, walk_allocated} peaks, the last
     two at the first walk's end; losses)."""
     state = init_state(stacked, shared)
-    step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, shared["embed"].device))
+    step.grad_fn(stacked, shared,
+                 side_from_batch(data.batch_at(0), spec, shared["embed"].device, cfg))
     torch.cuda.synchronize()
     walk = dict(walk_reserved=torch.cuda.max_memory_reserved(),
                 walk_allocated=torch.cuda.max_memory_allocated())
@@ -190,10 +193,11 @@ def cut_config(cfg, layers: Optional[int] = None, experts: Optional[int] = None,
 def calibrate(archs: Sequence[str], modes: Sequence[str], log=print, *,
               layers: Optional[int] = None, p: Optional[int] = None,
               schedules: Optional[Sequence[str]] = None, experts: Optional[int] = None,
-              vocab: Optional[int] = None) -> list:
+              vocab: Optional[int] = None, seq_len: Optional[int] = None) -> list:
     """Train the launcher's schedules (``schedules``, default all) of each
-    arch under each executor mode on the card at :data:`CELL` (its ``p``
-    replaced by ``p``, the config cut by :func:`cut_config`) and return one
+    arch under each executor mode on the card at :data:`CELL` (its ``p`` and
+    ``seq_len`` replaced by ``p`` and ``seq_len``, the config cut by
+    :func:`cut_config`) and return one
     :func:`calibration_record` for each pair; a record of a cut stores
     it."""
     if not torch.cuda.is_available():
@@ -205,8 +209,9 @@ def calibrate(archs: Sequence[str], modes: Sequence[str], log=print, *,
     unknown = [n for n in names if n not in SCHEDULES]
     if unknown:
         raise ValueError(f"unknown schedules {unknown} (the launcher's: {sorted(SCHEDULES)})")
-    cell = dict(CELL, p=p or CELL["p"])
-    cutting = (layers, p, schedules, experts, vocab) != (None,) * 5
+    given = dict(experts=experts, vocab=vocab, seq_len=seq_len)  # the cut's optional parts
+    cell = dict(CELL, p=p or CELL["p"], seq_len=seq_len or CELL["seq_len"])
+    cutting = (layers, p, schedules, experts, vocab, seq_len) != (None,) * 6
     device = torch.device(DEVICE)
     card = card_name()
     p, m, microbatch, seq_len = (cell[k] for k in ("p", "m", "microbatch", "seq_len"))
@@ -216,7 +221,7 @@ def calibrate(archs: Sequence[str], modes: Sequence[str], log=print, *,
         cut = None
         if cutting:
             cut = {"layers": cfg.n_layers, "p": p, "schedules": names}
-            cut.update({k: v for k, v in (("experts", experts), ("vocab", vocab)) if v is not None})
+            cut.update({k: v for k, v in given.items() if v is not None})
         planner = HBMPlanner(cfg, **cell, program_factory=stage_program_factory(
             cfg, p, m, microbatch, seq_len, device, SEED))
         for c in sorted({make_schedule(n, p, m).n_chunks for n in names}):
@@ -276,9 +281,12 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                     help="train only these schedules (default: all of the launcher's)")
     ap.add_argument("--experts", type=int, default=None, help="cut the routed experts to this many")
     ap.add_argument("--vocab", type=int, default=None, help="cut the vocabulary to this size")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help=f"tokens a microbatch (default {CELL['seq_len']})")
     args = ap.parse_args(argv)
     records = calibrate(args.arch, args.executor, layers=args.layers, p=args.p,
-                        schedules=args.schedules, experts=args.experts, vocab=args.vocab)
+                        schedules=args.schedules, experts=args.experts, vocab=args.vocab,
+                        seq_len=args.seq_len)
     write_calibration_table(records, args.out)
     print(f"[calibrate] wrote {len(records)} record(s) to {args.out or CUDA_TEMP_TABLE}")
     return records

@@ -6,7 +6,17 @@
 Runs on the CUDA card by default and raises when there is none; it never
 carries on on the CPU unless ``--device cpu`` asks for it.  Weights are
 random, drawn from ``--seed``; prompts come from ``numpy.random.default_rng
-(seed)``.
+(seed)``, and after them, for the vlm and encdec families, the front's
+embeddings (patches or frames, N(0, 1), cast to the model dtype).
+
+The vlm front sits in the cache ahead of the prompt: the cache holds
+``n_patches + prompt_len + new_tokens`` positions, the prefill runs at
+positions ``[0, n_patches + prompt_len)`` and decode step i at ``n_patches +
+prompt_len + i``.  (The JAX launcher sizes the cache as ``prompt_len +
+new_tokens`` whatever the family, which for a vlm drops the patches' keys.)
+An encdec model's front is its encoder stream, outside the decoder's cache:
+the cache holds ``prompt_len + new_tokens`` decoder positions and decode
+step i runs at ``prompt_len + i``.
 """
 
 from __future__ import annotations
@@ -21,10 +31,10 @@ import torch
 
 from ..configs import get_config, get_reduced
 from ..core.schedules.ir import Placement
-from ..models.lm import ArchConfig, RunSpec, init_params
+from ..models.lm import ArchConfig, RunSpec, front_len, front_spec, init_params
 from .steps import build_serve_step
 
-__all__ = ["ServeResult", "serve", "resolve_device", "main"]
+__all__ = ["ServeResult", "serve", "resolve_device", "draw_front", "main"]
 
 
 @dataclasses.dataclass
@@ -50,24 +60,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def draw_front(cfg: ArchConfig, rng: np.random.Generator, m: int, b: int) -> Optional[np.ndarray]:
+    """The front's embeddings of m groups of b requests, (m, b, n, width)
+    float32 N(0, 1) from ``rng``; None for a family without a front."""
+    front = front_spec(cfg)
+    if front is None:
+        return None
+    return rng.standard_normal((m, b, front[1], front[2])).astype(np.float32)
+
+
 @torch.inference_mode()
 def serve(cfg: ArchConfig, stacked, shared, prompts: np.ndarray, *, p: int,
-          new_tokens: int, log: Optional[Callable[[str], None]] = None) -> ServeResult:
+          new_tokens: int, front: Optional[np.ndarray] = None,
+          log: Optional[Callable[[str], None]] = None) -> ServeResult:
     """Prefill ``prompts`` (m, b, s) through p linear stages, then decode
-    ``new_tokens`` greedy steps.  Runs on the device of ``shared``."""
+    ``new_tokens`` greedy steps.  Runs on the device of ``shared``.  A vlm
+    or encdec model needs ``front`` (m, b, n, frontend_dim), cast to the
+    model dtype: the patches or frames of each request."""
     device = shared["embed"].device
     m, b, s = prompts.shape
     placement = Placement.linear(p)
-    S = s + new_tokens
     spec = RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=s, m=m)
+    front_in = front_spec(cfg)
+    n_front = front_len(cfg)
+    cached = n_front if cfg.family == "vlm" else 0  # front positions in the cache
     prefill, _, cache_init = build_serve_step(cfg, spec, placement, "prefill")
     dspec = dataclasses.replace(spec, seq_len=1)
     decode, _, _ = build_serve_step(cfg, dspec, placement, "decode")
-    caches = [cache_init(b, S, device=device, lead=(p, m))]
+    caches = [cache_init(b, cached + s + new_tokens, device=device, lead=(p, m))]
     side = {
         "tokens": torch.as_tensor(prompts, dtype=torch.long, device=device),
-        "positions": torch.arange(s, device=device).expand(m, s),
+        "positions": torch.arange(n_front + s, device=device).expand(m, n_front + s),
     }
+    if front_in is not None:
+        if front is None or tuple(front.shape[:3]) != (m, b, n_front):
+            raise ValueError(f"{cfg.name} needs its front's embeddings (m, b, {n_front}, "
+                             f"width); got {None if front is None else front.shape}")
+        side[front_in[0]] = torch.as_tensor(front, device=device).to(cfg.torch_dtype())
     _sync(device)
     t0 = time.perf_counter()
     logits, caches = prefill(stacked, shared, side, caches, 0)
@@ -85,7 +114,7 @@ def serve(cfg: ArchConfig, stacked, shared, prompts: np.ndarray, *, p: int,
             "positions": torch.zeros((m, 1), dtype=torch.long, device=device),
         }
         t0 = time.perf_counter()
-        logits, caches = decode(stacked, shared, dside, caches, s + i)
+        logits, caches = decode(stacked, shared, dside, caches, cached + s + i)
         toks.append(torch.argmax(logits, dim=-1))
         _sync(device)
         decode_s.append(time.perf_counter() - t0)
@@ -114,9 +143,10 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
     spec = RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=args.prompt_len, m=m)
     stacked, shared = init_params(cfg, spec, Placement.linear(p), seed=args.seed,
                                   device=device)
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab, (m, b, args.prompt_len))
-    res = serve(cfg, stacked, shared, prompts, p=p, new_tokens=args.new_tokens, log=print)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (m, b, args.prompt_len))
+    res = serve(cfg, stacked, shared, prompts, p=p, new_tokens=args.new_tokens,
+                front=draw_front(cfg, rng, m, b), log=print)
     print("OK")
     return res
 

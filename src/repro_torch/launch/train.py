@@ -59,7 +59,7 @@ from ..core.schedules import (
     zb_v,
 )
 from ..data import DataConfig, SyntheticLM
-from ..models.lm import ArchConfig, RunSpec, init_params
+from ..models.lm import ArchConfig, RunSpec, front_spec, init_params
 from ..optim import adamw
 from ..runtime import DriverConfig, TrainDriver, replan_under_budget
 from .serve import _sync, resolve_device
@@ -116,7 +116,8 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
         else:
             cut = rec.get("cut")
             at = (f"{cut['layers']} layers at p={cut['p']}, {' '.join(cut['schedules'])}"
-                  + "".join(f", {k} {cut[k]}" for k in ("experts", "vocab") if k in cut)
+                  + "".join(f", {k} {cut[k]}" for k in ("experts", "vocab", "seq_len")
+                            if k in cut)
                   if cut else f"the full depth at p={rec['p']}, every schedule")
             print(f"temp remainder from the calibration record of {cfg.name} under the "
                   f"{tcfg.executor_mode} executor, measured at {at} ({rec.get('card')}), "
@@ -133,14 +134,24 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
     return cfg, spec, sched, step, one_card
 
 
-def side_from_batch(batch: Dict[str, np.ndarray], spec: RunSpec, device) -> Dict[str, torch.Tensor]:
-    """(m*b, s) numpy batch -> per-microbatch side inputs on ``device``."""
+def side_from_batch(batch: Dict[str, np.ndarray], spec: RunSpec, device,
+                    cfg: Optional[ArchConfig] = None) -> Dict[str, torch.Tensor]:
+    """(m*b, s) numpy batch -> per-microbatch side inputs on ``device``.
+    With a vlm or encdec ``cfg`` its front's embeddings are zeros (m, b, n,
+    frontend_dim) in the model dtype, as the JAX launcher feeds them, and
+    the positions run over the front and the tokens."""
     m, b, s = spec.m, spec.microbatch, spec.seq_len
-    return {
+    side = {
         "tokens": torch.as_tensor(batch["tokens"].reshape(m, b, s), dtype=torch.long, device=device),
         "labels": torch.as_tensor(batch["labels"].reshape(m, b, s), dtype=torch.long, device=device),
-        "positions": torch.arange(s, device=device).expand(m, s),
     }
+    front = None if cfg is None else front_spec(cfg)
+    if front is not None:
+        key, n, width = front
+        side[key] = torch.zeros((m, b, n, width), dtype=cfg.torch_dtype(), device=device)
+        s += n
+    side["positions"] = torch.arange(s, device=device).expand(m, s)
+    return side
 
 
 @dataclasses.dataclass
@@ -192,13 +203,15 @@ def _print_reserved_after_first_step(step_fn: Callable, device, one_card) -> Cal
     return fn
 
 
-def make_data_at(data: SyntheticLM, spec: RunSpec, device) -> Callable[[int], Dict]:
-    """The driver's ``data_at(step)``: that step's side inputs on ``device``,
-    the copy finished, so the driver's step time starts on an idle card."""
+def make_data_at(data: SyntheticLM, spec: RunSpec, device,
+                 cfg: Optional[ArchConfig] = None) -> Callable[[int], Dict]:
+    """The driver's ``data_at(step)``: that step's side inputs on ``device``
+    (``side_from_batch`` of ``cfg``), the copy finished, so the driver's
+    step time starts on an idle card."""
     device = torch.device(device)
 
     def data_at(k: int):
-        side = side_from_batch(data.batch_at(k), spec, device)
+        side = side_from_batch(data.batch_at(k), spec, device, cfg)
         _sync(device)
         return side
 
@@ -228,7 +241,8 @@ def train(cfg: ArchConfig, spec: RunSpec, step: Callable, stacked, shared, data:
     device = shared["embed"].device
     driver = TrainDriver(DriverConfig(ckpt_dir=None, max_retries=0), make_step_fn(step),
                          (lambda: state) if state is not None else
-                         (lambda: init_state(stacked, shared)), make_data_at(data, spec, device))
+                         (lambda: init_state(stacked, shared)),
+                         make_data_at(data, spec, device, cfg))
     _, metrics_log = driver.run(steps)
     return _result(driver, metrics_log, log)
 
@@ -277,7 +291,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     if device.type == "cuda":
         step_fn = _print_reserved_after_first_step(step_fn, device, one_card)
     driver = TrainDriver(DriverConfig(ckpt_dir=args.ckpt_dir, ckpt_every=max(args.steps // 2, 10)),
-                         step_fn, fresh_state, make_data_at(data, spec, device))
+                         step_fn, fresh_state, make_data_at(data, spec, device, cfg))
     t0 = time.perf_counter()
     state, metrics_log = driver.run(args.steps)
     dt = time.perf_counter() - t0

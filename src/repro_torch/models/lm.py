@@ -2,12 +2,15 @@
 split chunk modules, the embedding source and the loss sink.
 
 Counterpart of ``src/repro/models/lm.py`` (the dense and moe families, the
-latter with the ``moe`` and ``mla`` kinds).  Blocks are assigned to (stage,
-chunk) groups of uniform size; when ``n_layers`` does not divide evenly,
+latter with the ``moe`` and ``mla`` kinds; the vlm family, whose projected
+patch embeddings go ahead of the tokens; the encdec family of ``encdec``
+blocks over the projected frames and the decoder's tokens).  Blocks are
+assigned to (stage, chunk) groups of uniform size; when ``n_layers`` does not divide evenly,
 groups are padded with blocks whose ``mask`` leaf is 0, which leave the
 activation unchanged.  Parameters keep the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
 ...)}`` with every leaf stage-stacked on a leading ``(p,)`` axis, and shared
-``{"embed": (V, d), "head": (d, V), "final_ln": (d,)}``.  Random weights are
+``{"embed": (V, d), "head": (d, V), "final_ln": (d,)}``, plus ``"front_proj":
+(frontend_dim, d)`` in the vlm and encdec families.  Random weights are
 drawn from an explicit ``torch.Generator`` with the JAX package's
 distributions and scales (not its bits: the tests carry the JAX weights
 over with ``repro_torch.interop.params_from_numpy``).
@@ -24,6 +27,7 @@ import torch
 
 from ..core.executor import PipelineProgram
 from ..core.passes import FBWModule, SequentialFBW, autograd_fbw, linear
+from ..kernels import ops
 from ..tree import tree_map
 from . import modules
 from .modules import ShardCtx, apply_block, init_layer, pad_to_multiple, rmsnorm, vocab_parallel_ce
@@ -43,6 +47,8 @@ __all__ = [
     "init_chunk_params",
     "layer_cfg",
     "make_src",
+    "front_spec",
+    "front_len",
 ]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -198,7 +204,9 @@ class ChunkFBW(FBWModule):
 # --------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------- #
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# a family's front ahead of the tokens: (side input, extras key of its length)
+_FRONTS = {"vlm": ("patches", "n_patches"), "encdec": ("frames", "s_enc")}
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -206,6 +214,23 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet"
         )
+
+
+def front_spec(cfg: ArchConfig) -> Optional[Tuple[str, int, int]]:
+    """(side input, positions, width) of the family's front, the projected
+    patch (vlm) or frame (encdec) embeddings ahead of the tokens; None
+    without one."""
+    if cfg.family not in _FRONTS:
+        return None
+    key, n = _FRONTS[cfg.family]
+    ex = cfg.extras_dict()
+    return key, ex[n], ex.get("frontend_dim", cfg.d_model)
+
+
+def front_len(cfg: ArchConfig) -> int:
+    """The positions the front puts ahead of the tokens (0 without one)."""
+    spec = front_spec(cfg)
+    return 0 if spec is None else spec[1]
 
 
 def init_chunk_params(cfg: ArchConfig, gen: torch.Generator, stage: int, chunk: int,
@@ -231,11 +256,15 @@ def init_shared(cfg: ArchConfig, gen: torch.Generator, ctx: ShardCtx):
     def normal(shape):
         return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dt)
 
-    return {
+    shared = {
         "embed": normal((v_pad, cfg.d_model)),
         "head": normal((cfg.d_model, v_pad)),
         "final_ln": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
     }
+    front = front_spec(cfg)
+    if front is not None:  # drawn last: the other families keep their bits
+        shared["front_proj"] = normal((front[2], cfg.d_model))
+    return shared
 
 
 def _init_stacked_chunk(cfg: ArchConfig, gen: torch.Generator, chunk: int, p: int,
@@ -292,10 +321,11 @@ def _embed_lookup(shared, tokens: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx):
 
 def _embed_grad(shared, tokens: torch.Tensor, dx: torch.Tensor, ctx: ShardCtx,
                 out: torch.Tensor) -> torch.Tensor:
-    """Scatter-add the rows of dx into the fp32 embedding gradient ``out``, in
-    place (the JAX package adds a fresh zero table instead; this saves a
-    (V, d) buffer per microbatch).  On the
-    card ``index_add_`` sums colliding rows with atomics, in no fixed order."""
+    """Scatter-add the rows of dx, the gradient at the token positions, into
+    the fp32 embedding gradient ``out``, in place (the JAX package adds a
+    fresh zero table instead; this saves a (V, d) buffer per microbatch).
+    On the card ``index_add_`` sums colliding rows with atomics, in no
+    fixed order."""
     v_l = shared["embed"].shape[0]
     loc = tokens - ctx.index() * v_l
     ok = (loc >= 0) & (loc < v_l)
@@ -305,18 +335,35 @@ def _embed_grad(shared, tokens: torch.Tensor, dx: torch.Tensor, ctx: ShardCtx,
 
 
 def make_src(cfg: ArchConfig, ctx: ShardCtx):
-    """(src_fwd, src_bwd_w): the token embedding and its gradient (the
-    token-input families; the encdec/vlm fronts are not ported).
+    """(src_fwd, src_bwd_w): the token embedding and its gradient, with the
+    vlm and encdec fronts ahead of the tokens: ``side_mb[key] @
+    front_proj`` (key ``patches`` or ``frames``, cast to the model dtype)
+    concatenated before the embedded tokens.
 
     ``src_bwd_w(shared, side_mb, dx, acc)`` adds the embedding rows into
     ``acc["embed"]`` (fp32, ``acc`` like shared) in place and returns
-    ``acc``."""
+    ``acc``; with a front it splits ``dx`` at the front's length and adds
+    ``front^T @ dfront`` into ``acc["front_proj"]`` in place through
+    ``kernels.ops.wgrad_accum`` (the JAX package's fp32 einsum; both
+    operands in the model dtype, contiguous, at fresh or offset-0 bases)."""
     _check_family(cfg)
+    front = front_spec(cfg)
+    dt = cfg.torch_dtype()
 
     def src_fwd(shared, side_mb):
-        return _embed_lookup(shared, side_mb["tokens"], cfg, ctx)
+        x = _embed_lookup(shared, side_mb["tokens"], cfg, ctx)
+        if front is None:
+            return x
+        return torch.cat([side_mb[front[0]].to(dt) @ shared["front_proj"], x], dim=1)
 
     def src_bwd_w(shared, side_mb, dx, acc):
+        if front is not None:
+            fr = side_mb[front[0]]
+            nf = fr.shape[1]
+            a = fr.to(dt).reshape(-1, fr.shape[-1]).contiguous()
+            g = dx[:, :nf].reshape(-1, dx.shape[-1]).contiguous()
+            ops.wgrad_accum(a, g, acc["front_proj"])
+            dx = dx[:, nf:]
         _embed_grad(shared, side_mb["tokens"], dx, ctx, out=acc["embed"])
         return acc
 
@@ -324,9 +371,15 @@ def make_src(cfg: ArchConfig, ctx: ShardCtx):
 
 
 def make_sink_fn(cfg: ArchConfig, ctx: ShardCtx, m: int):
-    """Final RMSNorm, LM head, token CE; the loss of one microbatch / m."""
+    """Final RMSNorm, LM head, token CE; the loss of one microbatch / m.
+    With a front, the loss covers the token positions alone: the first
+    ``front_len`` positions are dropped (and the rest made contiguous for
+    the norm kernel)."""
+    nf = front_len(cfg)
 
     def sink_fn(shared, y, side_mb):
+        if nf:
+            y = y[:, nf:].contiguous()
         yn = rmsnorm(shared["final_ln"], y)
         logits = linear(yn, shared["head"])
         return vocab_parallel_ce(logits, side_mb["labels"], ctx, cfg.vocab) / m
@@ -353,19 +406,26 @@ def build_program(cfg: ArchConfig, spec: RunSpec, placement) -> PipelineProgram:
         src_bwd_w=src_bwd_w,
         sink=autograd_fbw(make_sink_fn(cfg, ctx, spec.m), name=f"{cfg.name}.sink",
                           fuse_wgrad=False),
-        act_shape=(spec.microbatch, spec.seq_len, cfg.d_model),
+        act_shape=(spec.microbatch, front_len(cfg) + spec.seq_len, cfg.d_model),
         act_dtype=cfg.torch_dtype(),
     )
 
 
 def side_inputs(cfg: ArchConfig, spec: RunSpec, seed: int = 1) -> Dict[str, np.ndarray]:
     """Synthetic per-microbatch side inputs as numpy: tokens and labels
-    (m, b, s), positions (m, s)."""
+    (m, b, s), with a front its embeddings (m, b, n, frontend_dim) float32
+    N(0, 1), and positions (m, n + s)."""
     _check_family(cfg)
     rng = np.random.default_rng(seed)
     m, b, s = spec.m, spec.microbatch, spec.seq_len
-    return {
+    side = {
         "tokens": rng.integers(0, cfg.vocab, (m, b, s)),
         "labels": rng.integers(0, cfg.vocab, (m, b, s)),
-        "positions": np.broadcast_to(np.arange(s), (m, s)).copy(),
     }
+    front = front_spec(cfg)
+    if front is not None:
+        key, n, width = front
+        side[key] = rng.standard_normal((m, b, n, width)).astype(np.float32)
+    s_total = front_len(cfg) + s
+    side["positions"] = np.broadcast_to(np.arange(s_total), (m, s_total)).copy()
+    return side

@@ -17,8 +17,13 @@ broadcast to every head (qk width ``head_dim + qk_rope_head_dim``, v width
 ``head_dim``); its six products all go through ``linear``.  ``moe`` routes
 each token to its top-k experts with a per-expert capacity; the router
 product goes through ``linear`` (fp32), the expert products through
-``core.passes.expert_linear`` and the shared experts through ``linear``.  Every other layer kind raises
-``NotImplementedError`` naming the kind.
+``core.passes.expert_linear`` and the shared experts through ``linear``.  ``encdec`` is Whisper's
+joint block over the concatenated (encoder, decoder) stream: a non-causal
+encoder layer, then a causal decoder layer with cross-attention on the
+encoder's output (its k/v from the encoder stream unnormed, no rope), each
+gated by its ``enc_on`` / ``dec_on`` scalar; its 18 products all go
+through ``linear``.  The recurrent kinds raise ``NotImplementedError``
+naming the kind.
 """
 
 from __future__ import annotations
@@ -46,13 +51,15 @@ __all__ = [
     "rmsnorm",
     "rope",
     "attention",
+    "cross_attend",
+    "encdec_forward",
     "pad_to_multiple",
     "leaves_into",
 ]
 
 # kinds of the JAX layer library that this port does not carry yet
-UNPORTED_KINDS = ("slstm", "mlstm", "rglru", "encdec")
-PORTED_KINDS = ("attn", "attn_local", "mla", "mlp", "moe")
+UNPORTED_KINDS = ("slstm", "mlstm", "rglru")
+PORTED_KINDS = ("attn", "attn_local", "mla", "mlp", "moe", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +143,11 @@ def _zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return out if out.is_meta else out.zero_()
 
 
+def _ones(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    out = _leaf(gen, shape, dtype)
+    return out if out.is_meta else out.fill_(1)
+
+
 def _normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn in fp32, cast to ``dtype``; a leaf of more
     than :data:`DRAW_SLICE` elements is drawn slice by slice."""
@@ -181,30 +193,35 @@ def _softcap(x, cap):
 # --------------------------------------------------------------------- #
 # attention (dense for short sequences, a loop over query blocks beyond)
 # --------------------------------------------------------------------- #
-def _attend_dense(q, k, v, softcap, window=None, q_offset=0):
-    """Causal, within ``window`` when given.  q: (b, sq, hq, d); k/v: (b, sk,
-    hq, d) head-matched -> (b, sq, hq, d)."""
+def _attend_dense(q, k, v, softcap, window=None, q_offset=0, causal=True):
+    """Causal (unless ``causal`` is False), within ``window`` when given.
+    q: (b, sq, hq, d); k/v: (b, sk, hq, d) head-matched -> (b, sq, hq, d);
+    sq and sk may differ (cross-attention)."""
     sq, sk = q.shape[1], k.shape[1]
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
     logits = _softcap(logits, softcap)
     qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
-    mask = kpos[None, :] <= qpos[:, None]
+    mask = None
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
     if window is not None and window > 0:
-        mask = mask & (kpos[None, :] > qpos[:, None] - window)
-    logits = torch.where(mask[None, None], logits, -1e30)
+        near = kpos[None, :] > qpos[:, None] - window
+        mask = near if mask is None else mask & near
+    if mask is not None:
+        logits = torch.where(mask[None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _attend_chunked(q, k, v, softcap, window=None, block=1024):
+def _attend_chunked(q, k, v, softcap, window=None, block=1024, causal=True):
     """Query blocks one at a time, so the scores stay (block, sk) per head.
     Serving keeps no residuals, so the JAX version's remat has no part there;
     a training step at s > 2 * block keeps every block's scores for B."""
     s = q.shape[1]
     outs = [
-        _attend_dense(q[:, i : i + block], k, v, softcap, window, q_offset=i)
+        _attend_dense(q[:, i : i + block], k, v, softcap, window, q_offset=i, causal=causal)
         for i in range(0, s, block)
     ]
     return torch.cat(outs, dim=1)
@@ -219,12 +236,12 @@ def _match_kv_heads(q_heads_local, k, v, cfg, ctx: ShardCtx):
     return k, v
 
 
-def attention(q, k, v, *, window=None, softcap=None, block=1024):
-    """Causal attention (within ``window`` when given): dense up to 2 * block
-    queries, query blocks beyond."""
+def attention(q, k, v, *, causal=True, window=None, softcap=None, block=1024):
+    """Attention, causal unless ``causal`` is False (within ``window`` when
+    given): dense up to 2 * block queries, query blocks beyond."""
     if q.shape[1] <= 2 * block:
-        return _attend_dense(q, k, v, softcap, window)
-    return _attend_chunked(q, k, v, softcap, window, block)
+        return _attend_dense(q, k, v, softcap, window, causal=causal)
+    return _attend_chunked(q, k, v, softcap, window, block, causal=causal)
 
 
 # --------------------------------------------------------------------- #
@@ -244,9 +261,10 @@ def init_attn(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
     }
 
 
-def attn_forward(p, x, positions, cfg, ctx: ShardCtx, *, window=None):
+def attn_forward(p, x, positions, cfg, ctx: ShardCtx, *, window=None, causal=True):
     """``apply_attn`` that also returns the roped k and the v it attended
-    with, before the kv-head repeat: (y, k, v), k/v (b, s, hk, dh)."""
+    with, before the kv-head repeat: (y, k, v), k/v (b, s, hk, dh).
+    ``causal=False`` is the encoder's self-attention."""
     b, s, _ = x.shape
     hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
     dh = _head_dim(cfg)
@@ -256,7 +274,7 @@ def attn_forward(p, x, positions, cfg, ctx: ShardCtx, *, window=None):
     v = linear(xin, p["wv"]).reshape(b, s, hk, dh)
     q, k = rope(q, positions), rope(k, positions)
     km, vm = _match_kv_heads(hq, k, v, cfg, ctx)
-    o = attention(q, km, vm, window=window, softcap=cfg.get("attn_softcap"))
+    o = attention(q, km, vm, causal=causal, window=window, softcap=cfg.get("attn_softcap"))
     o = linear(o.reshape(b, s, hq * dh), p["wo"])
     return x + o, k, v
 
@@ -526,6 +544,64 @@ def apply_moe(p, x, cfg, ctx: ShardCtx):
 
 
 # --------------------------------------------------------------------- #
+# encoder/decoder joint block (Whisper; concat-carry)
+# --------------------------------------------------------------------- #
+def init_encdec(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_encdec``'s leaves, drawn in its order; the role
+    scalars start at 1."""
+    return {
+        "enc_attn": init_attn(gen, cfg, dtype),
+        "enc_mlp": init_mlp(gen, cfg, dtype),
+        "dec_attn": init_attn(gen, cfg, dtype),
+        "dec_mlp": init_mlp(gen, cfg, dtype),
+        "xattn": init_attn(gen, cfg, dtype),
+        "enc_on": _ones(gen, (), dtype),
+        "dec_on": _ones(gen, (), dtype),
+    }
+
+
+def cross_attend(p, h, enc, cfg, ctx: ShardCtx):
+    """``h + o`` of the decoder's cross-attention on the encoder stream
+    ``enc`` (b, s_enc, d): q from the normed ``h``, k and v from ``enc``
+    itself (no norm, no rope), non-causal, as the JAX ``dec_f``."""
+    b, sd, _ = h.shape
+    s_enc = enc.shape[1]
+    hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
+    dh = _head_dim(cfg)
+    hin = rmsnorm(p["ln"], h)
+    q = linear(hin, p["wq"]).reshape(b, sd, hq, dh)
+    k = linear(enc, p["wk"]).reshape(b, s_enc, hk, dh)
+    v = linear(enc, p["wv"]).reshape(b, s_enc, hk, dh)
+    km, vm = _match_kv_heads(hq, k, v, cfg, ctx)
+    o = attention(q, km, vm, causal=False)
+    return h + linear(o.reshape(b, sd, hq * dh), p["wo"])
+
+
+def encdec_forward(p, x, positions, cfg, ctx: ShardCtx):
+    """``apply_encdec`` that also returns the decoder self-attention's
+    roped k and v, (b, s_dec, hk, dh), for the serve cache.  x is
+    concat(encoder stream, decoder stream); both streams start at position
+    0.  The streams are made contiguous (the norm kernel reads rows of a
+    contiguous tensor): a no-op at b = 1."""
+    s_enc = cfg["s_enc"]
+    s_dec = x.shape[1] - s_enc
+    xe, xd = x[:, :s_enc].contiguous(), x[:, s_enc:].contiguous()
+    pe, pd = positions[:s_enc], positions[:s_dec]
+
+    h = attn_forward(p["enc_attn"], xe, pe, cfg, ctx, causal=False)[0]
+    xe = xe + p["enc_on"] * (apply_mlp(p["enc_mlp"], h, cfg, ctx) - xe)
+
+    h, k, v = attn_forward(p["dec_attn"], xd, pd, cfg, ctx)
+    h = cross_attend(p["xattn"], h, xe, cfg, ctx)
+    xd = xd + p["dec_on"] * (apply_mlp(p["dec_mlp"], h, cfg, ctx) - xd)
+    return torch.cat([xe, xd], dim=1), k, v
+
+
+def apply_encdec(p, x, positions, cfg, ctx: ShardCtx):
+    return encdec_forward(p, x, positions, cfg, ctx)[0]
+
+
+# --------------------------------------------------------------------- #
 # registry
 # --------------------------------------------------------------------- #
 LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
@@ -539,6 +615,7 @@ LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
     "mlp": (init_mlp, lambda p, x, pos, cfg, ctx: apply_mlp(p, x, cfg, ctx)),
     "mla": (init_mla, apply_mla),
     "moe": (init_moe, lambda p, x, pos, cfg, ctx: apply_moe(p, x, cfg, ctx)),
+    "encdec": (init_encdec, apply_encdec),
 }
 
 

@@ -17,8 +17,14 @@ through ``wuk`` and the context out of it through ``wuv``, so no per-head
 key or value is ever built from the cache.  ``mlp`` and ``moe``
 keep no cache; ``moe`` routes the step's tokens alone, so a decode step's
 capacity is that of its b tokens (at least 4 slots an expert) and drops
-nothing that a prefill of the same tokens might drop.  Every other kind
-raises ``NotImplementedError`` naming the kind.
+nothing that a prefill of the same tokens might drop.  ``encdec`` caches
+the decoder self-attention's k/v at the decoder's positions (from 0) and
+the encoder stream's output ``enc`` (b, s_enc, d) of its prefill; a
+decode step is the decoder layer alone, causal self-attention over the
+cache and cross-attention over ``enc``, whose k/v it recomputes every step
+and which it does not gate by ``dec_on``, as the JAX ``decode_block``.  The
+vlm and encdec fronts run in prefill only: a decode step embeds its token
+alone.  The recurrent kinds raise ``NotImplementedError`` naming the kind.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Dict
 import torch
 
 from ..core.infer_executor import InferProgram
-from .lm import ArchConfig, RunSpec, group_layout, layer_cfg, make_src
+from .lm import ArchConfig, RunSpec, _embed_lookup, front_len, group_layout, layer_cfg, make_src
 from .modules import (
     ShardCtx,
     _check_kind,
@@ -41,6 +47,8 @@ from .modules import (
     apply_moe,
     _mla_dims,
     attn_forward,
+    cross_attend,
+    encdec_forward,
     mla_forward,
     pad_to_multiple,
     rmsnorm,
@@ -63,8 +71,18 @@ def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
                device, lead=()) -> Dict[str, torch.Tensor]:
     """Zero cache of one layer, shaped ``lead + (b, Sc, hk, dh)`` for attn
     (Sc = S) and attn_local (Sc = min(S, window)); mla keeps ``c`` ``lead +
-    (b, S, kv_lora_rank)`` and ``kr`` ``lead + (b, S, qk_rope_head_dim)``."""
+    (b, S, kv_lora_rank)`` and ``kr`` ``lead + (b, S, qk_rope_head_dim)``;
+    encdec the decoder's ``k`` and ``v`` as attn and ``enc`` ``lead + (b,
+    s_enc, d)``."""
     _check_kind(kind)
+    if kind == "encdec":
+        shape = tuple(lead) + (b, S, cfg["n_kv_heads"], _head_dim(cfg))
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "enc": torch.zeros(tuple(lead) + (b, cfg["s_enc"], cfg["d_model"]), dtype=dtype,
+                               device=device),
+        }
     if kind == "mla":
         _, _, d_kv, d_rope = _mla_dims(cfg)
         lead = tuple(lead) + (b, S)
@@ -117,6 +135,10 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
         return apply_moe(p, x, cfg, ctx), cache
     if kind == "mla":
         return _decode_mla(p, x, cache, pos, cfg), cache
+    if kind == "encdec":
+        h, _ = decode_block("attn", p["dec_attn"], x, cache, pos, cfg, ctx)
+        h = cross_attend(p["xattn"], h, cache["enc"], cfg, ctx)
+        return apply_mlp(p["dec_mlp"], h, cfg, ctx), cache
     b = x.shape[0]
     hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
     dh = _head_dim(cfg)
@@ -172,7 +194,8 @@ def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
     """x: (b, s, h) -> (y, cache); writes k/v of positions [0, s) in place,
     position P to slot P (an attn_local ring shorter than s keeps the last
     Sc positions, P in slot ``P % Sc``); mla writes c and the roped kr of
-    positions [0, s).
+    positions [0, s); encdec the decoder's k/v of its positions [0, s -
+    s_enc) and the encoder stream's output.
 
     The JAX version runs the train forward and then recomputes rmsnorm and
     the k/v projections (for mla: ``xin @ wdkv`` and the rope) for the cache
@@ -190,6 +213,13 @@ def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
         y, c, kr = mla_forward(p, x, positions, cfg, ctx)
         cache["c"][:, :s] = c
         cache["kr"][:, :s] = kr
+        return y, cache
+    if kind == "encdec":
+        y, k, v = encdec_forward(p, x, positions, cfg, ctx)
+        sd = k.shape[1]
+        cache["k"][:, :sd] = k
+        cache["v"][:, :sd] = v
+        cache["enc"][:] = y[:, :cfg["s_enc"]]
         return y, cache
     s = x.shape[1]
     window = _window(kind, cfg)
@@ -255,14 +285,18 @@ def build_serve_program(cfg: ArchConfig, spec: RunSpec, placement, mode: str):
     stage's group of blocks)."""
     ctx = ShardCtx(tp_axis=spec.tp_axis, tp_size=spec.tp_size)
     chunk_fn, cache_init = make_serve_chunk(cfg, spec, mode)
-    src, _ = make_src(cfg, ctx)  # the token embedding, in prefill and decode alike
+    if mode == "decode":  # the step's token alone: the front went in with the prompt
+        def src(shared, side_mb):
+            return _embed_lookup(shared, side_mb["tokens"], cfg, ctx)
+    else:
+        src, _ = make_src(cfg, ctx)
 
     def sink(shared, y, side_mb):
         yl = y[:, -1:].contiguous()  # next-token logits from the last position
         yn = rmsnorm(shared["final_ln"], yl)
         return (yn @ shared["head"])[:, 0]
 
-    s_total = 1 if mode == "decode" else spec.seq_len
+    s_total = 1 if mode == "decode" else front_len(cfg) + spec.seq_len
     v_l = pad_to_multiple(cfg.vocab, max(1, spec.tp_size)) // max(1, spec.tp_size)
     program = InferProgram(
         chunk_fns=[chunk_fn] * spec.n_chunks,

@@ -1,5 +1,7 @@
-"""The port's registry (``repro_torch.configs``: the dense family and the moe
-``qwen2_moe_a2_7b`` and ``deepseek_v3_671b``) against the JAX package's.
+"""The port's registry (``repro_torch.configs``: the dense family, the moe
+``qwen2_moe_a2_7b`` and ``deepseek_v3_671b``, the vlm
+``llava_next_mistral_7b`` and the encdec ``whisper_tiny``) against the JAX
+package's.
 
 * Every ported arch (``ARCH_IDS`` + ``PAPER_IDS``): ``CONFIG`` and
   ``reduced()`` equal the JAX package's field for field.
@@ -8,7 +10,8 @@
 * Every JAX arch outside the dense family either raises
   ``NotImplementedError`` naming the arch and the family it lacks, or,
   once ported (``qwen2_moe_a2_7b``; ``deepseek_v3_671b`` with the ``mla``
-  kind), loads.
+  kind; ``llava_next_mistral_7b`` with its patch front; ``whisper_tiny``
+  with the ``encdec`` kind), loads.
 * ``fixed_state_bytes`` and ``ActivationByteModel.from_config`` equal the
   JAX package's exactly on the reduced and full-width gpt3_1_5b,
   gemma2_2b (period-2 pattern, padded groups) and qwen2_moe_a2_7b (3-D
@@ -51,6 +54,7 @@ PORTED = configs.ARCH_IDS + configs.PAPER_IDS
 DENSE = ["gpt3_1_5b", "gpt3_6_2b", "gpt3_14_6b", "gpt3_28_3b", "deepseek_67b", "minitron_8b",
          "gemma2_2b", "internlm2_1_8b"]
 MOE = ["deepseek_v3_671b", "qwen2_moe_a2_7b"]
+FRONT = {"llava_next_mistral_7b": "vlm", "whisper_tiny": "encdec"}  # the fronted families
 # the JAX archs outside the dense family, ported since or not
 UNPORTED = [a for a in jconfigs.ARCH_IDS if a not in DENSE]
 FAMILIES = ("moe", "mla", "encdec", "vlm", "ssm", "hybrid")
@@ -58,13 +62,13 @@ NEW = ["gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b", "deepseek_v3_671b"]
 
 
 def test_the_port_carries_the_dense_family():
-    assert sorted(PORTED) == sorted(DENSE + MOE)
+    assert sorted(PORTED) == sorted(DENSE + MOE + list(FRONT))
     assert configs.PAPER_IDS == jconfigs.PAPER_IDS
-    assert configs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS if a in DENSE + MOE]
-    assert sorted(configs.all_configs()) == sorted(DENSE + MOE)
+    assert configs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS if a in DENSE + MOE + list(FRONT)]
+    assert sorted(configs.all_configs()) == sorted(DENSE + MOE + list(FRONT))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + list(FRONT))
 @pytest.mark.parametrize("which", ["CONFIG", "reduced"])
 def test_config_matches_jax_field_for_field(arch, which):
     get, jget = ((configs.get_config, jconfigs.get_config) if which == "CONFIG"
@@ -72,7 +76,7 @@ def test_config_matches_jax_field_for_field(arch, which):
     mine, ref = get(arch), jget(arch)
     assert [f.name for f in dataclasses.fields(mine)] == [f.name for f in dataclasses.fields(ref)]
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
-    assert mine.family == ("moe" if arch in MOE else "dense")
+    assert mine.family == ("moe" if arch in MOE else FRONT.get(arch, "dense"))
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
@@ -95,11 +99,14 @@ def test_all_cells_match_jax_over_the_ported_archs():
 def test_unported_arch_raises_naming_what_it_lacks(arch):
     family = jconfigs.get_config(arch).family
     if arch in configs.ARCH_IDS:  # ported since: it loads, and nothing names it
-        assert arch in MOE and configs.get_config(arch).family == family
+        assert arch in MOE + list(FRONT) and configs.get_config(arch).family == family
         assert arch not in configs.UNPORTED_ARCHS
         if arch == "deepseek_v3_671b":  # with its mla kind
             assert "mla" in configs.get_config(arch).block_pattern[0]
             assert "mla" in tmod.PORTED_KINDS
+        if arch == "whisper_tiny":  # with its encdec kind
+            assert configs.get_config(arch).block_pattern == (("encdec",),)
+            assert "encdec" in tmod.PORTED_KINDS
         return
     for get in (configs.get_config, configs.get_reduced):
         with pytest.raises(NotImplementedError, match=arch) as err:

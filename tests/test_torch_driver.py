@@ -76,7 +76,7 @@ def _port_driver(ckpt_dir, every=3, seed=0):
         return init_state(*init_params(cfg, spec, sched.placement, seed=seed, device="cpu"))
 
     return TrainDriver(DriverConfig(ckpt_dir=ckpt_dir, ckpt_every=every, max_retries=2),
-                       make_step_fn(step), fresh, make_data_at(data, spec, "cpu"))
+                       make_step_fn(step), fresh, make_data_at(data, spec, "cpu", cfg))
 
 
 def _jax_driver(ckpt_dir, every=3):

@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro`` (the planner, the driver and
 the checkpoint store included, also once the planner has shape-evaluated a
-dense model and the two moe models, the second with the mla kind), the serving and training
+dense model, the two moe models, the second with the mla kind, the vlm and
+the encdec model), the serving and training
 entry points do not carry on on the CPU when the card they ask for is
 missing, and the training launcher takes every schedule of the JAX
 launcher when the CPU is asked for."""
@@ -36,6 +37,8 @@ def test_imports_pull_in_neither_jax_nor_repro():
         "fixed_state_bytes(get_reduced('qwen2_moe_a2_7b'), 2, 2)\n"
         "import repro_torch.configs.deepseek_v3_671b\n"
         "fixed_state_bytes(get_reduced('deepseek_v3_671b'), 2, 2)\n"
+        "fixed_state_bytes(get_reduced('llava_next_mistral_7b'), 2, 2)\n"
+        "fixed_state_bytes(get_reduced('whisper_tiny'), 2, 2)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

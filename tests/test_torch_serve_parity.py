@@ -140,18 +140,20 @@ def test_cache_view_aliases_the_stacked_buffer():
 @pytest.mark.parametrize("kind", ("mla", "moe", "slstm", "mlstm", "rglru", "encdec"))
 def test_unported_kinds_raise(kind):
     """The JAX kinds beyond the dense ones: each raises naming itself until
-    it is ported (moe and mla since; each initialises and decodes)."""
+    it is ported (moe, mla and encdec since; each initialises and decodes)."""
     cfg = layer_cfg(get_reduced(ARCH))
     if kind in tmod.PORTED_KINDS:
         assert kind not in tmod.UNPORTED_KINDS
-        arch = "qwen2_moe_a2_7b" if kind == "moe" else "deepseek_v3_671b"
+        arch = {"moe": "qwen2_moe_a2_7b", "mla": "deepseek_v3_671b",
+                "encdec": "whisper_tiny"}[kind]
         cfg = layer_cfg(get_reduced(arch))
+        d = cfg["d_model"]
         p = tmod.init_layer(kind, torch.Generator(), cfg, tmod.ShardCtx(), torch.float32)
         cache = tserve.cache_spec(kind, cfg, tmod.ShardCtx(), 2, 4, torch.float32, device="cpu")
-        y, cache = tserve.decode_block(kind, p, torch.zeros(2, 1, 64), cache, 0, cfg,
+        y, cache = tserve.decode_block(kind, p, torch.zeros(2, 1, d), cache, 0, cfg,
                                        tmod.ShardCtx())
-        assert tuple(y.shape) == (2, 1, 64)
-        assert sorted(cache) == ([] if kind == "moe" else ["c", "kr"])
+        assert tuple(y.shape) == (2, 1, d)
+        assert sorted(cache) == {"moe": [], "mla": ["c", "kr"], "encdec": ["enc", "k", "v"]}[kind]
         return
     assert kind in tmod.UNPORTED_KINDS
     with pytest.raises(NotImplementedError, match=kind):

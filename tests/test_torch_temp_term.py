@@ -342,6 +342,10 @@ def _fake_card(monkeypatch, arch_reduced=True):
     ("deepseek_v3_671b", ["--layers", "2", "--p", "2", "--schedules", "zb-h1", "zb-h2",
                           "--experts", "4", "--vocab", "128"],
      {"layers": 2, "p": 2, "schedules": ["zb-h1", "zb-h2"], "experts": 4, "vocab": 128}),
+    ("llava_next_mistral_7b", ["--layers", "4", "--p", "2", "--schedules", "zb-h1", "zb-v"],
+     {"layers": 4, "p": 2, "schedules": ["zb-h1", "zb-v"]}),
+    ("whisper_tiny", ["--p", "2", "--schedules", "zb-h1", "zb-v", "--seq-len", "24"],
+     {"layers": 2, "p": 2, "schedules": ["zb-h1", "zb-v"], "seq_len": 24}),
 ])
 def test_calibrate_cut_reaches_the_record(arch, argv, cut, monkeypatch, tmp_path):
     _fake_card(monkeypatch)
@@ -351,11 +355,12 @@ def test_calibrate_cut_reaches_the_record(arch, argv, cut, monkeypatch, tmp_path
     (rec,) = recs
     cfg = calibrate.cut_config(get_reduced(arch), cut["layers"], cut.get("experts"),
                                cut.get("vocab"))
+    seq = cut.get("seq_len", 32)  # the faked cell's 32 unless the cut gives the tokens
     assert rec["cut"] == cut and rec["p"] == cut["p"] and rec["arch_id"] == cfg.name
-    assert set(rec["runs"]) == set(cut["schedules"]) and rec["shape"] == "p2_m8_b1_s32"
-    st = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=32).state(1)
+    assert set(rec["runs"]) == set(cut["schedules"]) and rec["shape"] == f"p2_m8_b1_s{seq}"
+    st = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=seq).state(1)
     assert rec["weights_bytes"] == st.params_card + st.optim_card
-    assert rec["m_b_bytes"] == tmem.ActivationByteModel.from_config(cfg, 1, 32, 2).m_b_bytes
+    assert rec["m_b_bytes"] == tmem.ActivationByteModel.from_config(cfg, 1, seq, 2).m_b_bytes
     table = json.loads(out.read_text())
     assert table[cfg.name]["eager"] == rec
     # the default cell's records stay byte for byte
@@ -415,3 +420,29 @@ def test_launcher_names_the_record_that_prices_qwen2_moe(capsys):
     assert "no calibration record" not in out
     assert ("temp remainder from the calibration record of qwen2-moe-a2.7b under the eager "
             "executor, measured at 4 layers at p=2, zb-h1 zb-v") in out
+
+
+FRONT_CUTS = {  # the checked-in records of the fronted families, at chip_smoke's cuts
+    ("llava_next_mistral_7b", "llava-next-mistral-7b"): (
+        dict(layers=8, p=2, schedules=["zb-h1", "zb-v"]), 1024),
+    ("whisper_tiny", "whisper-tiny"): (
+        dict(layers=4, p=2, schedules=["zb-h1", "zb-v"], seq_len=448), 448),
+}
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+@pytest.mark.parametrize("arch,name", sorted(FRONT_CUTS))
+def test_front_models_are_priced_with_a_remainder(arch, name, mode):
+    """The llava and whisper records (measured on the card at phase 25's
+    and phase 24's cuts) price their runs: at the cut a device's share of
+    the remainder is the record's own."""
+    from repro_torch.configs import get_config
+
+    cut, seq = FRONT_CUTS[(arch, name)]
+    rec = tmem.cuda_temp_record(name, mode)
+    assert rec is not None and rec["cut"] == cut and rec["executor_mode"] == mode
+    assert "H100" in rec["card"] and rec["shape"] == f"p2_m8_b1_s{seq}"
+    cfg = dataclasses.replace(get_config(arch), n_layers=cut["layers"])
+    planner = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=seq, executor_mode=mode)
+    assert planner.remainder() * 2 == pytest.approx(rec["cuda_temp_bytes"], rel=1e-9)
+    assert rec["weights_bytes"] == planner.state(1).params_card + planner.state(1).optim_card

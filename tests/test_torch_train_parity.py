@@ -288,8 +288,11 @@ def _setup(p, m, b=2, s=16, seed=0, placement=None, n_layers=None):
     stacked_t, shared_t = params_from_numpy(_np(stacked_j), _np(shared_j), device="cpu")
     spec_t = tlm.RunSpec(p=p, n_chunks=C, microbatch=b, seq_len=s, m=m)
     side_np = tlm.side_inputs(cfg_t, spec_t, seed=seed + 100)  # numpy: fed to both packages
-    side_j = {k: jnp.asarray(v, jnp.int32) for k, v in side_np.items()}
-    side_t = {k: torch.as_tensor(v, dtype=torch.long) for k, v in side_np.items()}
+    # integer tokens, labels and positions; a vlm or encdec front's float32 embeddings
+    side_j = {k: jnp.asarray(v, jnp.int32 if v.dtype.kind == "i" else jnp.float32)
+              for k, v in side_np.items()}
+    side_t = {k: torch.as_tensor(v, dtype=torch.long if v.dtype.kind == "i" else torch.float32)
+              for k, v in side_np.items()}
     return cfg_j, cfg_t, spec_j, spec_t, (stacked_j, shared_j, side_j), (stacked_t, shared_t, side_t)
 
 
