@@ -9,10 +9,13 @@ next in another (qwen2-moe-a2.7b: 28.6 GB of weights to serve, ~60 GiB to
 train), 22-23 next in a third (deepseek-v3-671b: 50 GB of weights to
 serve; in both the training phase first, in a fresh process, as the
 memory record it is gated against was measured), 24-27 next in a fourth
-(whisper-tiny and llava-next-mistral-7b, the training phases first), 17
-after 7, and 16 with its half of 13, then 13's held-out runs,
+(whisper-tiny and llava-next-mistral-7b, the training phases first),
+28-29 in a fifth (xlstm-350m) and 30-31 in a sixth (recurrentgemma-9b),
+17 after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
-launcher runs); any failed check raises and the exit code is not 0:
+launcher runs); any failed check raises and the exit code is not 0.
+internlm2-1.8b's training phases (9-16 and 13's held-out runs) run at
+T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
 
 1. build   -- compile every CUDA source of ``src/repro_torch/kernels/csrc/``
               with nvcc (sm_90a) into ``build/repro_torch/``, all at once.
@@ -48,8 +51,12 @@ launcher runs); any failed check raises and the exit code is not 0:
               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096) at
               N = 1600 and its front_proj (1024, 4096) at N = 576, and
               whisper-tiny's (384, 384), (384, 1536), (1536, 384) at the
-              encoder's N = 1500 and the decoder's N = 448, on wgmma
-              (RMSNorm: llava's and whisper's rows too, 384 in the sweep):
+              encoder's N = 1500 and the decoder's N = 448, on wgmma, and
+              xlstm-350m's (1024, 1024) at N = 2048 on wgmma and its
+              (1024, 4) gate products on mma_sync, recurrentgemma-9b's
+              (4096, 4096), (4096, 256), (4096, 12288), (12288, 4096) on
+              wgmma (RMSNorm: llava's, whisper's and xlstm's rows too, 384
+              and 1024 in the sweep):
               it adds into a clone of acc in
               place and is held against the plain version on the original,
               and a second launch on another clone must agree bit for bit;
@@ -60,10 +67,18 @@ launcher runs); any failed check raises and the exit code is not 0:
               at the stock 1e-5 (deepseek's against the plain version at
               WGRAD_FP32_N1024_ATOL); kernel and library are timed in
               turns, and the wrapper's eager host time per call is
-              measured.
+              measured.  slstm_scan (the port's own kernel: the sLSTM time
+              loop, forward and backward) at xlstm-350m's training shape
+              (1, 2048, 1024) and its serving's prefills (2, 512, 1024)
+              and (2, 513, 1024) against the plain loop: h and the state
+              bit for bit, the gradients within SLSTM_GRAD_RTOL, two
+              launches bit for bit; at the training shape device ms
+              beside the plain loop's and the bound (bytes, operations
+              and the 2 s-step chain).
 4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b, qwen2-moe-a2.7b,
-              deepseek-v3-671b, llava-next-mistral-7b and whisper-tiny
-              (float32; the last two with their patches and frames)
+              deepseek-v3-671b, llava-next-mistral-7b, whisper-tiny,
+              xlstm-350m and recurrentgemma-9b
+              (float32; llava and whisper with their patches and frames)
               served on cuda and on cpu:
               logits within 1e-4 and identical greedy tokens (gemma2's
               19-token prompt rolls its ring of 8), and for the moe models
@@ -78,14 +93,15 @@ launcher runs); any failed check raises and the exit code is not 0:
 7. profile -- the device's busy share in prefill and in decode, and the
               kernels that take the device time, from torch.profiler.
 8. train-reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b,
-              qwen2-moe-a2.7b, deepseek-v3-671b, llava-next-mistral-7b and
-              whisper-tiny (float32), p=2, m=4: 3
-              training steps
+              qwen2-moe-a2.7b, deepseek-v3-671b, llava-next-mistral-7b,
+              whisper-tiny, xlstm-350m and recurrentgemma-9b (float32), p=2,
+              m=4: 2 training steps
               (AdamW + post-validation) on cuda and on cpu under zb-h1 and
               under zb-v (two chunks on the V placement); losses within
               1e-5 relative, grad norms within 1e-4.
-9. train   -- internlm2-1.8b at full width and depth (bf16, random weights
-              from a seed): 4 stages on the one card, 8 microbatches of
+9. train   -- internlm2-1.8b at full width, 8 of its 24 layers (bf16,
+              random weights from a seed): 4 stages on the one card, 8
+              microbatches of
               1 x 1024 tokens from the synthetic stream, 2 steps each under
               all eight schedules of the launcher (1f1b, zb-h1, zb-h2,
               zb-1p, zb-2p on one chunk a stage; zb-v, v-min, v-half on two,
@@ -134,7 +150,8 @@ launcher runs); any failed check raises and the exit code is not 0:
               internlm2 at seq 512 under the graph executor, zb-v, 2
               steps, must stay under its priced total too
               (their launches counted with the main path's).
-14. launch  -- ``launch.train.main`` at full width and depth under a memory
+14. launch  -- ``launch.train.main`` at full width and phase 9's depth
+              (``--layers 8``) under a memory
               budget at which the planner picks a zero-bubble schedule,
               with a checkpoint directory; on the card the launcher
               runs the graph executor (its last line says
@@ -160,10 +177,10 @@ launcher runs); any failed check raises and the exit code is not 0:
               fresh eager walk's bit for bit (the embedding's within 1e-6
               relative), the step-0 loss equals phase 9's bit for bit, the
               losses and grad norms of phase 9's later steps within 1e-6
-              relative, over 4 steps (3 replayed); each capture
+              relative, over 3 steps (2 replayed); each capture
               launches both kernels as often as one eager step (all W ops
               on wgmma) and the replays launch nothing from Python; capture
-              seconds, replay step time (median of 3) beside phase 9's
+              seconds, replay step time (median of 2) beside phase 9's
               eager one (its step 1),
               tokens/s, allocated and reserved peaks; for zb-h1 and zb-v a
               profiled replayed step (host spans, device busy share, kernel
@@ -216,7 +233,7 @@ launcher runs); any failed check raises and the exit code is not 0:
 21. train-qwen2-moe -- qwen2-moe-a2.7b at full width, cut from 24 to 4
               layers: p=2 stages on the one card (two layers a stage; one
               a chunk on the V placement), 8 microbatches of 1 x 1024
-              tokens, zb-h1 and zb-v, 3 steps each eager and then with the
+              tokens, zb-h1 and zb-v, 2 steps each eager and then with the
               graph executor, the clip off (zb-v gets the seed-0 weights
               relaid); the eager zb-h1 step-0 gradient against plain
               autograd; step-0 loss in band and equal for both schedules,
@@ -279,6 +296,27 @@ launcher runs); any failed check raises and the exit code is not 0:
               frames, 432-token prompts, 16 greedy tokens (the decoder's
               448 positions; a decode step runs 3 of a block's 5 norms),
               gated as phase 26 at WS_CONSIST_REL_L2.
+28. train-xlstm -- xlstm-350m whole (24 layers: 18 mLSTM, 6 sLSTM; d
+              1024, 4 heads of 256, vocab 50304; bf16, random weights from
+              a seed), p=3, 8 microbatches of 1 x 2048 (16 mLSTM chunks,
+              the sLSTM kernel over 2048 steps), zb-h1 and zb-v: phase 21's
+              checks and gate; 5 wgrad_accum launches a sLSTM block and 6
+              an mLSTM block (mfg and mig on mma_sync), one rmsnorm a
+              block, a forward and a backward sLSTM kernel a sLSTM block
+              and microbatch.
+29. serve-xlstm -- xlstm-350m whole, p=3, phase 5's groups, prompts and
+              new tokens: prefill and decode ms, RMSNorm and sLSTM kernel
+              launches == the structure's count (a forward a sLSTM block
+              and group in prefill; decode runs the step form), decoding
+              token 512 against a prefill of 513 within XS_CONSIST_REL_L2.
+30. train-recurrentgemma -- recurrentgemma-9b at full width, 6 of its 38
+              layers and its vocabulary cut to 65536 (the price printed
+              first and held to RT_PRICE_GIB), p=2, m=8 of 1 x 1024, zb-h1
+              and zb-h2: phase 21's checks and gate; 8 wgrad_accum launches
+              a rglru block and 7 an attn_local block.
+31. serve-recurrentgemma -- recurrentgemma-9b at full width and depth (38
+              layers in 42 slots at p=2; 11.3 B parameters allocated), as
+              phase 29, within RS_CONSIST_REL_L2.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -308,9 +346,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.checkpoint import store  # noqa: E402
-from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs import all_configs, get_config, get_reduced  # noqa: E402
 from repro_torch.core.executor import PipelineExecutor  # noqa: E402
-from repro_torch.core.memory import cuda_temp_record  # noqa: E402
+from repro_torch.core.memory import cuda_temp_record, record_key  # noqa: E402
 from repro_torch.core.planner import HBMPlanner, stage_program_factory  # noqa: E402
 from repro_torch.core.schedules import compile_plan  # noqa: E402
 from repro_torch.core.schedules.ir import Placement  # noqa: E402
@@ -318,8 +356,9 @@ from repro_torch.core.simulator import TimeModel, simulate  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
+from repro_torch.kernels import slstm_scan as slstm_kernel  # noqa: E402
 from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
-from repro_torch.kernels.ref import rmsnorm_ref, wgrad_accum_ref  # noqa: E402
+from repro_torch.kernels.ref import rmsnorm_ref, slstm_scan_ref, wgrad_accum_ref  # noqa: E402
 from repro_torch.launch.calibrate import calibration_record, cut_config  # noqa: E402
 from repro_torch.launch.serve import draw_front, serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
@@ -356,7 +395,7 @@ P, M, B, PROMPT, NEW = 4, 8, 2, 512, 16  # full-width serving run
 RED_P, RED_M, RED_B, RED_PROMPT, RED_NEW = 2, 4, 2, 16, 4  # reduced cuda-vs-cpu run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
 # phase 3's RMSNorm sweep: every width of the port's dense configs, and rows
-RMS_SWEEP_WIDTHS = (48, 64, 384, 2048, 2304, 4096, 5120, 6144, 7168, 8192)
+RMS_SWEEP_WIDTHS = (48, 64, 384, 1024, 2048, 2304, 4096, 5120, 6144, 7168, 8192)
 RMS_SWEEP_ROWS = (1, 2, 1000, 4100)
 COLD_BYTES = 100_000_000  # a cold timing's rotation: twice the H100's 50 MB L2
 # full-width consistency in bf16: both paths round every product to bf16 (8
@@ -371,24 +410,38 @@ CONSIST_MAX_ABS = 0.25
 # decode and in a training forward alike (the norm's backward is plain
 # torch, no kernel); encdec's five (enc_attn, enc_mlp, dec_attn, xattn,
 # dec_mlp), of which a decode step runs the decoder's three
-NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mla": 1, "mlp": 1, "moe": 1, "encdec": 5}
+NORMS_PER_KIND = {"attn": 1, "attn_local": 1, "mla": 1, "mlp": 1, "moe": 1, "encdec": 5,
+                  "slstm": 1, "mlstm": 1, "rglru": 1}
 DECODE_NORMS_PER_KIND = dict(NORMS_PER_KIND, encdec=3)
 # deferred linears (W ops, one wgrad_accum launch each) of each kind: mla's
 # are its six products (wdq, wuq, wdkv, wuk, wuv, wo); moe's the router and
 # the three shared-expert weights (its expert stacks are batched products
 # that W adds by torch.bmm, as the JAX W slice does); encdec's 4 in each of
-# enc_attn, dec_attn and xattn, 3 in each of enc_mlp and dec_mlp.  A vlm or
-# encdec model adds one a microbatch: front_proj's, in the source's W
-LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mla": 6, "mlp": 3, "moe": 4, "encdec": 18}
+# enc_attn, dec_attn and xattn, 3 in each of enc_mlp and dec_mlp; slstm's
+# five (si, sf, sz, sog, so), mlstm's six (mq, mk, mv, mfg, mig, mo),
+# rglru's five (rx, ry, ra, ri, ro; its fp32 lam is a cheap leaf).  A vlm
+# or encdec model adds one a microbatch: front_proj's, in the source's W
+LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mla": 6, "mlp": 3, "moe": 4, "encdec": 18,
+                    "slstm": 5, "mlstm": 6, "rglru": 5}
 # ... of which fp32, on wgrad_accum's fma path: the moe router
 FMA_LINEARS_PER_KIND = {"moe": 1}
-# the other archs of phases 4, 8 and 17-21, and their reduced prompts in
-# phase 4 (gemma2's is 2W + 3 for its window W = 8: a rolled ring tail)
+# ... of which bf16 and n_heads wide, on its mma_sync path where n_heads is
+# no multiple of 8 (4 in xlstm-350m): mlstm's gate products mfg and mig
+HEADS_WIDE_LINEARS_PER_KIND = {"mlstm": 2}
+# sLSTM time-loop kernel launches of a slstm block and microbatch: the
+# forward in F (and in a prefill), the backward in B; a decode step runs the
+# step form, no kernel
+SLSTM_PER_KIND = {"slstm": 1}
+# the other archs of phases 4, 8 and 17-31, and their reduced prompts in
+# phase 4 (gemma2's and recurrentgemma's are 2W + 3 for their window W = 8:
+# a rolled ring tail)
 GPT3, GEMMA2, MOE = "gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b"
 DEEPSEEK, LLAVA, WHISPER = "deepseek_v3_671b", "llava_next_mistral_7b", "whisper_tiny"
+XLSTM, RGEMMA = "xlstm_350m", "recurrentgemma_9b"
 RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19, MOE: RED_PROMPT,
-               DEEPSEEK: RED_PROMPT, LLAVA: RED_PROMPT, WHISPER: RED_PROMPT}
-RED_ARCHS = (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK, LLAVA, WHISPER)
+               DEEPSEEK: RED_PROMPT, LLAVA: RED_PROMPT, WHISPER: RED_PROMPT, XLSTM: RED_PROMPT,
+               RGEMMA: 19}
+RED_ARCHS = (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK, LLAVA, WHISPER, XLSTM, RGEMMA)
 # gemma2 serving at full width: p stages, m groups of b, prompts past the
 # 4096 window and not a multiple of it, new greedy tokens
 GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
@@ -412,16 +465,24 @@ GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
 MOE_CHILD = "--moe-phases"  # ... and phases 20-21
 DEEPSEEK_CHILD = "--deepseek-phases"  # ... and phases 22-23
 FRONT_CHILD = "--front-phases"  # ... and phases 24-27
+XLSTM_CHILD = "--xlstm-phases"  # ... and phases 28-29
+RGEMMA_CHILD = "--recurrentgemma-phases"  # ... and phases 30-31
 GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
 
-# full-width training run: 4 stages on the card, m microbatches of b x seq
+# full-width training run: 4 stages on the card, m microbatches of b x seq;
+# internlm2's training phases (9-16 and the held-out runs) run at T_LAYERS
+# of its 24 layers, 2 a stage (both placements hold 8 without padding), and
+# are gated against its calibration record at that cut (its full-depth
+# record stays beside it): at the full depth the script passed its 1200 s
+# limit on a slow host (PERF.md §4)
 T_P, T_M, T_B, T_SEQ, T_STEPS = 4, 8, 1, 1024, 2
+T_LAYERS = 8
 T_SCHEDULES = ("1f1b", "zb-h1", "zb-h2", "zb-1p", "zb-2p", "zb-v", "v-min", "v-half")
 T_PROFILED = ("zb-h1", "zb-v")  # one chunk a stage, and two on the V placement
 T_MEM_LIMIT_GB = 75.0  # above this peak, the schedule runs again at seq 512
 # reduced cuda-vs-cpu training run
-TR_P, TR_M, TR_B, TR_SEQ, TR_STEPS = 2, 4, 2, 32, 3
+TR_P, TR_M, TR_B, TR_SEQ, TR_STEPS = 2, 4, 2, 32, 2
 # the W products of the training step: (H, F) of wq/wo, wk/wv, wu/wg, wd
 WGRAD_MAIN = (("wq,wo", 2048, 2048), ("wk,wv", 2048, 1024), ("wu,wg", 2048, 8192),
               ("wd", 8192, 2048))
@@ -452,6 +513,26 @@ WGRAD_LLAVA = (("llava wq,wo", 4096, 4096), ("llava wk,wv", 4096, 1024),
                ("llava wu,wg", 4096, 14336), ("llava wd", 14336, 4096))
 WGRAD_LLAVA_FRONT = (1024, 4096)
 WGRAD_WHISPER = (("wq,wk,wv,wo", 384, 384), ("wu,wg", 384, 1536), ("wd", 1536, 384))
+# ... and of xlstm-350m's blocks at N = 2048 (every sLSTM and mLSTM product
+# is (1024, 1024) but mfg and mig, (1024, 4): bf16 rows of 8 bytes, so on
+# mma_sync), and of recurrentgemma-9b's at N = 1024 (rx, ry, ra, ri, ro and
+# wq, wo (4096, 4096); its one kv head's wk, wv (4096, 256); the mlp's)
+# the sLSTM loop's kernels against the plain loop on the card: h and the
+# state are the same fp32 operations in the same order (no contraction into
+# FMAs), so they must agree bit for bit; the backward sums a state's
+# gradient terms in another order than autograd does, ~1e-7 relative a
+# step, which the chain's contraction (each step multiplies the carried
+# gradient by the forget gate, at most 1) keeps from growing
+SLSTM_GRAD_RTOL = 1e-5
+# the chain bound: a step's state waits on at least 4 dependent fp32
+# operations (f + m, the max, the subtraction and the exponential's ex2)
+# of 4 cycles each at the H100 SXM's 1.98 GHz boost clock (NVIDIA's data
+# sheet); the exponential alone takes more
+SLSTM_CHAIN_OPS, SLSTM_OP_CYCLES, H100_BOOST_HZ = 4, 4, 1.98e9
+WGRAD_XLSTM = (("xlstm si,sf,sz,sog,so,mq,mk,mv,mo", 1024, 1024), ("xlstm mfg,mig", 1024, 4))
+WGRAD_RGEMMA = (("recurrentgemma rx,ry,ra,ri,ro,wq,wo", 4096, 4096),
+                ("recurrentgemma wk,wv", 4096, 256), ("recurrentgemma wu,wg", 4096, 12288),
+                ("recurrentgemma wd", 12288, 4096))
 # the routers' tolerance: each is held at the stock TOL[float32] against an
 # fp64 sum, and qwen2-moe's also against the plain version.  deepseek's
 # router is held against the plain version at 1e-4 absolute (1e-5
@@ -482,7 +563,7 @@ MOE_CONSIST_REL_L2 = 6e-2
 # layers (24 would hold ~14 bytes x 14.3 B = 200 GB), p=2 so that both
 # placements hold the 4 layers without a padded group (at p=4 the V
 # placement pads to 8 layer slots, 5.2 B parameters, ~73 GB)
-MT_LAYERS, MT_P, MT_STEPS = 4, 2, 3
+MT_LAYERS, MT_P, MT_STEPS = 4, 2, 2
 MT_SCHEDULES = ("zb-h1", "zb-v")
 MOE_TRAIN = dict(tag="train-qwen2-moe", p=MT_P, schedules=MT_SCHEDULES)
 # deepseek-v3-671b serving (phase 22): every matrix at its published shape
@@ -548,6 +629,50 @@ LS_P, LS_CONSIST_REL_L2, LS_CONSIST_MAX_ABS = 4, 6.6e-2, 0.78
 # rounded up to 3e-2; the max bound scales CONSIST_MAX_ABS to whisper's
 # logits (std ~0.02 x sqrt(384)): 0.25 x sqrt(384 / 2048) = 0.108
 WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS = 2, 432, 3e-2, 0.108
+# xlstm-350m training (phase 28): whole (24 layers, d 1024, 4 heads of 256,
+# vocab 50304), p=3: 8 layers a stage, and the V placement's 6 groups of 4
+# hold the 24 layers too (at p=2 the V placement, at p=4 both, pad 8 of 32
+# slots); m=8 microbatches of 1 x 2048, so each sequence crosses 16 mLSTM
+# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v
+XT_P, XT_SEQ = 3, 2048
+XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=XT_SEQ)
+# recurrentgemma-9b training (phase 30): full width (d 4096, 16 q / 1 kv
+# heads of 256, lru_width 4096, d_ff 12288, window 2048), 6 of its 38
+# layers (two periods of rglru, rglru, attn_local), p=2, m=8 of 1 x 1024,
+# zb-h1 and zb-h2 (at p=2 the V placement pads 6 layers to 12 slots), its
+# vocabulary cut from 256000 to 65536: at the full vocabulary (3.41 B
+# parameters, ~14 bytes each with their moments and accumulators, ~44 GiB
+# before any activation) launch/calibrate.py's first zb-h1 run ran out of
+# the card in the optimizer's step (75.5 GiB in use; H100, 700 W); at
+# 65536, 1.85 B parameters.  Its priced one-card total printed before any
+# step and held to RT_PRICE_GIB
+RT_LAYERS, RT_P, RT_VOCAB, RT_PRICE_GIB = 6, 2, 65536, 70.0
+RGEMMA_TRAIN = dict(tag="train-recurrentgemma", p=RT_P, schedules=("zb-h1", "zb-h2"))
+# their serving (phases 29 and 31), at phase 5's groups, batch, prompts and
+# new tokens: xlstm whole at p=3; recurrentgemma at full width and depth (38
+# layers, 10.4 B parameters; p=2 gives 42 slots, 4 of them padded, 11.3 B
+# parameters allocated, ~23 GB in bf16; p=4 would pad 10 of 48).  Their
+# decode-vs-prefill limits, derived before any card run of them from
+# tools/serve_consistency.py --recurrent (bf16, reduced width, CPU, both
+# packages; the step form with fp32 state against the chunkwise mLSTM, the
+# sLSTM loop and the associative scan) and phase 6's card step of 4.1e-3 a
+# sublayer (0.0283 / sqrt(48), every run), each sublayer walking both.
+# xlstm at its 24 layers (reduced width, 30 seeds): the JAX package 0.0448,
+# the port 0.0490 (larger in 15 of the 30; the port is to be no worse than
+# the JAX package, so the limit is the JAX package's reading, not the
+# port's), so sqrt(0.0448^2 + 24 x 4.1e-3^2) = 0.0491 and twice that is the
+# limit, 0.098; the max bound scales CONSIST_MAX_ABS to it and to xlstm's
+# logits (std ~0.02 x sqrt(1024)): 0.25 x (0.098 / 3e-2) x sqrt(1024 /
+# 2048) = 0.58.  recurrentgemma at its 38 layers: the port 0.0
+# in every seed (its rglru and attn_local decode is the prefill's last
+# position to the bit on the CPU; the JAX package 0.061, its prefill's
+# per-position decode state), so the card's step alone over its 76
+# sublayers, sqrt(76) x 4.1e-3 = 0.0357, twice that 7.2e-2; max 0.25 x
+# (7.2e-2 / 3e-2) x sqrt(4096 / 2048) = 0.85.  A state that the prefill
+# did not hand over moves the logits by O(1) of their norm
+XS_P, RS_P = 3, 2
+XS_CONSIST_REL_L2, XS_CONSIST_MAX_ABS = 0.098, 0.58
+RS_CONSIST_REL_L2, RS_CONSIST_MAX_ABS = 7.2e-2, 0.85
 # later full-width losses across schedules: the embedding gradient is a
 # CUDA index_add_ (atomics, no fixed order), so it differs between runs by
 # fp32 rounding (~1e-7 relative); AdamW's first steps are nearly
@@ -590,7 +715,7 @@ L_BUDGET_MB, L_STEPS = 36864, 4
 # relative), and every later loss and grad norm, within 1e-6 relative; it
 # runs G_STEPS steps, the first T_STEPS against phase 9, and its step time is
 # the median of the G_STEPS - 1 replayed steps after the capturing one
-G_RTOL, G_STEPS = 1e-6, 4
+G_RTOL, G_STEPS = 1e-6, 3
 # the driver's failure replay: full width, 1 layer a stage (a 6.3 GB
 # checkpoint against the full depth's 19 GB; 2 a stage, 8.8 GB, until the
 # moe phases lengthened the script), a failure at step 3 restored
@@ -610,6 +735,12 @@ PLAN_OVERSHOOT_MAX = 0.10
 # (two chunks a stage: two slot sizes priced; zb-h1's held-out run, its
 # one-chunk twin, was cut for the script's time)
 H_SEQ, H_SCHEDULES, H_STEPS = 512, ("zb-v",), 2
+
+
+def train_config():
+    """internlm2-1.8b at full width, cut to T_LAYERS layers: the config of
+    the training phases 9-16."""
+    return dataclasses.replace(get_config(ARCH), n_layers=T_LAYERS)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -768,7 +899,7 @@ def phase_kernels(cfg_full, cfg_red):
     d2 = get_config(GPT3).d_model
     check(get_config(GEMMA2).d_model == d2, "gpt3-1.5b and gemma2-2b differ in width")
     d3 = get_config(DEEPSEEK).d_model
-    lv, wh = get_config(LLAVA), get_config(WHISPER)
+    lv, wh, xl = get_config(LLAVA), get_config(WHISPER), get_config(XLSTM)
     n_lv, n_wh = front_spec(lv)[1], front_spec(wh)[1]
     rmsnorm_sweep()
     shapes = [  # (label, N rows, H, x dtype, g dtype, the path the main path takes or None)
@@ -794,6 +925,12 @@ def phase_kernels(cfg_full, cfg_red):
         ("whisper-prefill-encoder", B * n_wh, wh.d_model, bf16, bf16, "bulk"),
         ("whisper-prefill-decoder", B * WS_PROMPT, wh.d_model, bf16, bf16, "bulk"),
         ("whisper-decode", B, wh.d_model, bf16, bf16, "latency"),
+        # xlstm: its training rows (1 x 2048), prefill's and decode's;
+        # recurrentgemma's (1024 x 4096 in training and prefill, 2 x 4096 in
+        # decode) are llava's sink and decode rows above
+        ("xlstm-train", T_B * XT_SEQ, xl.d_model, bf16, bf16, "bulk"),
+        ("xlstm-prefill", B * PROMPT, xl.d_model, bf16, bf16, "bulk"),
+        ("xlstm-decode", B, xl.d_model, bf16, bf16, "latency"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -922,18 +1059,23 @@ def expected_serve_paths(cfg, p, m, new_tokens):
 
 
 def _serve_counted(what, cfg, p, m, new_tokens, run):
-    """``run()`` with the RMSNorm counters reset before and read after; its
-    launches must be the structure's count, on the paths their rows imply.
-    Returns (result, launches, launches by path)."""
+    """``run()`` with the counters reset before and read after; its RMSNorm
+    launches must be the structure's count, on the paths their rows imply,
+    and its sLSTM kernel launches one forward a slstm block and group (the
+    prefill's).  Returns (result, rmsnorm launches, by path, sLSTM kernel
+    launches by kernel)."""
     _reset_counts()
     res = run()
-    _, launches, _, by_path = _read_counts()
+    _, launches, _, by_path, sl = _read_counts()
     want = expected_norm_launches(cfg, p, m, 1 + new_tokens)
     check(launches == want and launches > 0,
           f"{what}: rmsnorm launches {launches} != {want} implied by the port's structure")
     want_paths = expected_serve_paths(cfg, p, m, new_tokens)
     check(by_path == want_paths, f"{what}: rmsnorm launches by path {by_path} != {want_paths}")
-    return res, launches, by_path
+    want_sl = dict(fwd=m * p * _per_group(cfg, p, 1, SLSTM_PER_KIND), bwd=0)
+    check(sl == want_sl, f"{what}: sLSTM kernel launches {sl} != {want_sl} (a forward a "
+          f"slstm block and group in prefill, none in decode)")
+    return res, launches, by_path, sl
 
 
 def _check_served(cfg, res, m, b, new_tokens):
@@ -957,7 +1099,7 @@ def phase_serve(cfg):
     serve(cfg, stacked, shared, prompts, p=P, new_tokens=1)  # warm-up (cuBLAS, allocator)
 
     torch.cuda.reset_peak_memory_stats()
-    res, launches, by_path = _serve_counted(
+    res, launches, by_path, _ = _serve_counted(
         "serve", cfg, P, M, NEW, lambda: serve(cfg, stacked, shared, prompts, p=P, new_tokens=NEW,
                                                log=lambda s: print(f"[serve] {s}")))
     want = expected_norm_launches(cfg, P, M, 1 + NEW)
@@ -1035,6 +1177,8 @@ def phase_kernels_wgrad(cfg_red):
         ("llava front_proj", T_B * n_lv, *WGRAD_LLAVA_FRONT, bf16)] + [
         (f"whisper {stream}{name}", rows, h, f, bf16) for stream, rows in (
             ("enc ", T_B * n_wh), ("dec ", T_B * WT_SEQ)) for name, h, f in WGRAD_WHISPER] + [
+        (name, T_B * XT_SEQ, h, f, bf16) for name, h, f in WGRAD_XLSTM] + [
+        (name, n, h, f, bf16) for name, h, f in WGRAD_RGEMMA] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -1049,8 +1193,11 @@ def phase_kernels_wgrad(cfg_red):
         g = (torch.randn(n_, f, generator=gen, device="cuda") * 0.5).to(dt)
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
-        if label.startswith(("gpt3", "qwen2-moe", "deepseek", "llava", "whisper")):  # a main-path W op: bf16 on wgmma, fp32 on fma
-            want_path = "wgmma" if dt == bf16 else "fma"
+        if label.startswith(("gpt3", "qwen2-moe", "deepseek", "llava", "whisper", "xlstm",
+                             "recurrentgemma")):
+            # a main-path W op: bf16 on wgmma (on mma_sync where F is no
+            # multiple of 8: mlstm's gates), fp32 on fma
+            want_path = "fma" if dt == f32 else "mma_sync" if f % 8 else "wgmma"
             check(path == want_path, f"the W op {label} takes the {path} path, not {want_path}")
         ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
         out, again = acc.clone(), acc.clone()
@@ -1114,6 +1261,94 @@ def phase_kernels_wgrad(cfg_red):
     return rows
 
 
+def slstm_bound_ms(b: int, s: int, h: int):
+    """Least time for the forward and backward of the sLSTM loop: the bytes
+    the two functions must move (forward: i, f, z read, h written, the final
+    state written; backward: i, f, z and dh read, di, df, dz written; each
+    (b, s, h) fp32 once), ~40 fp32 operations a step and channel over the
+    fp32 rate, or the chain: each channel's 2 s dependent steps, each at
+    least SLSTM_CHAIN_OPS dependent fp32 operations of SLSTM_OP_CYCLES
+    cycles at the H100's boost clock.  The chain counts as operations.
+    Returns (ms, what bounds it, {bytes, operations, chain: ms})."""
+    parts = dict(bytes=(11 * b * s * h + 3 * b * h) * 4 / HBM_BYTES_PER_S * 1e3,
+                 operations=40 * b * s * h / FP32_OPS_PER_S * 1e3,
+                 chain=2 * s * SLSTM_CHAIN_OPS * SLSTM_OP_CYCLES / H100_BOOST_HZ * 1e3)
+    ms = max(parts.values())
+    return ms, "bytes" if ms == parts["bytes"] else "operations", parts
+
+
+def _slstm_check(b: int, s: int, h: int, seed: int):
+    """The sLSTM loop's kernels against the plain loop on the card at one
+    (b, s, h), forward then backward, on the same inputs: h and the final
+    state bit for bit (the same fp32 operations in the same order), the
+    gradients within SLSTM_GRAD_RTOL of the largest; two launches bit for
+    bit.  Returns (inputs, the plain pass, {what: (max_abs_err, largest)})."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    i_pre, f_pre, z = ((torch.randn((b, s, h), generator=gen, device="cuda") * sc).contiguous()
+                       for sc in (1.5, 1.5, 0.8))
+    dh = torch.randn((b, s, h), generator=gen, device="cuda")
+
+    def kernels():
+        hs, c, n, m = slstm_kernel.forward(i_pre, f_pre, z)
+        return (hs, c[:, -1], n[:, -1], m[:, -1]), slstm_kernel.backward(
+            i_pre, f_pre, z, c, n, m, dh)
+
+    def plain():
+        xs = [t.clone().requires_grad_(True) for t in (i_pre, f_pre, z)]
+        hs, state = slstm_scan_ref(*xs)
+        hs.backward(dh)
+        return (hs.detach(), *(t.detach() for t in state)), tuple(x.grad for x in xs)
+
+    (fwd, grads), (fwd2, grads2), (pfwd, pgrads) = kernels(), kernels(), plain()
+    torch.cuda.synchronize()
+    what = f"slstm_scan at (b, s, h) = ({b}, {s}, {h})"
+    check(all(torch.equal(a, b_) for a, b_ in zip(fwd + grads, fwd2 + grads2)),
+          f"{what}: two launches differ")
+    check(all(torch.equal(a, b_) for a, b_ in zip(fwd, pfwd)),
+          f"{what}: h c n m not bit for bit the plain loop's")
+    errs = {}
+    for name, got, want in (("h c n m", fwd, pfwd), ("di df dz", grads, pgrads)):
+        errs[name] = (max(float((a - b_).abs().max()) for a, b_ in zip(got, want)),
+                      max(float(b_.abs().max()) for b_ in want))
+    err, scale = errs["di df dz"]
+    check(err <= SLSTM_GRAD_RTOL * scale,
+          f"{what} di df dz: max_abs_err {err} > {SLSTM_GRAD_RTOL} x {scale}")
+    print(f"[kernels] {what} fp32, forward + backward against the plain loop: h c n m bit for "
+          f"bit; di df dz max_abs_err={err:.3g} of max {scale:.3g} (rtol {SLSTM_GRAD_RTOL}); "
+          f"two launches bit for bit")
+    return (i_pre, f_pre, z, dh), (kernels, plain), errs
+
+
+def phase_kernels_slstm():
+    """The sLSTM time loop's kernels on the card at every shape the main
+    path gives them (:func:`_slstm_check`): xlstm-350m's training shape
+    (1, 2048, 1024) and its serving's, phase 29's prefills of PROMPT and of
+    PROMPT + 1 tokens in groups of B (2, 512, 1024) and (2, 513, 1024),
+    whose steps are not a whole number of the kernels' 8-step ring.  At the
+    training shape the pair's device ms (CUDA events around a CUDA graph of
+    calls) beside the plain version's (eager: ~40 launches a step) and the
+    bound.  No PyTorch call computes the loop, so it has no library time."""
+    h = get_config(XLSTM).d_model
+    for seed, s in enumerate((PROMPT, PROMPT + 1), start=5):
+        _slstm_check(B, s, h, seed)
+    b, s = T_B, XT_SEQ
+    (i_pre, f_pre, z, _), (kernels, plain), errs = _slstm_check(b, s, h, 4)
+    ms = device_ms(kernels, iters=20)
+    plain_ms = eager_ms(plain, iters=1, warmup=0)  # the check above ran it once
+    bound, bound_by, parts = slstm_bound_ms(b, s, h)
+    row = dict(max_abs_err=max(e for e, _ in errs.values()), ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by, chain_ms=parts["chain"], library_ms=None,
+               fwd_ms=device_ms(lambda: slstm_kernel.forward(i_pre, f_pre, z), iters=20))
+    print(f"[kernels] slstm_scan (b, s, h) = ({b}, {s}, {h}) fp32, forward + backward: device "
+          f"ms kernels={ms:.4f} (forward {row['fwd_ms']:.4f}) plain={plain_ms:.1f} (eager, host "
+          f"included) bound={bound:.4f} ({bound_by}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"), kernels at {bound / ms:.1%} of it; no library call computes the loop")
+    del i_pre, f_pre, z, kernels, plain
+    torch.cuda.empty_cache()
+    return row
+
+
 def _to(tree, device):
     return tree_map(lambda a: a.to(device), tree)
 
@@ -1146,6 +1381,12 @@ def phase_train_reduced(cfg):
               f"{name}: reduced training grad norms differ between cuda and cpu")
 
 
+def _per_group(cfg, p, n_chunks, per_kind):
+    """The sum of ``per_kind`` over one (stage, chunk) group's blocks."""
+    blocks, _ = group_layout(cfg, p, n_chunks)
+    return sum(per_kind.get(k, 0) for kinds in blocks for k in kinds)
+
+
 def expected_train_launches(cfg, p, n_chunks, m):
     """Per training step: (wgrad_accum, rmsnorm) launches the port's
     structure implies -- one wgrad per deferred linear per W op, one norm
@@ -1167,6 +1408,22 @@ def expected_fma_launches(cfg, p, n_chunks, m):
     return m * p * n_chunks * sum(FMA_LINEARS_PER_KIND.get(k, 0) for kinds in blocks for k in kinds)
 
 
+def expected_narrow_launches(cfg, p, n_chunks, m):
+    """Of those wgrad_accum launches, the bf16 ones n_heads wide where
+    n_heads is no multiple of 8 (mlstm's mfg and mig), which take the
+    mma_sync path."""
+    if cfg.n_heads % 8 == 0:
+        return 0
+    return m * p * n_chunks * _per_group(cfg, p, n_chunks, HEADS_WIDE_LINEARS_PER_KIND)
+
+
+def expected_slstm_launches(cfg, p, n_chunks, m):
+    """sLSTM kernel launches of a training step: a forward and a backward a
+    slstm block and microbatch."""
+    n = m * p * n_chunks * _per_group(cfg, p, n_chunks, SLSTM_PER_KIND)
+    return dict(fwd=n, bwd=n)
+
+
 def expected_measure_launches(cfg, p):
     """(wgrad_accum, rmsnorm) launches of the measured fidelity's slot
     measurement (``slot_bytes``): microbatch 0's F and B through stage 0's
@@ -1183,37 +1440,48 @@ def _reset_counts():
     wgrad_kernel.launches_by_path.update({k: 0 for k in wgrad_kernel.PATHS})
     rms_kernel.launches = 0
     rms_kernel.launches_by_path.update({k: 0 for k in rms_kernel.PATHS})
+    slstm_kernel.launches = 0
+    slstm_kernel.launches_by_path.update({k: 0 for k in slstm_kernel.PATHS})
 
 
 def _read_counts():
-    """(wgrad_accum, rmsnorm, wgrad_accum by path, rmsnorm by path)."""
+    """(wgrad_accum, rmsnorm, wgrad_accum by path, rmsnorm by path, the sLSTM
+    kernel's by kernel)."""
     return (wgrad_kernel.launches, rms_kernel.launches, dict(wgrad_kernel.launches_by_path),
-            dict(rms_kernel.launches_by_path))
+            dict(rms_kernel.launches_by_path), dict(slstm_kernel.launches_by_path))
 
 
 def _zero_counts():
-    return 0, 0, {k: 0 for k in wgrad_kernel.PATHS}, {k: 0 for k in rms_kernel.PATHS}
+    return (0, 0, {k: 0 for k in wgrad_kernel.PATHS}, {k: 0 for k in rms_kernel.PATHS},
+            {k: 0 for k in slstm_kernel.PATHS})
 
 
 def _add_counts(a, b, sign=1):
     """``a + sign * b`` for two count tuples of ``_read_counts``."""
-    return (a[0] + sign * b[0], a[1] + sign * b[1], {k: a[2][k] + sign * b[2][k] for k in a[2]},
-            {k: a[3][k] + sign * b[3][k] for k in a[3]})
+    return (a[0] + sign * b[0], a[1] + sign * b[1],
+            *({k: x[k] + sign * y[k] for k in x} for x, y in zip(a[2:], b[2:])))
 
 
-def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0), fma_per_step=0):
-    """Both kernels' launches over ``n_steps`` training steps (plus ``extra``
+def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0), fma_per_step=0,
+                  narrow_per_step=0, slstm_per_step=None):
+    """The kernels' launches over ``n_steps`` training steps (plus ``extra``
     outside them) equal the counts the port's structure implies, every bf16
-    W op on the wgmma path and the ``fma_per_step`` fp32 ones (the moe
-    routers) on fma."""
+    W op on the wgmma path but the ``narrow_per_step`` ones n_heads wide
+    (mlstm's gates, on mma_sync) and the ``fma_per_step`` fp32 ones (the moe
+    routers) on fma; the sLSTM kernel's ``slstm_per_step`` (by kernel; none
+    by default)."""
     want = tuple(n_steps * n + e for n, e in zip(want_per_step, extra))
     check(launches[:2] == want, f"{what}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
           f"{want} implied by the port's structure")
-    fma = n_steps * fma_per_step
-    want_paths = {k: {"wgmma": want[0] - fma, "fma": fma}.get(k, 0) for k in wgrad_kernel.PATHS}
+    fma, narrow = n_steps * fma_per_step, n_steps * narrow_per_step
+    want_paths = {k: {"wgmma": want[0] - fma - narrow, "fma": fma, "mma_sync": narrow}.get(k, 0)
+                  for k in wgrad_kernel.PATHS}
     check(launches[2] == want_paths, f"{what}: wgrad_accum launches by path {launches[2]} != "
-          f"{want_paths}: every bf16 W op of the training step should take the wgmma path, "
-          f"every fp32 one (a moe router) fma")
+          f"{want_paths}: every bf16 W op of the training step should take the wgmma path but "
+          f"the n_heads-wide ones (mma_sync), every fp32 one (a moe router) fma")
+    want_sl = {k: n_steps * (slstm_per_step or {}).get(k, 0) for k in slstm_kernel.PATHS}
+    check(launches[4] == want_sl, f"{what}: sLSTM kernel launches {launches[4]} != {want_sl} "
+          f"(a forward and a backward a slstm block and microbatch)")
     want_rms = {k: (want[1] if k == "bulk" else 0) for k in rms_kernel.PATHS}
     check(launches[3] == want_rms, f"{what}: rmsnorm launches by path {launches[3]} != "
           f"{want_rms}: every norm of the training step (1024 rows) should take the bulk path")
@@ -1721,6 +1989,19 @@ def _gate(tag, what, one, mem, share=PLAN_OVERSHOOT_MAX):
     return over
 
 
+def _own_record(cfg, mode, p):
+    """The calibration record that prices a gated run of ``cfg`` on ``p``
+    stages, checked to be measured at the run's own depth: its cut's, or the
+    published depth's where it has no cut."""
+    rec = cuda_temp_record(cfg.name, mode, layers=cfg.n_layers, p=p)
+    check(rec is not None, f"{cfg.name}: no calibration record under the {mode} executor")
+    full = {c.name: c.n_layers for c in all_configs().values()}[cfg.name]
+    own = [(cfg.n_layers, p)] + ([None] if (cfg.n_layers, p) == (full, rec["p"]) else [])
+    check(record_key(rec) in own, f"{cfg.name} {mode}: priced with a record measured at "
+          f"{rec.get('cut') or 'the full depth'}, not at this run's {cfg.n_layers} layers at p={p}")
+    return rec
+
+
 def _fresh_calibration(tag, cfg, mode, priced_runs):
     """The record ``launch/calibrate.py`` would write now from this run's
     own runs ({schedule: (one-card parts, memory peaks)}), printed beside
@@ -1730,7 +2011,7 @@ def _fresh_calibration(tag, cfg, mode, priced_runs):
     weights = next(iter(priced_runs.values()))[0].weights
     rec = calibration_record(cfg, mode, runs, p=T_P, m=T_M, microbatch=T_B, seq_len=T_SEQ,
                              weights_bytes=weights, card="", steps=0, seed=0)
-    table = cuda_temp_record(cfg.name, mode) or {}
+    table = _own_record(cfg, mode, T_P)
     def parts(r):
         return (f"remainder {_gib(r.get('cuda_temp_bytes', 0.0))} GiB (allocator "
                 f"{_gib(r.get('cuda_temp_fixed_bytes', 0.0))} + unpriced live "
@@ -1768,7 +2049,8 @@ def _dir_bytes(path) -> int:
 
 
 def phase_launch_budget(cfg):
-    """``launch.train.main`` at full width and depth under a memory budget
+    """``launch.train.main`` at full width and the training phases' depth
+    (``--layers``) under a memory budget
     at which the planner picks a zero-bubble schedule, checkpointing into a
     temporary directory, on the card under the graph executor; the
     final checkpoint restores bit for bit.  The launches are those of the
@@ -1782,7 +2064,8 @@ def phase_launch_budget(cfg):
         _reset_counts()
         try:
             with contextlib.redirect_stdout(out):
-                res = train_main(["--arch", ARCH, "--pipe-size", str(T_P), "--m", str(T_M),
+                res = train_main(["--arch", ARCH, "--layers", str(cfg.n_layers),
+                                  "--pipe-size", str(T_P), "--m", str(T_M),
                                   "--microbatch", str(T_B), "--seq-len", str(T_SEQ), "--steps",
                                   str(L_STEPS), "--lr", "1e-3", "--memory-budget-mb",
                                   str(L_BUDGET_MB), "--ckpt-dir", ckpt, "--device", DEV])
@@ -2212,7 +2495,7 @@ def phase_serve_gemma2(cfg):
     serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=1)  # warm-up (cuBLAS, allocator)
 
     torch.cuda.reset_peak_memory_stats()
-    res, launches, by_path = _serve_counted(
+    res, launches, by_path, _ = _serve_counted(
         "serve-gemma2", cfg, GS_P, GS_M, GS_NEW,
         lambda: serve(cfg, stacked, shared, prompts, p=GS_P, new_tokens=GS_NEW,
                       log=lambda s: print(f"[serve-gemma2] {s}")))
@@ -2568,7 +2851,7 @@ def phase_serve_moe(cfg, tag="serve-qwen2-moe", p=P, limit=MOE_CONSIST_REL_L2):
     del log, pre, dec
 
     torch.cuda.reset_peak_memory_stats()
-    res, launches, by_path = _serve_counted(
+    res, launches, by_path, _ = _serve_counted(
         tag, cfg, p, M, NEW,
         lambda: serve(cfg, stacked, shared, prompts, p=p, new_tokens=NEW,
                       log=lambda s: print(f"[{tag}] {s}")))
@@ -2644,6 +2927,9 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
     plan = compile_plan(sched)
     per_step = expected_train_launches(cfg, p, sched.n_chunks, T_M)
     fma = expected_fma_launches(cfg, p, sched.n_chunks, T_M)
+    kw = dict(fma_per_step=fma, narrow_per_step=expected_narrow_launches(
+        cfg, p, sched.n_chunks, T_M), slstm_per_step=expected_slstm_launches(
+        cfg, p, sched.n_chunks, T_M))
     stacked, shared, spec, data = _init_full(cfg, sched, seq)
     step, _ = build_train_step(cfg, spec, plan, sched.placement, TrainStepConfig(
         adamw=adamw.AdamWConfig(grad_clip=None), executor_mode=mode))
@@ -2677,14 +2963,14 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
     del state
     what = f"{cfg.name} {name}"
     if mode == "eager":
-        want = _check_counts(f"{what} eager first walk", first, per_step, 1, fma_per_step=fma)
-        _check_counts(f"{what} eager steps", launches, per_step, MT_STEPS, fma_per_step=fma)
+        want = _check_counts(f"{what} eager first walk", first, per_step, 1, **kw)
+        _check_counts(f"{what} eager steps", launches, per_step, MT_STEPS, **kw)
         counted = _add_counts(first, launches)
     else:
         check(step.grad_fn.captures == 1 and len(walks) == 2,
               f"{what}: {step.grad_fn.captures} captures and {len(walks)} walks")
         for when, (c, _) in zip(("warm-up", "capture"), walks):
-            want = _check_counts(f"{what} {when}", c, per_step, 1, fma_per_step=fma)
+            want = _check_counts(f"{what} {when}", c, per_step, 1, **kw)
         check(launches == _zero_counts(),
               f"{what}: the replayed steps launched {launches} from Python")
         counted = _add_counts(walks[0][0], walks[1][0])
@@ -2711,7 +2997,8 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
           f"init; {capture}first walk {first_s:.2f} s; ms_per_step median={med * 1e3:.1f} "
           f"all={[round(x * 1e3, 1) for x in res.step_s]} tokens_per_s={tokens / med:.0f}; peak GB "
           f"allocated={peak_gb:.2f} reserved={reserved_gb:.2f}; launches a step wgrad_accum="
-          f"{want[0]} (fma {fma}) rmsnorm={want[1]}, by path {counted[2]} {counted[3]} over "
+          f"{want[0]} (fma {fma}, mma_sync {kw['narrow_per_step']}) rmsnorm={want[1]} sLSTM "
+          f"kernel={kw['slstm_per_step']}, by path {counted[2]} {counted[3]} {counted[4]} over "
           f"{'the first walk and the steps' if mode == 'eager' else 'the warm-up and captured walks'}; "
           f"losses {res.losses} grad_norms {res.grad_norms}{gap}")
     out = dict(res=res, keyed=keyed, loss0=loss0, seq=seq, sched=sched, peak_gb=peak_gb,
@@ -2774,8 +3061,7 @@ def phase_train_cut(cfg, tr=MOE_TRAIN):
         print(f"[{tag}] step-0 losses {first} in band; the schedules ran at other seq lengths, so "
               f"no cross-schedule check")
     for mode in ("eager", "graph"):
-        rec = cuda_temp_record(cfg.name, mode)
-        check(rec is not None, f"{cfg.name}: no calibration record under the {mode} executor")
+        rec = _own_record(cfg, mode, p)
         print(f"[{tag}] {cfg.name} {mode}: priced with the calibration record measured at "
               f"{rec.get('cut')} on {rec['card']}")
     overs = []
@@ -2806,24 +3092,10 @@ def phase_train_cut(cfg, tr=MOE_TRAIN):
 # --------------------------------------------------------------------- #
 def _llava_depth(cfg):
     """The training cut's depth: the deepest of LT_DEPTHS whose priced
-    one-card total under the graph executor (``HBMPlanner.one_card_bytes``,
-    measured fidelity, the slots measured on the card, the calibration
-    record's remainder), the larger of zb-h1's and zb-v's, is at most
-    LT_PRICE_GIB; each price printed before any step runs."""
-    names = LLAVA_TRAIN["schedules"]
+    one-card total under the graph executor (``_priced``), the larger of
+    zb-h1's and zb-v's, is at most LT_PRICE_GIB."""
     for layers in LT_DEPTHS:
-        cut = dataclasses.replace(cfg, n_layers=layers)
-        planner = HBMPlanner(cut, p=LT_P, m=T_M, microbatch=T_B, seq_len=T_SEQ,
-                             executor_mode="graph", program_factory=stage_program_factory(
-                                 cut, LT_P, T_M, T_B, T_SEQ, DEV))
-        priced = {n: planner.one_card_bytes(make_schedule(n, LT_P, T_M)) for n in names}
-        del planner
-        gc.collect()
-        torch.cuda.empty_cache()
-        worst = max(one.total for one in priced.values())
-        for n, one in priced.items():
-            print(f"[train-llava] {layers} layers, p={LT_P}, {n} graph: priced one-card total "
-                  f"{one.report()}")
+        worst = _priced(dataclasses.replace(cfg, n_layers=layers), LLAVA_TRAIN)
         if worst <= LT_PRICE_GIB * 2**30:
             print(f"[train-llava] depth {layers} of {cfg.n_layers}: priced at most "
                   f"{_gib(worst)} GiB <= {LT_PRICE_GIB} GiB")
@@ -2832,23 +3104,51 @@ def _llava_depth(cfg):
     check(False, f"no depth of {LT_DEPTHS} prices llava's training within {LT_PRICE_GIB} GiB")
 
 
-def phase_serve_front(cfg, tag, p, prompt, limit, max_abs):
-    """Phase 26 (llava-next-mistral-7b at full width and depth) and phase 27
-    (whisper-tiny whole): served at phase 5's groups, batch and new tokens,
-    prompts of ``prompt`` tokens behind the front (patches or frames from
-    the seed, as the launcher draws them); prefill and decode ms, tok/s,
-    RMSNorm launches == the structure's count (prefill blocks on bulk, the
-    sinks and decode on latency), then decoding token ``prompt`` against a
-    prefill of ``prompt + 1`` within ``limit`` and ``max_abs``.  Returns
-    the RMSNorm launches of the timed run, in all and by path."""
+def _priced(cfg, tr):
+    """The largest priced one-card total of the schedules of ``tr`` under
+    the graph executor (``HBMPlanner.one_card_bytes``, measured fidelity,
+    the slots measured on the card, the calibration record's remainder),
+    each printed before any step runs."""
+    p, seq = tr["p"], tr.get("seq", T_SEQ)
+    planner = HBMPlanner(cfg, p=p, m=T_M, microbatch=T_B, seq_len=seq, executor_mode="graph",
+                         program_factory=stage_program_factory(cfg, p, T_M, T_B, seq, DEV))
+    priced = {n: planner.one_card_bytes(make_schedule(n, p, T_M)) for n in tr["schedules"]}
+    del planner
+    gc.collect()
+    torch.cuda.empty_cache()
+    for n, one in priced.items():
+        print(f"[{tr['tag']}] {cfg.n_layers} layers, p={p}, vocab {cfg.vocab}, {n} graph: "
+              f"priced one-card total {one.report()}")
+    return max(one.total for one in priced.values())
+
+
+def _serve_counts(rms, rms_by_path, sl=None):
+    """A serve run's count tuple (``_read_counts``'s layout): no W op."""
+    return (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path,
+            sl or {k: 0 for k in slstm_kernel.PATHS})
+
+
+def phase_serve_full(cfg, tag, p, prompt, limit, max_abs):
+    """Phase 26 (llava-next-mistral-7b at full width and depth), phase 27
+    (whisper-tiny whole), phase 29 (xlstm-350m whole) and phase 31
+    (recurrentgemma-9b at full width and depth): served at phase 5's groups,
+    batch and new tokens, prompts of ``prompt`` tokens (behind the front,
+    patches or frames from the seed as the launcher draws them, where the
+    family has one); prefill and decode ms, tok/s, RMSNorm launches == the
+    structure's count (prefill blocks on bulk, the sinks and decode on
+    latency) and the sLSTM kernel's (a forward a slstm block and group),
+    then decoding token ``prompt`` against a prefill of ``prompt + 1``
+    within ``limit`` and ``max_abs``.  Returns the RMSNorm launches of the
+    timed run, in all and by path, and the sLSTM kernel's."""
     spec = RunSpec(p=p, n_chunks=1, microbatch=B, seq_len=prompt, m=M)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     stacked, shared = init_params(cfg, spec, Placement.linear(p), seed=0, device=DEV)
     torch.cuda.synchronize()
     leaves = tree_leaves((stacked, shared))
-    key, n_front, width = front_spec(cfg)
-    print(f"[{tag}] init {cfg.name} ({cfg.n_layers} layers of {'+'.join(cfg.block_pattern[0])}, "
+    key, n_front, width = front_spec(cfg) or ("front", 0, 0)
+    pattern = ", ".join("+".join(kinds) for kinds in cfg.block_pattern)
+    print(f"[{tag}] init {cfg.name} ({cfg.n_layers} layers of {pattern}, "
           f"d={cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv), d_ff={cfg.d_ff}, vocab "
           f"{cfg.vocab}, {n_front} {key} of {width}, {cfg.dtype}): "
           f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
@@ -2859,7 +3159,7 @@ def phase_serve_front(cfg, tag, p, prompt, limit, max_abs):
     front = draw_front(cfg, rng, M, B)
     serve(cfg, stacked, shared, prompts, p=p, new_tokens=1, front=front)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    res, launches, by_path = _serve_counted(
+    res, launches, by_path, sl = _serve_counted(
         tag, cfg, p, M, NEW,
         lambda: serve(cfg, stacked, shared, prompts, p=p, new_tokens=NEW, front=front,
                       log=lambda x: print(f"[{tag}] {x}")))
@@ -2875,12 +3175,13 @@ def phase_serve_front(cfg, tag, p, prompt, limit, max_abs):
           f"max_memory_allocated_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}; "
           f"rmsnorm launches {launches} == expected {expected_norm_launches(cfg, p, M, 1 + NEW)}, "
           f"by path {by_path}")
+    print(f"[{tag}] sLSTM kernel launches {sl}")
     phase_consistency(cfg, stacked, shared, prompts, res, p=p, limit=limit, tag=tag,
                       front=front, max_abs=max_abs)
     del stacked, shared, res
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, by_path
+    return launches, by_path, sl
 
 
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
@@ -2908,6 +3209,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg_full, cfg_red = get_config(ARCH), get_reduced(ARCH)
+    cfg_train = train_config()
     t_start = time.perf_counter()
     phase_build()
     phase_card()
@@ -2922,10 +3224,17 @@ def main() -> int:
     more.update(run_child(FRONT_CHILD, "front_launches"))
     print(f"[time] whisper and llava phases (child process) done at "
           f"{time.perf_counter() - t_start:.1f}s")
+    more.update(run_child(XLSTM_CHILD, "xlstm_launches"))
+    print(f"[time] xlstm phases (child process) done at {time.perf_counter() - t_start:.1f}s")
+    more.update(run_child(RGEMMA_CHILD, "recurrentgemma_launches"))
+    print(f"[time] recurrentgemma phases (child process) done at "
+          f"{time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     print(f"[time] rmsnorm kernel phase done at {time.perf_counter() - t_start:.1f}s")
     wrows = phase_kernels_wgrad(cfg_red)
     print(f"[time] wgrad_accum kernel phase done at {time.perf_counter() - t_start:.1f}s")
+    srow = phase_kernels_slstm()
+    print(f"[time] slstm_scan kernel phase done at {time.perf_counter() - t_start:.1f}s")
     for arch in RED_ARCHS:
         phase_reduced(get_reduced(arch), RED_PROMPTS[arch])
     print(f"[time] reduced serving phase done at {time.perf_counter() - t_start:.1f}s")
@@ -2941,24 +3250,26 @@ def main() -> int:
     for arch in RED_ARCHS:
         phase_train_reduced(get_reduced(arch))
     print(f"[time] reduced training phase done at {time.perf_counter() - t_start:.1f}s")
-    runs = phase_train(cfg_full)
+    runs = phase_train(cfg_train)
     print(f"[time] train phase (9) done at {time.perf_counter() - t_start:.1f}s")
-    phase_train_checks(cfg_full, runs)
+    phase_train_checks(cfg_train, runs)
     print(f"[time] train-checks phase (10) done at {time.perf_counter() - t_start:.1f}s")
-    phase_train_noclip(cfg_full, runs)
+    phase_train_noclip(cfg_train, runs)
     print(f"[time] training phases done at {time.perf_counter() - t_start:.1f}s")
-    planners = phase_plan(cfg_full)
-    phase_plan_vs_card(cfg_full, runs, planners, "eager")
+    planners = phase_plan(cfg_train)
+    phase_plan_vs_card(cfg_train, runs, planners, "eager")
     print(f"[time] planner phases done at {time.perf_counter() - t_start:.1f}s")
-    more["launcher"] = phase_launch_budget(cfg_full)
+    more["launcher"] = phase_launch_budget(cfg_train)
     print(f"[time] launcher phase done at {time.perf_counter() - t_start:.1f}s")
-    more["replay"] = phase_replay(cfg_full)
+    more["replay"] = phase_replay(cfg_train)
     print(f"[time] replay phase done at {time.perf_counter() - t_start:.1f}s")
     del planners
     more.update(run_child(GRAPH_CHILD, "graph_launches", runs))
     print(f"[time] graph phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     more.update(run_child(HELDOUT_CHILD, "heldout_launches"))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    check(all(sum(c[4].values()) > 0 for n, c in more.items() if n.startswith(
+        ("train-xlstm", "serve-xlstm"))), "a run of xlstm launched no sLSTM kernel")
 
     counted = {**{f"train-{n}": r["launches"] for n, r in runs.items()}, **more}
     wgrad_by_run = {n: c[0] for n, c in counted.items()}
@@ -2967,6 +3278,8 @@ def main() -> int:
                   **{n: c[1] for n, c in counted.items()}}
     rms_by_path = {k: serve_launches[1][k] + gemma2_launches[1][k]
                    + sum(c[3][k] for c in counted.values()) for k in rms_kernel.PATHS}
+    slstm_by_run = {n: sum(c[4].values()) for n, c in counted.items() if sum(c[4].values())}
+    slstm_by_path = {k: sum(c[4][k] for c in counted.values()) for k in slstm_kernel.PATHS}
 
     def by_shape(table):
         keys = ("path", "plan", "ms", "cold_ms", "bound_ms", "library_ms", "library_cold_ms",
@@ -2982,6 +3295,11 @@ def main() -> int:
                     "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_run.values()),
                     wgrad_by_run, wrows["wu,wg"], launches_by_kernel_path=wgrad_by_path,
                     by_shape=by_shape(wrows)),
+        _kernel_row("slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
+                    "none: port-only, the lax.scan of src/repro/models/modules.py:500 "
+                    "(apply_slstm)", sum(slstm_by_run.values()), slstm_by_run, srow,
+                    launches_by_kernel_path=slstm_by_path, chain_ms=srow["chain_ms"],
+                    fwd_ms=srow["fwd_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3023,7 +3341,7 @@ def moe_child_main() -> int:
     torch.cuda.empty_cache()
     rms, rms_by_path = phase_serve_moe(cfg)
     print(f"[time] qwen2-moe serving phase done at {time.perf_counter() - t0:.1f}s (child)")
-    counts["serve-qwen2-moe"] = (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)
+    counts["serve-qwen2-moe"] = _serve_counts(rms, rms_by_path)
     print(json.dumps({"moe_launches": counts}))
     return 0
 
@@ -3044,7 +3362,7 @@ def deepseek_child_main() -> int:
     rms, rms_by_path = phase_serve_moe(dataclasses.replace(cfg, n_layers=DS_LAYERS),
                                        tag="serve-deepseek-v3", p=DS_P, limit=DS_CONSIST_REL_L2)
     print(f"[time] deepseek-v3 serving phase done at {time.perf_counter() - t0:.1f}s (child)")
-    counts["serve-deepseek-v3"] = (0, rms, {k: 0 for k in wgrad_kernel.PATHS}, rms_by_path)
+    counts["serve-deepseek-v3"] = _serve_counts(rms, rms_by_path)
     print(json.dumps({"deepseek_launches": counts}))
     return 0
 
@@ -3067,14 +3385,60 @@ def front_child_main() -> int:
     print(f"[time] llava training phase done at {time.perf_counter() - t0:.1f}s (child)")
     gc.collect()
     torch.cuda.empty_cache()
-    zero = {k: 0 for k in wgrad_kernel.PATHS}
     for cfg, tag, p, prompt, limit, max_abs in (
             (llava, "serve-llava", LS_P, PROMPT, LS_CONSIST_REL_L2, LS_CONSIST_MAX_ABS),
             (whisper, "serve-whisper", WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS)):
-        rms, rms_by_path = phase_serve_front(cfg, tag, p, prompt, limit, max_abs)
-        counts[tag] = (0, rms, zero, rms_by_path)
+        counts[tag] = _serve_counts(*phase_serve_full(cfg, tag, p, prompt, limit, max_abs))
         print(f"[time] {tag} phase done at {time.perf_counter() - t0:.1f}s (child)")
     print(json.dumps({"front_launches": counts}))
+    return 0
+
+
+def xlstm_child_main() -> int:
+    """Phases 28 and 29: xlstm-350m trained in ``launch/calibrate.py``'s
+    order (``phase_train_cut`` says why), then served; alone in this
+    process; the last line is a JSON object with the kernels' launches of
+    each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM)
+    counts = phase_train_cut(cfg, XLSTM_TRAIN)
+    print(f"[time] xlstm training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve-xlstm"] = _serve_counts(*phase_serve_full(
+        cfg, "serve-xlstm", XS_P, PROMPT, XS_CONSIST_REL_L2, XS_CONSIST_MAX_ABS))
+    print(f"[time] xlstm serving phase done at {time.perf_counter() - t0:.1f}s (child)")
+    print(json.dumps({"xlstm_launches": counts}))
+    return 0
+
+
+def recurrentgemma_child_main() -> int:
+    """Phases 30 and 31: recurrentgemma-9b's training cut priced, then
+    trained in ``launch/calibrate.py``'s order, in a fresh process of its
+    own (after xlstm's phases in one process its eager zb-h1 run reserved
+    0.6 GiB more and passed the price; H100, 700 W), then served at full
+    depth; the last line is a JSON object with the kernels' launches of
+    each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    cfg = get_config(RGEMMA)
+    cut = cut_config(cfg, RT_LAYERS, vocab=RT_VOCAB)
+    worst = _priced(cut, RGEMMA_TRAIN)
+    check(worst <= RT_PRICE_GIB * 2**30, f"{cut.name} at {RT_LAYERS} layers prices "
+          f"{_gib(worst)} GiB > {RT_PRICE_GIB} GiB")
+    counts = phase_train_cut(cut, RGEMMA_TRAIN)
+    print(f"[time] recurrentgemma training phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve-recurrentgemma"] = _serve_counts(*phase_serve_full(
+        cfg, "serve-recurrentgemma", RS_P, PROMPT, RS_CONSIST_REL_L2, RS_CONSIST_MAX_ABS))
+    print(f"[time] recurrentgemma serving phase done at {time.perf_counter() - t0:.1f}s (child)")
+    print(json.dumps({"recurrentgemma_launches": counts}))
     return 0
 
 
@@ -3087,7 +3451,7 @@ def graph_child_main(eager_path) -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.build()
     t0 = time.perf_counter()
-    cfg = get_config(ARCH)
+    cfg = train_config()
     runs = {}
     for name, r in json.loads(pathlib.Path(eager_path).read_text()).items():
         sched = make_schedule(name, T_P, T_M)
@@ -3111,7 +3475,7 @@ def heldout_child_main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build()
-    print(json.dumps({"heldout_launches": phase_heldout(get_config(ARCH))}))
+    print(json.dumps({"heldout_launches": phase_heldout(train_config())}))
     return 0
 
 
@@ -3164,6 +3528,10 @@ if __name__ == "__main__":
         sys.exit(deepseek_child_main())
     if sys.argv[1:2] == [FRONT_CHILD]:
         sys.exit(front_child_main())
+    if sys.argv[1:2] == [XLSTM_CHILD]:
+        sys.exit(xlstm_child_main())
+    if sys.argv[1:2] == [RGEMMA_CHILD]:
+        sys.exit(recurrentgemma_child_main())
     if sys.argv[1:2] == [GRAPH_CHILD]:
         sys.exit(graph_child_main(sys.argv[2]))
     if sys.argv[1:2] == [HELDOUT_CHILD]:

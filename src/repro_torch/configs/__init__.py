@@ -3,11 +3,11 @@
 Each module exposes ``CONFIG`` (the exact published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), as in
 ``src/repro/configs/``.  Input-shape cells are defined in ``shapes.py``.
-The port carries the dense, moe (with the ``moe`` and ``mla`` kinds), vlm
-(the patch-embedding front) and encdec (the ``encdec`` kind) families: of
-the JAX package's assigned architectures those in ``ARCH_IDS``, and the
-paper's models (``PAPER_IDS``).  The two recurrent ones raise
-``NotImplementedError`` naming what they lack.
+The port carries every family of the JAX package: dense, moe (with the
+``moe`` and ``mla`` kinds), vlm (the patch-embedding front), encdec (the
+``encdec`` kind), ssm (the ``slstm`` and ``mlstm`` kinds) and hybrid (the
+``rglru`` kind beside ``attn_local``): all ten of its assigned
+architectures (``ARCH_IDS``) and the paper's models (``PAPER_IDS``).
 """
 
 from importlib import import_module
@@ -28,15 +28,15 @@ ARCH_IDS = [
     "gemma2_2b",
     "internlm2_1_8b",
     "llava_next_mistral_7b",
+    "xlstm_350m",
+    "recurrentgemma_9b",
 ]
 
 PAPER_IDS = ["gpt3_1_5b", "gpt3_6_2b", "gpt3_14_6b", "gpt3_28_3b"]
 
 # the rest of the JAX package's assigned architectures: what each lacks here
-UNPORTED_ARCHS = {
-    "xlstm_350m": "the ssm family (the slstm and mlstm kinds)",
-    "recurrentgemma_9b": "the hybrid family (the rglru kind)",
-}
+# (none: every one is ported)
+UNPORTED_ARCHS: Dict[str, str] = {}
 
 
 def _module(arch_id: str):

@@ -56,6 +56,8 @@ __all__ = [
     "measured_timeline",
     "CUDA_TEMP_TABLE",
     "cuda_temp_record",
+    "cuda_temp_records",
+    "record_key",
     "cuda_optimizer_shares",
     "default_cuda_temp_bytes",
 ]
@@ -195,13 +197,40 @@ def _read_table(path) -> dict:
         return {}
 
 
-def cuda_temp_record(arch_name: str, executor_mode: str, path=None) -> Optional[dict]:
-    """The table's record of an arch under an executor mode, or None."""
-    return _cuda_temp_table(path).get(arch_name, {}).get(executor_mode)
+def cuda_temp_records(arch_name: str, executor_mode: str, path=None) -> List[dict]:
+    """Every record of an arch under an executor mode: one for each depth
+    and stage count it was measured at (a table entry is one record or a
+    list of them)."""
+    got = _cuda_temp_table(path).get(arch_name, {}).get(executor_mode)
+    return [] if got is None else list(got) if isinstance(got, list) else [got]
 
 
-def cuda_optimizer_shares(arch_name: str, executor_mode: str,
-                          path=None) -> Tuple[float, float]:
+def record_key(rec: dict):
+    """What tells two records of an arch and executor mode apart: the
+    ``(layers, p)`` of the record's ``cut``, or None for a record of the
+    config's full depth."""
+    cut = rec.get("cut")
+    return None if cut is None else (cut["layers"], cut["p"])
+
+
+def cuda_temp_record(arch_name: str, executor_mode: str, path=None,
+                     layers: Optional[int] = None, p: Optional[int] = None) -> Optional[dict]:
+    """The record that prices a run of ``layers`` layers on ``p`` stages:
+    the one measured at that cut, else the one measured at the config's full
+    depth (no ``cut``), else the first; None when the arch has none under
+    the mode."""
+    def rank(rec):
+        cut = rec.get("cut")
+        if cut is None:
+            return 1
+        return 0 if layers == cut["layers"] and p in (None, cut["p"]) else 2
+
+    return min(cuda_temp_records(arch_name, executor_mode, path), key=rank, default=None)
+
+
+def cuda_optimizer_shares(arch_name: str, executor_mode: str, path=None,
+                          layers: Optional[int] = None,
+                          p: Optional[int] = None) -> Tuple[float, float]:
     """(overhang, reuse) of the optimizer's transient on the card, from a
     record: ``optimizer_overhang``, the largest share of the transient a run
     held above its walk's reserved peak, and ``optimizer_reuse``, the
@@ -211,7 +240,7 @@ def cuda_optimizer_shares(arch_name: str, executor_mode: str,
     record, the structural shares: (1, 0) under the graph executor (the
     walk's memory stays in the graph's pool, so nothing of it is reused),
     (0, 1) under the eager one (the larger of walk and transient)."""
-    rec = cuda_temp_record(arch_name, executor_mode, path)
+    rec = cuda_temp_record(arch_name, executor_mode, path, layers, p)
     if rec is None or "optimizer_overhang" not in rec:
         return (1.0, 0.0) if executor_mode == "graph" else (0.0, 1.0)
     return float(rec["optimizer_overhang"]), float(rec["optimizer_reuse"])
@@ -219,7 +248,8 @@ def cuda_optimizer_shares(arch_name: str, executor_mode: str,
 
 def default_cuda_temp_bytes(arch_name: str, executor_mode: str,
                             m_b_bytes: Optional[float] = None,
-                            weights_bytes: Optional[float] = None, path=None) -> float:
+                            weights_bytes: Optional[float] = None, path=None,
+                            layers: Optional[int] = None, p: Optional[int] = None) -> float:
     """Per-device share of the calibrated CUDA remainder for a planned run.
 
     A record (``launch/calibrate.py``) holds ``cuda_temp_bytes``: the most
@@ -244,10 +274,11 @@ def default_cuda_temp_bytes(arch_name: str, executor_mode: str,
 
     One card holds all p stages, so a device's share is the remainder
     divided by the record's ``p`` (a calibration across cards would
-    measure it per device).  An arch or executor mode with no record
+    measure it per device).  The record is :func:`cuda_temp_record`'s for
+    the run's ``layers`` and ``p``.  An arch or executor mode with no record
     prices 0, as the JAX package prices an uncalibrated arch.
     """
-    rec = cuda_temp_record(arch_name, executor_mode, path)
+    rec = cuda_temp_record(arch_name, executor_mode, path, layers, p)
     if rec is None:
         return 0.0
 

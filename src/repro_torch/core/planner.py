@@ -379,6 +379,8 @@ class HBMPlanner:
         self._static: Optional[List[PipelinePlan]] = None
         self._dynamic: Dict[str, PipelinePlan] = {}
         self._slots: Dict[int, Tuple] = {}
+        # which calibration record prices the run: the one of its depth
+        self._depth = dict(layers=cfg.n_layers, p=p)
 
     # -- fixed (schedule-independent) state ---------------------------- #
     def state(self, n_chunks: int) -> StateBytes:
@@ -400,7 +402,8 @@ class HBMPlanner:
             return self.temp_bytes, ()
         st = self.state(n_chunks)
         optim = optimizer_charge(st.transient, schedule_bytes,
-                                 *cuda_optimizer_shares(self.cfg.name, self.executor_mode))
+                                 *cuda_optimizer_shares(self.cfg.name, self.executor_mode,
+                                                        **self._depth))
         parts = (st.acc, optim, self.remainder())
         return sum(parts), parts
 
@@ -411,7 +414,8 @@ class HBMPlanner:
         st = self.state(1)
         return default_cuda_temp_bytes(self.cfg.name, executor_mode or self.executor_mode,
                                        m_b_bytes=self.bytes_1c.m_b_bytes,
-                                       weights_bytes=st.params_card + st.optim_card)
+                                       weights_bytes=st.params_card + st.optim_card,
+                                       **self._depth)
 
     def _temp_floor(self, n_chunks: int) -> float:
         """The temp that no candidate escapes, whatever its slots hold."""
@@ -592,7 +596,8 @@ class HBMPlanner:
                                 self.p * self.temp_bytes, 0.0, 0.0, 0.0, mode)
         return OneCardBytes(st.params_card + st.optim_card, st.acc_card, walk,
                             self.p * self.remainder(mode),
-                            st.transient_card, *cuda_optimizer_shares(self.cfg.name, mode), mode)
+                            st.transient_card,
+                            *cuda_optimizer_shares(self.cfg.name, mode, **self._depth), mode)
 
     # -- the decision ----------------------------------------------------- #
     def plan(self, budget_bytes: float) -> PlanReport:

@@ -8,6 +8,11 @@ the kernel (on the card) and whose backward is plain PyTorch
 saved and inv-rms is recomputed.  The JAX package has no TPU kernel for that
 backward; a CUDA one is later work.
 
+``slstm_scan`` is the sLSTM time loop (no TPU kernel: the JAX package runs
+it as a ``lax.scan``), differentiable: on the card a forward and a backward
+kernel (``kernels/slstm_scan.py::SLSTMScan``), on the CPU the plain loop
+(``ref.slstm_scan_ref``) under autograd.
+
 ``wgrad_accum`` is a W-pass op and needs no gradient.  It updates its
 accumulator in place and returns it, where the JAX reference returns a new
 array (and updates the donated buffer in place under ``jit``).  That is safe
@@ -25,10 +30,11 @@ from __future__ import annotations
 import torch
 
 from . import rmsnorm as _rms
+from . import slstm_scan as _sl
 from . import wgrad_accum as _wg
-from .ref import rmsnorm_bwd_ref, rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref, slstm_scan_ref
 
-__all__ = ["rmsnorm", "wgrad_accum"]
+__all__ = ["rmsnorm", "slstm_scan", "wgrad_accum"]
 
 
 def _rmsnorm_fwd(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
@@ -57,6 +63,19 @@ class _RMSNorm(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x (..., H), g (H,) -> x * rsqrt(mean(x^2) + eps) * (1 + g), x's dtype."""
     return _RMSNorm.apply(x, g, eps)
+
+
+def slstm_scan(i_pre: torch.Tensor, f_pre: torch.Tensor, z: torch.Tensor):
+    """The sLSTM time loop: i_pre, f_pre, z fp32 (b, s, h) -> (h (b, s, h),
+    (c, n, m) (b, h), the state after the last step, which carries no
+    gradient on the card)."""
+    if i_pre.device.type == "cuda":
+        hs, c, n, m = _sl.SLSTMScan.apply(i_pre, f_pre, z)  # checks its arguments itself
+        return hs, (c, n, m)
+    _sl.check_args(i_pre, f_pre, z)
+    if i_pre.device.type == "cpu":
+        return slstm_scan_ref(i_pre, f_pre, z)
+    raise ValueError(f"slstm_scan: no kernel for device {i_pre.device}")
 
 
 def wgrad_accum(a: torch.Tensor, g: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:

@@ -52,7 +52,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..configs import get_config
-from ..core.memory import CUDA_TEMP_TABLE, ActivationByteModel
+from ..core.memory import CUDA_TEMP_TABLE, ActivationByteModel, record_key
 from ..core.planner import EXECUTOR_MODES, HBMPlanner, stage_program_factory
 from ..core.schedules import compile_plan
 from ..data import DataConfig, SyntheticLM
@@ -134,9 +134,12 @@ def calibration_record(cfg, executor_mode: str, runs: Dict[str, Dict[str, float]
 
 
 def write_calibration_table(records: Sequence[dict], path=None) -> dict:
-    """Merge ``records`` into the table at ``path``, keyed by arch name and
-    executor mode; every other record stays, as the JAX writer keeps the
-    other archs'.  Returns the table written."""
+    """Merge ``records`` into the table at ``path``, keyed by arch name,
+    executor mode and depth (``core/memory.py::record_key``: a record
+    replaces the one of its own cut, and one of another depth stays beside
+    it, so an entry with more than one is a list); every other record
+    stays, as the JAX writer keeps the other archs'.  Returns the table
+    written."""
     path = path or CUDA_TEMP_TABLE
     try:
         with open(path) as f:
@@ -144,7 +147,11 @@ def write_calibration_table(records: Sequence[dict], path=None) -> dict:
     except (OSError, ValueError):
         table = {}
     for rec in records:
-        table.setdefault(rec["arch_id"], {})[rec["executor_mode"]] = rec
+        by_mode = table.setdefault(rec["arch_id"], {})
+        have = by_mode.get(rec["executor_mode"], [])
+        kept = [r for r in (have if isinstance(have, list) else [have])
+                if record_key(r) != record_key(rec)]
+        by_mode[rec["executor_mode"]] = kept + [rec] if kept else rec
     with open(path, "w") as f:
         json.dump(table, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -89,15 +89,19 @@ def make_schedule(name: str, p: int, m: int):
 def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, microbatch: int,
                      seq_len: int, m: int, tcfg: TrainStepConfig,
                      memory_budget_bytes: Optional[float] = None, *, device,
-                     seed: int = 0):
+                     seed: int = 0, layers: Optional[int] = None):
     """-> (cfg, spec, schedule, step, one_card) for the given run.  With a
     budget, the schedule is the HBM planner's choice and ``schedule`` is not
     read: the planner prices the slots it measures on ``device`` (one
     microbatch's F and B of each chunk count, with stage 0 of the ``seed``
     weights) and the temp term of ``tcfg.executor_mode``, and ``one_card``
     is the chosen plan's priced total on one card
-    (:class:`~repro_torch.core.planner.OneCardBytes`); without, it is None."""
+    (:class:`~repro_torch.core.planner.OneCardBytes`); without, it is None.
+    ``layers`` cuts the config's depth (as ``launch/calibrate.py --layers``)."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    depth = get_config(arch).n_layers  # what a record with no cut was measured at
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     one_card = None
     if memory_budget_bytes is not None:
         factory = stage_program_factory(cfg, pipe_size, m, microbatch, seq_len, device, seed)
@@ -108,7 +112,7 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
         print(f"per-device HBM breakdown (slots measured on the run's device, temp of the "
               f"{tcfg.executor_mode} executor):")
         print(report.chosen.breakdown.report())
-        rec = cuda_temp_record(cfg.name, tcfg.executor_mode)
+        rec = cuda_temp_record(cfg.name, tcfg.executor_mode, layers=cfg.n_layers, p=pipe_size)
         if rec is None:
             print(f"temp remainder 0: no calibration record for {cfg.name} under the "
                   f"{tcfg.executor_mode} executor in {CUDA_TEMP_TABLE.name} (accumulators and "
@@ -119,9 +123,13 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
                   + "".join(f", {k} {cut[k]}" for k in ("experts", "vocab", "seq_len")
                             if k in cut)
                   if cut else f"the full depth at p={rec['p']}, every schedule")
+            at_depth = (cut["layers"], cut["p"]) if cut else (depth, rec["p"])
             print(f"temp remainder from the calibration record of {cfg.name} under the "
                   f"{tcfg.executor_mode} executor, measured at {at} ({rec.get('card')}), "
-                  f"scaled to this run")
+                  f"scaled to this run"
+                  + ("" if at_depth == (cfg.n_layers, pipe_size) else
+                     f" of {cfg.n_layers} layers at p={pipe_size}: no record was measured at "
+                     f"that depth, so the price is an extrapolation no card run has checked"))
         one_card = report.planner.one_card_bytes(sched)
         print(f"priced on one card holding all {pipe_size} stages: {one_card.report()}")
         if torch.device(device).type == "cuda":
@@ -251,6 +259,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt3_1_5b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the config's)")
     ap.add_argument("--pipe-size", type=int, default=4)
     ap.add_argument("--schedule", default="zb-h2", choices=sorted(SCHEDULES))
     ap.add_argument("--microbatch", type=int, default=2)
@@ -279,7 +289,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     budget = None if args.memory_budget_mb is None else args.memory_budget_mb * 2**20
     cfg, spec, sched, step, one_card = build_everything(
         args.arch, args.reduced, args.pipe_size, args.schedule, args.microbatch, args.seq_len,
-        args.m, tcfg, memory_budget_bytes=budget, device=device, seed=args.seed)
+        args.m, tcfg, memory_budget_bytes=budget, device=device, seed=args.seed,
+        layers=args.layers)
     data = SyntheticLM(DataConfig(global_batch=spec.m * spec.microbatch, seq_len=spec.seq_len,
                                   vocab=cfg.vocab, seed=args.seed))
 

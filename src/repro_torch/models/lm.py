@@ -4,7 +4,9 @@ split chunk modules, the embedding source and the loss sink.
 Counterpart of ``src/repro/models/lm.py`` (the dense and moe families, the
 latter with the ``moe`` and ``mla`` kinds; the vlm family, whose projected
 patch embeddings go ahead of the tokens; the encdec family of ``encdec``
-blocks over the projected frames and the decoder's tokens).  Blocks are
+blocks over the projected frames and the decoder's tokens; the ssm family
+of ``slstm`` and ``mlstm`` blocks and the hybrid one of ``rglru`` and
+``attn_local`` blocks, each followed by an ``mlp``).  Blocks are
 assigned to (stage, chunk) groups of uniform size; when ``n_layers`` does not divide evenly,
 groups are padded with blocks whose ``mask`` leaf is 0, which leave the
 activation unchanged.  Parameters keep the JAX layout: per chunk ``{"mask": (p, g), "blocks": ((kind params, ...),
@@ -204,7 +206,7 @@ class ChunkFBW(FBWModule):
 # --------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------- #
-PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 # a family's front ahead of the tokens: (side input, extras key of its length)
 _FRONTS = {"vlm": ("patches", "n_patches"), "encdec": ("frames", "s_enc")}
 

@@ -22,8 +22,13 @@ joint block over the concatenated (encoder, decoder) stream: a non-causal
 encoder layer, then a causal decoder layer with cross-attention on the
 encoder's output (its k/v from the encoder stream unnormed, no rope), each
 gated by its ``enc_on`` / ``dec_on`` scalar; its 18 products all go
-through ``linear``.  The recurrent kinds raise ``NotImplementedError``
-naming the kind.
+through ``linear``.  The recurrent kinds: ``slstm`` (xLSTM's scalar
+memory with exponential gating; its time loop is ``kernels.ops.slstm_scan``,
+a CUDA kernel on the card), ``mlstm`` (xLSTM's matrix memory in the
+chunkwise-parallel form) and ``rglru`` (RecurrentGemma's gated linear
+recurrence, as a log-depth scan by default); all their weight products go
+through ``linear``, and ``rglru``'s fp32 gate scale ``lam`` is a cheap leaf
+whose gradient B finishes, as it does the norm gains'.
 """
 
 from __future__ import annotations
@@ -53,13 +58,18 @@ __all__ = [
     "attention",
     "cross_attend",
     "encdec_forward",
+    "slstm_forward",
+    "mlstm_forward",
+    "rglru_forward",
+    "rglru_gates",
+    "rglru_step",
     "pad_to_multiple",
     "leaves_into",
 ]
 
-# kinds of the JAX layer library that this port does not carry yet
-UNPORTED_KINDS = ("slstm", "mlstm", "rglru")
-PORTED_KINDS = ("attn", "attn_local", "mla", "mlp", "moe", "encdec")
+# kinds of the JAX layer library that this port does not carry yet (none)
+UNPORTED_KINDS: Tuple[str, ...] = ()
+PORTED_KINDS = ("attn", "attn_local", "mla", "mlp", "moe", "slstm", "mlstm", "rglru", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,9 +153,13 @@ def _zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return out if out.is_meta else out.zero_()
 
 
-def _ones(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+def _full(gen: torch.Generator, shape, value, dtype) -> torch.Tensor:
     out = _leaf(gen, shape, dtype)
-    return out if out.is_meta else out.fill_(1)
+    return out if out.is_meta else out.fill_(value)
+
+
+def _ones(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    return _full(gen, shape, 1, dtype)
 
 
 def _normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
@@ -544,6 +558,225 @@ def apply_moe(p, x, cfg, ctx: ShardCtx):
 
 
 # --------------------------------------------------------------------- #
+# xLSTM blocks (recurrent state is elementwise per channel or head)
+# --------------------------------------------------------------------- #
+def init_slstm(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    h = cfg["d_model"]
+    sc = 1.0 / math.sqrt(h)
+    return {
+        "ln": _zeros(gen, (h,), dtype),
+        "si": _normal(gen, (h, h), sc, dtype),
+        "sf": _normal(gen, (h, h), sc, dtype),
+        "sz": _normal(gen, (h, h), sc, dtype),
+        "sog": _normal(gen, (h, h), sc, dtype),
+        "so": _normal(gen, (h, h), sc / math.sqrt(2 * cfg["n_layers"]), dtype),
+    }
+
+
+def slstm_forward(p, x, cfg, ctx: ShardCtx):
+    """``apply_slstm`` that also returns the state after the last step,
+    ``(c, n, m)`` fp32 (b, h), which a prefill keeps.  The gates' products
+    in x's dtype, cast to fp32 (``z`` after its tanh, ``o`` after its
+    sigmoid), the time loop in fp32 through ``kernels.ops.slstm_scan``, h
+    cast back to x's dtype, as the JAX step."""
+    xin = rmsnorm(p["ln"], x)
+    i_pre = linear(xin, p["si"]).float()
+    f_pre = linear(xin, p["sf"]).float()
+    z = torch.tanh(linear(xin, p["sz"])).float()
+    o = torch.sigmoid(linear(xin, p["sog"])).float()
+    hs, state = ops.slstm_scan(i_pre, f_pre, z)
+    return x + linear(o.to(x.dtype) * hs.to(x.dtype), p["so"]), state
+
+
+def apply_slstm(p, x, cfg, ctx: ShardCtx):
+    """sLSTM: scalar-memory recurrence with exponential gating (stabilized)."""
+    return slstm_forward(p, x, cfg, ctx)[0]
+
+
+def init_mlstm(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    h, nh = cfg["d_model"], cfg["n_heads"]
+    sc = 1.0 / math.sqrt(h)
+    return {
+        "ln": _zeros(gen, (h,), dtype),
+        "mq": _normal(gen, (h, h), sc, dtype),
+        "mk": _normal(gen, (h, h), sc, dtype),
+        "mv": _normal(gen, (h, h), sc, dtype),
+        "mfg": _normal(gen, (h, nh), sc, dtype),
+        "mig": _normal(gen, (h, nh), sc, dtype),
+        "mo": _normal(gen, (h, h), sc / math.sqrt(2 * cfg["n_layers"]), dtype),
+    }
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``t`` rounded to ``dtype`` and back: an einsum operand that the
+    JAX code casts to the model dtype."""
+    return t.to(dtype).float()
+
+
+def mlstm_forward(p, x, cfg, ctx: ShardCtx, chunk: int = 128):
+    """``apply_mlstm`` that also returns what a prefill needs to build the
+    decode state: k (scaled by 1/sqrt(dh)) and v, (b, nh, s, dh) in x's
+    dtype, and the gates f and i, (b, nh, s) fp32.
+
+    The chunkwise-parallel form of the JAX package, step for step: chunks of
+    ``chunk`` positions (the last padded with f = 1, i = 0), within a chunk
+    a causal decay-weighted attention from ``log(f + 1e-6)``, across chunks
+    the memory ``C`` (b, nh, dh, dh) carried in x's dtype; every chunk's
+    terms are computed at once, the carry of C alone is a loop.  Each einsum
+    takes its operands in the JAX dtypes (q, k, v and C in x's dtype, the
+    masked scores and the decay-weighted q and k rounded to it where the
+    JAX code casts them) and sums in fp32; the sums that XLA fuses with
+    them, C's decay plus its update and the intra- plus the inter-chunk
+    output, are taken in fp32 and rounded to x's dtype once, as XLA's
+    excess precision takes them on the JAX side (in bf16 a rounding after
+    every product and sum put the port's decode-vs-prefill gap 1.7x the
+    JAX package's at 24 layers; ``tools/serve_consistency.py``).  In
+    float32 these are the JAX numbers, and so is the gradient wherever the
+    JAX one is finite: the JAX decay overflows in its masked half once a
+    chunk's forget gates multiply below ~1e-38 (its gradient is then NaN;
+    a full-width chunk of 128 gets there), the port's exponent is masked.  The JAX package wraps each chunk's
+    step in ``jax.checkpoint``; the port keeps its residuals instead, which
+    changes no number, only what a training step holds between F and B."""
+    b, s, h = x.shape
+    nh = cfg["n_heads"]
+    dh = h // nh
+    xin = rmsnorm(p["ln"], x)
+    q = linear(xin, p["mq"]).reshape(b, s, nh, dh).transpose(1, 2)
+    k = linear(xin, p["mk"]).reshape(b, s, nh, dh).transpose(1, 2) / math.sqrt(dh)
+    v = linear(xin, p["mv"]).reshape(b, s, nh, dh).transpose(1, 2)
+    f_g = torch.sigmoid(linear(xin, p["mfg"]).float()).transpose(1, 2)
+    i_g = torch.sigmoid(linear(xin, p["mig"]).float()).transpose(1, 2)
+
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    qp, kp, vp, fp, ip = q, k, v, f_g, i_g
+    if pad:
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        fp = torch.nn.functional.pad(f_g, (0, pad), value=1.0)
+        ip = torch.nn.functional.pad(i_g, (0, pad))
+    # every chunk at once, (b, nh, nc, chunk, ...); only C's carry is a loop
+    qc, kc, vc = (t.reshape(b, nh, nc, chunk, dh).float() for t in (qp, kp, vp))
+    fc, ic = fp.reshape(b, nh, nc, chunk), ip.reshape(b, nh, nc, chunk)
+    cum = torch.cumsum(torch.log(fc + 1e-6), dim=-1)
+    total = cum[..., -1:]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    # the masked half's exponent is set to -inf before the exp, not its
+    # value to 0 after (as the JAX code does): past a few dozen positions
+    # a chunk's cum(log f) spans more than fp32's exp range, so the
+    # masked half overflows to inf and 0 * inf makes the gradient NaN
+    decay = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                                  float("-inf")))
+    att = torch.einsum("bhnqd,bhnkd->bhnqk", qc, kc) * decay * ic[..., None, :]
+    intra = torch.einsum("bhnqk,bhnkd->bhnqd", _rounded(att, x.dtype), vc)
+    qdec = _rounded(qc * torch.exp(cum)[..., None], x.dtype)
+    C = [torch.zeros((b, nh, dh, dh), dtype=x.dtype, device=x.device)]
+    if nc > 1:  # what each chunk but the last adds to the memory, and keeps of it
+        cum_, total_, ic_ = cum[:, :, :-1], total[:, :, :-1], ic[:, :, :-1]
+        kdec = _rounded(kc[:, :, :-1] * (torch.exp(total_ - cum_) * ic_)[..., None], x.dtype)
+        update = torch.einsum("bhnkd,bhnke->bhnde", kdec, vc[:, :, :-1])
+        keep = _rounded(torch.exp(total_)[..., None], x.dtype)
+        for j in range(nc - 1):  # the memory before chunk j + 1, carried in x's dtype
+            C.append((C[-1].float() * keep[:, :, j] + update[:, :, j]).to(x.dtype))
+    inter = torch.einsum("bhnqd,bhnde->bhnqe", qdec, torch.stack(C, dim=2).float())
+    out = (intra + inter).to(x.dtype).reshape(b, nh, nc * chunk, dh)[:, :, :s]
+    out = out.transpose(1, 2).reshape(b, s, h)
+    return x + linear(out, p["mo"]), (k, v, f_g, i_g)
+
+
+def apply_mlstm(p, x, cfg, ctx: ShardCtx, chunk: int = 128):
+    """mLSTM matrix memory in chunkwise-parallel (linear-attention) form."""
+    return mlstm_forward(p, x, cfg, ctx, chunk)[0]
+
+
+# --------------------------------------------------------------------- #
+# RG-LRU (RecurrentGemma)
+# --------------------------------------------------------------------- #
+def init_rglru(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    """The gate scale ``lam`` is float32 whatever ``dtype`` is, as in the
+    JAX package."""
+    h = cfg["d_model"]
+    d_r = cfg.get("lru_width") or h
+    sc = 1.0 / math.sqrt(h)
+    return {
+        "ln": _zeros(gen, (h,), dtype),
+        "rx": _normal(gen, (h, d_r), sc, dtype),
+        "ry": _normal(gen, (h, d_r), sc, dtype),
+        "ra": _normal(gen, (d_r, d_r), 1 / math.sqrt(d_r), dtype),
+        "ri": _normal(gen, (d_r, d_r), 1 / math.sqrt(d_r), dtype),
+        "lam": _full(gen, (d_r,), 2.0, torch.float32),
+        "ro": _normal(gen, (d_r, h), sc / math.sqrt(2 * cfg["n_layers"]), dtype),
+    }
+
+
+def linear_scan(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The inclusive scan of h_t = a_t h_{t-1} + g_t along dim 1 from h = 0,
+    in ceil(log2 s) levels of elementwise ops (the log-depth form of
+    ``lax.associative_scan`` with the combine (a1, h1), (a2, h2) -> (a1 a2,
+    a2 h1 + h2)): level k combines every position with the one 2^k before
+    it.  Differentiable by autograd."""
+    s, k = a.shape[1], 1
+    h = g
+    while k < s:
+        h_new = h.clone()
+        h_new[:, k:] = a[:, k:] * h[:, :-k] + h[:, k:]
+        if 2 * k < s:  # the products of a that a next level reads
+            a_new = a.clone()
+            a_new[:, k:] = a[:, k:] * a[:, :-k]
+            a = a_new
+        h, k = h_new, 2 * k
+    return h
+
+
+def rglru_gates(lam, r, i, u):
+    """The RG-LRU's decay ``a = exp(-8 softplus(lam) r)`` and gated input
+    ``sqrt(max(1 - a^2, 1e-12)) i u``, fp32, from the fp32 gates r and i and
+    the input u: for a whole sequence (:func:`rglru_forward`) and for a
+    decode step (``models/serve.py``) alike."""
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * r
+    floor = torch.full((), 1e-12, dtype=torch.float32, device=r.device)
+    gated = (torch.sqrt(torch.maximum(1.0 - torch.exp(2.0 * log_a), floor)) * i) * u.float()
+    return torch.exp(log_a), gated
+
+
+def rglru_step(a, gated, h):
+    """One step of the RG-LRU recurrence, ``h = a h + gated`` (fp32): the
+    sequential form's and a decode step's."""
+    return a * h + gated
+
+
+def rglru_forward(p, x, cfg, ctx: ShardCtx):
+    """``apply_rglru`` that also returns the recurrence's last h, fp32 (b,
+    d_r), which a prefill keeps.
+
+    ``cfg["rglru_scan"]``: ``"associative"`` (the default) runs the
+    recurrence as :func:`linear_scan`, ``"sequential"`` as a loop over time
+    (the JAX ``lax.scan`` form).  ``jax.nn.gelu`` is the tanh
+    approximation, so the gate is ``gelu(..., approximate="tanh")``."""
+    b, s, _ = x.shape
+    xin = rmsnorm(p["ln"], x)
+    u = linear(xin, p["rx"])
+    gate_y = torch.nn.functional.gelu(linear(xin, p["ry"]), approximate="tanh")
+    r = torch.sigmoid(linear(u, p["ra"]).float())
+    i = torch.sigmoid(linear(u, p["ri"]).float())
+    a, gated = rglru_gates(p["lam"], r, i, u)
+    if cfg.get("rglru_scan", "associative") == "sequential":
+        hc = torch.zeros((b, a.shape[-1]), dtype=torch.float32, device=x.device)
+        steps = []
+        for t in range(s):
+            hc = rglru_step(a[:, t], gated[:, t], hc)
+            steps.append(hc)
+        hs = torch.stack(steps, dim=1)
+    else:
+        hs = linear_scan(a, gated)
+    return x + linear(hs.to(x.dtype) * gate_y, p["ro"]), hs[:, -1]
+
+
+def apply_rglru(p, x, cfg, ctx: ShardCtx):
+    """Gated linear recurrence: h_t = a_t * h_{t-1} + gated_t."""
+    return rglru_forward(p, x, cfg, ctx)[0]
+
+
+# --------------------------------------------------------------------- #
 # encoder/decoder joint block (Whisper; concat-carry)
 # --------------------------------------------------------------------- #
 def init_encdec(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
@@ -615,6 +848,9 @@ LAYER_KINDS: Dict[str, Tuple[Callable, Callable]] = {
     "mlp": (init_mlp, lambda p, x, pos, cfg, ctx: apply_mlp(p, x, cfg, ctx)),
     "mla": (init_mla, apply_mla),
     "moe": (init_moe, lambda p, x, pos, cfg, ctx: apply_moe(p, x, cfg, ctx)),
+    "slstm": (init_slstm, lambda p, x, pos, cfg, ctx: apply_slstm(p, x, cfg, ctx)),
+    "mlstm": (init_mlstm, lambda p, x, pos, cfg, ctx: apply_mlstm(p, x, cfg, ctx)),
+    "rglru": (init_rglru, lambda p, x, pos, cfg, ctx: apply_rglru(p, x, cfg, ctx)),
     "encdec": (init_encdec, apply_encdec),
 }
 

@@ -24,7 +24,13 @@ decode step is the decoder layer alone, causal self-attention over the
 cache and cross-attention over ``enc``, whose k/v it recomputes every step
 and which it does not gate by ``dec_on``, as the JAX ``decode_block``.  The
 vlm and encdec fronts run in prefill only: a decode step embeds its token
-alone.  The recurrent kinds raise ``NotImplementedError`` naming the kind.
+alone.  The recurrent kinds carry O(1) fp32 state and decode in the JAX
+step form: ``slstm`` its ``(c, n, m)`` (b, d), ``mlstm`` its matrix memory
+``C`` (b, nh, dh, dh), ``rglru`` its ``h`` (b, lru_width).  Where the JAX
+prefill runs ``decode_block`` once per prompt position to reach the final
+state, the port keeps what its one forward computed: the sLSTM kernel's
+last state, the scan's last h, and for ``mlstm`` the decode recurrence's
+``C`` in one weighted pass over the prompt (see ``_mlstm_state``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Dict
 import torch
 
 from ..core.infer_executor import InferProgram
+from ..kernels.ref import slstm_step
 from .lm import ArchConfig, RunSpec, _embed_lookup, front_len, group_layout, layer_cfg, make_src
 from .modules import (
     ShardCtx,
@@ -50,6 +57,11 @@ from .modules import (
     cross_attend,
     encdec_forward,
     mla_forward,
+    mlstm_forward,
+    rglru_forward,
+    rglru_gates,
+    rglru_step,
+    slstm_forward,
     pad_to_multiple,
     rmsnorm,
     rope,
@@ -73,7 +85,8 @@ def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
     (Sc = S) and attn_local (Sc = min(S, window)); mla keeps ``c`` ``lead +
     (b, S, kv_lora_rank)`` and ``kr`` ``lead + (b, S, qk_rope_head_dim)``;
     encdec the decoder's ``k`` and ``v`` as attn and ``enc`` ``lead + (b,
-    s_enc, d)``."""
+    s_enc, d)``; the recurrent kinds their fp32 state (``m`` at -1e30), as
+    the JAX ``cache_spec``."""
     _check_kind(kind)
     if kind == "encdec":
         shape = tuple(lead) + (b, S, cfg["n_kv_heads"], _head_dim(cfg))
@@ -90,6 +103,21 @@ def cache_spec(kind: str, cfg: Dict, ctx: ShardCtx, b: int, S: int, dtype, *,
             "c": torch.zeros(lead + (d_kv,), dtype=dtype, device=device),
             "kr": torch.zeros(lead + (d_rope,), dtype=dtype, device=device),
         }
+    lead = tuple(lead)
+    if kind == "slstm":
+        shape = lead + (b, cfg["d_model"])
+        return {
+            "c": torch.zeros(shape, dtype=torch.float32, device=device),
+            "n": torch.zeros(shape, dtype=torch.float32, device=device),
+            "m": torch.full(shape, -1e30, dtype=torch.float32, device=device),
+        }
+    if kind == "mlstm":
+        nh = cfg["n_heads"]
+        dh = cfg["d_model"] // nh
+        return {"C": torch.zeros(lead + (b, nh, dh, dh), dtype=torch.float32, device=device)}
+    if kind == "rglru":
+        d_r = cfg.get("lru_width") or cfg["d_model"]
+        return {"h": torch.zeros(lead + (b, d_r), dtype=torch.float32, device=device)}
     if kind in ("attn", "attn_local"):
         window = _window(kind, cfg)
         sc = min(S, window) if window else S
@@ -139,6 +167,8 @@ def decode_block(kind, p, x, cache, pos: int, cfg, ctx: ShardCtx):
         h, _ = decode_block("attn", p["dec_attn"], x, cache, pos, cfg, ctx)
         h = cross_attend(p["xattn"], h, cache["enc"], cfg, ctx)
         return apply_mlp(p["dec_mlp"], h, cfg, ctx), cache
+    if kind in _DECODE_RECURRENT:
+        return _DECODE_RECURRENT[kind](p, x, cache, cfg), cache
     b = x.shape[0]
     hq, hk = cfg["n_heads"], cfg["n_kv_heads"]
     dh = _head_dim(cfg)
@@ -187,6 +217,64 @@ def _decode_mla(p, x, cache, pos: int, cfg):
     return x + o.reshape(b, 1, hq * dh) @ p["wo"]
 
 
+def _decode_slstm(p, x, cache, cfg):
+    """One sLSTM step from the fp32 state ``(c, n, m)``, written in place."""
+    xin = rmsnorm(p["ln"], x)[:, 0]
+    i_t = (xin @ p["si"]).float()
+    f_t = (xin @ p["sf"]).float()
+    z_t = torch.tanh(xin @ p["sz"]).float()
+    o_t = torch.sigmoid(xin @ p["sog"]).float()
+    hs, *state = slstm_step(i_t, f_t, z_t, cache["c"], cache["n"], cache["m"])
+    for name, t in zip("cnm", state):
+        cache[name].copy_(t)
+    return x + ((o_t.to(x.dtype) * hs.to(x.dtype)) @ p["so"])[:, None]
+
+
+def _decode_mlstm(p, x, cache, cfg):
+    """One mLSTM step: C = C f + (k i) v^T in fp32, written in place, and
+    q C, as the JAX step form."""
+    b, _, h = x.shape
+    nh = cfg["n_heads"]
+    dh = h // nh
+    xin = rmsnorm(p["ln"], x)[:, 0]
+    q = (xin @ p["mq"]).reshape(b, nh, dh)
+    k = (xin @ p["mk"]).reshape(b, nh, dh) / math.sqrt(dh)
+    v = (xin @ p["mv"]).reshape(b, nh, dh)
+    f_g = torch.sigmoid((xin @ p["mfg"]).float())  # (b, nh)
+    i_g = torch.sigmoid((xin @ p["mig"]).float())
+    C = cache["C"] * f_g[..., None, None] + torch.einsum(
+        "bhd,bhe->bhde", k.float() * i_g[..., None], v.float())
+    cache["C"].copy_(C)
+    out = torch.einsum("bhd,bhde->bhe", q.float(), C)
+    return x + (out.reshape(b, h).to(x.dtype) @ p["mo"])[:, None]
+
+
+def _decode_rglru(p, x, cache, cfg):
+    """One RG-LRU step: h = a h + sqrt(1 - a^2) i u in fp32, written in
+    place, and the gated output."""
+    xin = rmsnorm(p["ln"], x)[:, 0]
+    u = xin @ p["rx"]
+    gate_y = torch.nn.functional.gelu(xin @ p["ry"], approximate="tanh")
+    r = torch.sigmoid((u @ p["ra"]).float())
+    i = torch.sigmoid((u @ p["ri"]).float())
+    hs = rglru_step(*rglru_gates(p["lam"], r, i, u), cache["h"])
+    cache["h"].copy_(hs)
+    return x + ((hs.to(x.dtype) * gate_y) @ p["ro"])[:, None]
+
+
+_DECODE_RECURRENT = {"slstm": _decode_slstm, "mlstm": _decode_mlstm, "rglru": _decode_rglru}
+
+
+def _mlstm_state(k, v, f_g, i_g):
+    """The decode recurrence's memory after the prompt, C = sum_t (prod_{u >
+    t} f_u) (k_t i_t) v_t^T, in fp32, in one weighted pass: k, v (b, nh, s,
+    dh) in the model dtype, f_g, i_g (b, nh, s) fp32.  The weights are the
+    reversed cumulative products of f (1 for the last position)."""
+    rest = torch.flip(torch.cumprod(torch.flip(f_g[..., 1:], dims=(-1,)), dim=-1), dims=(-1,))
+    w = torch.cat([rest, torch.ones_like(f_g[..., :1])], dim=-1) * i_g
+    return torch.einsum("bhtd,bhte->bhde", k.float() * w[..., None], v.float())
+
+
 # --------------------------------------------------------------------- #
 # prefill: full sequence through one block, emitting the cache
 # --------------------------------------------------------------------- #
@@ -195,7 +283,8 @@ def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
     position P to slot P (an attn_local ring shorter than s keeps the last
     Sc positions, P in slot ``P % Sc``); mla writes c and the roped kr of
     positions [0, s); encdec the decoder's k/v of its positions [0, s -
-    s_enc) and the encoder stream's output.
+    s_enc) and the encoder stream's output; a recurrent kind its state
+    after the last position.
 
     The JAX version runs the train forward and then recomputes rmsnorm and
     the k/v projections (for mla: ``xin @ wdkv`` and the rope) for the cache
@@ -213,6 +302,20 @@ def prefill_block(kind, p, x, cache, cfg, ctx: ShardCtx, positions):
         y, c, kr = mla_forward(p, x, positions, cfg, ctx)
         cache["c"][:, :s] = c
         cache["kr"][:, :s] = kr
+        return y, cache
+    if kind == "slstm":
+        y, (c, n, m) = slstm_forward(p, x, cfg, ctx)
+        cache["c"][:] = c
+        cache["n"][:] = n
+        cache["m"][:] = m
+        return y, cache
+    if kind == "mlstm":
+        y, (k, v, f_g, i_g) = mlstm_forward(p, x, cfg, ctx)
+        cache["C"][:] = _mlstm_state(k, v, f_g, i_g)
+        return y, cache
+    if kind == "rglru":
+        y, h_last = rglru_forward(p, x, cfg, ctx)
+        cache["h"][:] = h_last
         return y, cache
     if kind == "encdec":
         y, k, v = encdec_forward(p, x, positions, cfg, ctx)

@@ -29,6 +29,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -55,6 +56,7 @@ DENSE = ["gpt3_1_5b", "gpt3_6_2b", "gpt3_14_6b", "gpt3_28_3b", "deepseek_67b", "
          "gemma2_2b", "internlm2_1_8b"]
 MOE = ["deepseek_v3_671b", "qwen2_moe_a2_7b"]
 FRONT = {"llava_next_mistral_7b": "vlm", "whisper_tiny": "encdec"}  # the fronted families
+RECURRENT = {"xlstm_350m": "ssm", "recurrentgemma_9b": "hybrid"}  # the recurrent families
 # the JAX archs outside the dense family, ported since or not
 UNPORTED = [a for a in jconfigs.ARCH_IDS if a not in DENSE]
 FAMILIES = ("moe", "mla", "encdec", "vlm", "ssm", "hybrid")
@@ -62,13 +64,13 @@ NEW = ["gpt3_1_5b", "gemma2_2b", "qwen2_moe_a2_7b", "deepseek_v3_671b"]
 
 
 def test_the_port_carries_the_dense_family():
-    assert sorted(PORTED) == sorted(DENSE + MOE + list(FRONT))
+    assert sorted(PORTED) == sorted(DENSE + MOE + list(FRONT) + list(RECURRENT))
     assert configs.PAPER_IDS == jconfigs.PAPER_IDS
-    assert configs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS if a in DENSE + MOE + list(FRONT)]
-    assert sorted(configs.all_configs()) == sorted(DENSE + MOE + list(FRONT))
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS  # every assigned arch, in the JAX order
+    assert sorted(configs.all_configs()) == sorted(DENSE + MOE + list(FRONT) + list(RECURRENT))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + list(FRONT))
+@pytest.mark.parametrize("arch", DENSE + MOE + list(FRONT) + list(RECURRENT))
 @pytest.mark.parametrize("which", ["CONFIG", "reduced"])
 def test_config_matches_jax_field_for_field(arch, which):
     get, jget = ((configs.get_config, jconfigs.get_config) if which == "CONFIG"
@@ -76,7 +78,7 @@ def test_config_matches_jax_field_for_field(arch, which):
     mine, ref = get(arch), jget(arch)
     assert [f.name for f in dataclasses.fields(mine)] == [f.name for f in dataclasses.fields(ref)]
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
-    assert mine.family == ("moe" if arch in MOE else FRONT.get(arch, "dense"))
+    assert mine.family == ("moe" if arch in MOE else {**FRONT, **RECURRENT}.get(arch, "dense"))
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
@@ -99,7 +101,8 @@ def test_all_cells_match_jax_over_the_ported_archs():
 def test_unported_arch_raises_naming_what_it_lacks(arch):
     family = jconfigs.get_config(arch).family
     if arch in configs.ARCH_IDS:  # ported since: it loads, and nothing names it
-        assert arch in MOE + list(FRONT) and configs.get_config(arch).family == family
+        assert arch in MOE + list(FRONT) + list(RECURRENT)
+        assert configs.get_config(arch).family == family
         assert arch not in configs.UNPORTED_ARCHS
         if arch == "deepseek_v3_671b":  # with its mla kind
             assert "mla" in configs.get_config(arch).block_pattern[0]
@@ -107,6 +110,10 @@ def test_unported_arch_raises_naming_what_it_lacks(arch):
         if arch == "whisper_tiny":  # with its encdec kind
             assert configs.get_config(arch).block_pattern == (("encdec",),)
             assert "encdec" in tmod.PORTED_KINDS
+        if arch in RECURRENT:  # with its recurrent kinds
+            kinds = {k for blk in configs.get_config(arch).block_pattern for k in blk}
+            assert kinds & {"slstm", "mlstm", "rglru"}
+            assert kinds <= set(tmod.PORTED_KINDS) and not tmod.UNPORTED_KINDS
         return
     for get in (configs.get_config, configs.get_reduced):
         with pytest.raises(NotImplementedError, match=arch) as err:

@@ -26,6 +26,7 @@ replays a graph on the card against the eager walk and skips here.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import numpy as np  # noqa: E402
 import test_torch_train_parity as parity  # noqa: E402  (tests/ is on sys.path under pytest)

@@ -39,6 +39,9 @@ def test_imports_pull_in_neither_jax_nor_repro():
         "fixed_state_bytes(get_reduced('deepseek_v3_671b'), 2, 2)\n"
         "fixed_state_bytes(get_reduced('llava_next_mistral_7b'), 2, 2)\n"
         "fixed_state_bytes(get_reduced('whisper_tiny'), 2, 2)\n"
+        "import repro_torch.kernels.slstm_scan\n"
+        "fixed_state_bytes(get_reduced('xlstm_350m'), 3, 2)\n"
+        "fixed_state_bytes(get_reduced('recurrentgemma_9b'), 2, 2)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -18,6 +18,7 @@ is tested on the CPU in ``tests/test_torch_rmsnorm_plan.py``.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -94,7 +95,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed at its default path")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build(["rmsnorm"])
-    assert build.sources() == ["rmsnorm", "wgrad_accum"]
+    assert build.sources() == ["rmsnorm", "slstm_scan", "wgrad_accum"]
 
 
 CUDA_CASES = ([(1024, 2048, torch.bfloat16, 0), (2, 2048, torch.bfloat16, 0),

@@ -24,6 +24,7 @@ softcap) against the JAX package, in float32 on the CPU.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -26,6 +26,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import numpy as np  # noqa: E402
 

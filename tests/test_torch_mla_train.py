@@ -20,6 +20,7 @@ against the JAX package, in float32 on the CPU.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import test_torch_train_parity as train_harness  # noqa: E402
 from test_torch_train_parity import wgrad_calls  # noqa: E402,F401

@@ -19,6 +19,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -140,12 +141,13 @@ def test_cache_view_aliases_the_stacked_buffer():
 @pytest.mark.parametrize("kind", ("mla", "moe", "slstm", "mlstm", "rglru", "encdec"))
 def test_unported_kinds_raise(kind):
     """The JAX kinds beyond the dense ones: each raises naming itself until
-    it is ported (moe, mla and encdec since; each initialises and decodes)."""
+    it is ported (all since; each initialises and decodes)."""
     cfg = layer_cfg(get_reduced(ARCH))
     if kind in tmod.PORTED_KINDS:
         assert kind not in tmod.UNPORTED_KINDS
-        arch = {"moe": "qwen2_moe_a2_7b", "mla": "deepseek_v3_671b",
-                "encdec": "whisper_tiny"}[kind]
+        arch = {"moe": "qwen2_moe_a2_7b", "mla": "deepseek_v3_671b", "encdec": "whisper_tiny",
+                "slstm": "xlstm_350m", "mlstm": "xlstm_350m",
+                "rglru": "recurrentgemma_9b"}[kind]
         cfg = layer_cfg(get_reduced(arch))
         d = cfg["d_model"]
         p = tmod.init_layer(kind, torch.Generator(), cfg, tmod.ShardCtx(), torch.float32)
@@ -153,7 +155,8 @@ def test_unported_kinds_raise(kind):
         y, cache = tserve.decode_block(kind, p, torch.zeros(2, 1, d), cache, 0, cfg,
                                        tmod.ShardCtx())
         assert tuple(y.shape) == (2, 1, d)
-        assert sorted(cache) == {"moe": [], "mla": ["c", "kr"], "encdec": ["enc", "k", "v"]}[kind]
+        assert sorted(cache) == {"moe": [], "mla": ["c", "kr"], "encdec": ["enc", "k", "v"],
+                                 "slstm": ["c", "m", "n"], "mlstm": ["C"], "rglru": ["h"]}[kind]
         return
     assert kind in tmod.UNPORTED_KINDS
     with pytest.raises(NotImplementedError, match=kind):

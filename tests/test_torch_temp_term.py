@@ -50,6 +50,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import numpy as np  # noqa: E402
 import test_torch_planner as planner_tests  # noqa: E402  (tests/ is on sys.path under pytest)
@@ -312,11 +313,17 @@ def test_checked_in_table_holds_both_training_configs():
     table = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
     for name in ("internlm2-1.8b", "gpt3_1_5b"):
         assert set(table[name]) == {"eager", "graph"}, name
-        for mode, rec in table[name].items():
-            assert rec["executor_mode"] == mode and rec["devices"] == 1 and rec["p"] == 4
-            assert rec["tokens"] == 1024 and rec["cuda_temp_bytes"] >= 0
-            assert "H100" in rec["card"] and rec["card"].rstrip().endswith("W")
-            assert set(rec["runs"]) == set(launcher.SCHEDULES)
+        for mode in table[name]:
+            recs = tmem.cuda_temp_records(name, mode)
+            # one record at the published depth, and internlm2's also at the
+            # training phases' cut of chip_smoke.py, beside it
+            assert sorted(map(tmem.record_key, recs), key=str) == (
+                [(8, 4), None] if name == "internlm2-1.8b" else [None]), (name, mode)
+            for rec in recs:
+                assert rec["executor_mode"] == mode and rec["devices"] == 1 and rec["p"] == 4
+                assert rec["tokens"] == 1024 and rec["cuda_temp_bytes"] >= 0
+                assert "H100" in rec["card"] and rec["card"].rstrip().endswith("W")
+                assert set(rec["runs"]) == set(launcher.SCHEDULES)
 
 
 # --------------------------------------------------------------------- (h)
@@ -361,8 +368,8 @@ def test_calibrate_cut_reaches_the_record(arch, argv, cut, monkeypatch, tmp_path
     st = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=seq).state(1)
     assert rec["weights_bytes"] == st.params_card + st.optim_card
     assert rec["m_b_bytes"] == tmem.ActivationByteModel.from_config(cfg, 1, seq, 2).m_b_bytes
+    assert tmem.cuda_temp_record(cfg.name, "eager", out, cut["layers"], cut["p"]) == rec
     table = json.loads(out.read_text())
-    assert table[cfg.name]["eager"] == rec
     # the default cell's records stay byte for byte
     before = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
     for name in ("internlm2-1.8b", "gpt3_1_5b"):
@@ -372,7 +379,9 @@ def test_calibrate_cut_reaches_the_record(arch, argv, cut, monkeypatch, tmp_path
 
 def test_default_cell_record_has_the_checked_in_form():
     """No cut given, no ``cut`` key: a record of the default cell has the
-    keys of the checked-in ones, which were measured there."""
+    keys of the checked-in ones measured there; internlm2-1.8b's records at
+    its training phases' cut in ``chip_smoke.py`` (8 layers, p=4, every
+    schedule) have the same keys and the ``cut``."""
     table = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
     cfg = get_reduced("internlm2_1_8b")
     rec = calibrate.calibration_record(
@@ -380,9 +389,13 @@ def test_default_cell_record_has_the_checked_in_form():
                             (1e6, 2e6, 0.0)), **calibrate.CELL, weights_bytes=5e6,
         card="a card, 700.00 W", steps=3, seed=0)
     for name in ("internlm2-1.8b", "gpt3_1_5b"):
-        for mode, old in table[name].items():
-            assert "cut" not in old and set(old) == set(rec), (name, mode)
-            assert old["shape"] == "p4_m8_b1_s1024"
+        for mode in table[name]:
+            for old in tmem.cuda_temp_records(name, mode, tmem.CUDA_TEMP_TABLE):  # read anew
+                cut = old.pop("cut", None)
+                assert cut in (None, {"layers": 8, "p": 4, "schedules": list(launcher.SCHEDULES)}
+                               if name == "internlm2-1.8b" else None), (name, mode)
+                assert set(old) == set(rec), (name, mode)
+                assert old["shape"] == "p4_m8_b1_s1024"
     assert calibrate.cut_config(cfg) == cfg
     with pytest.raises(ValueError, match="no routed experts"):
         calibrate.cut_config(cfg, experts=4)
@@ -446,3 +459,38 @@ def test_front_models_are_priced_with_a_remainder(arch, name, mode):
     planner = HBMPlanner(cfg, p=2, m=8, microbatch=1, seq_len=seq, executor_mode=mode)
     assert planner.remainder() * 2 == pytest.approx(rec["cuda_temp_bytes"], rel=1e-9)
     assert rec["weights_bytes"] == planner.state(1).params_card + planner.state(1).optim_card
+
+
+def test_records_of_two_depths_stay_side_by_side(tmp_path, capsys):
+    """A record measured at another depth joins the arch's entry instead of
+    replacing it; one at the same cut replaces its own; a run is priced by
+    the record of its own depth, else by the full-depth one, and the
+    launcher says when the record's depth is not the run's."""
+    path = tmp_path / "t.json"
+    full = {"arch_id": "a", "executor_mode": "eager", "p": 4, "cuda_temp_bytes": 1.0}
+    cut8 = dict(full, cut={"layers": 8, "p": 4}, cuda_temp_bytes=2.0)
+    cut8b = dict(cut8, cuda_temp_bytes=3.0)
+    cut2 = dict(full, cut={"layers": 2, "p": 2}, cuda_temp_bytes=4.0)
+    calibrate.write_calibration_table([full], path)
+    assert json.loads(path.read_text())["a"]["eager"] == full
+    calibrate.write_calibration_table([cut8, cut2], path)
+    calibrate.write_calibration_table([cut8b], path)
+    assert tmem.cuda_temp_records("a", "eager", path) == [full, cut2, cut8b]
+    got = {(layers, p): tmem.cuda_temp_record("a", "eager", path, layers, p)["cuda_temp_bytes"]
+           for layers, p in ((8, 4), (8, 2), (2, 2), (2, None), (24, 4), (None, None))}
+    assert got == {(8, 4): 3.0, (8, 2): 1.0, (2, 2): 4.0, (2, None): 4.0, (24, 4): 1.0,
+                   (None, None): 1.0}
+    assert tmem.cuda_temp_record("b", "eager", path) is None
+    # internlm2 at 8 layers on 4 stages is priced by its 8-layer record, the
+    # reduced config (2 layers) by the full-depth one, and said so
+    at8 = HBMPlanner(dataclasses.replace(get_reduced("internlm2_1_8b"), n_layers=8), p=4, m=8,
+                     microbatch=2, seq_len=32, executor_mode="graph")
+    rec8 = tmem.cuda_temp_record("internlm2-1.8b", "graph", layers=8, p=4)
+    assert tmem.record_key(rec8) == (8, 4)
+    assert at8.one_card_bytes(at8.plan(math.inf).chosen.schedule).overhang == \
+        rec8["optimizer_overhang"]
+    launcher.main(planner_tests_launch() + ["--steps", "1", "--memory-budget-mb", "64"])
+    out = capsys.readouterr().out
+    assert ("measured at the full depth at p=4, every schedule (NVIDIA H100 80GB HBM3, "
+            "700.00 W), scaled to this run of 2 layers at p=4: no record was measured at that "
+            "depth") in out

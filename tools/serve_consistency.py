@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Decode-vs-prefill consistency of serving in bf16, in both packages.
 
-    PYTHONPATH=src python3 tools/serve_consistency.py [--moe]  # on the CPU, minutes
+    PYTHONPATH=src python3 tools/serve_consistency.py [--moe | --recurrent]  # CPU, minutes
+    PYTHONPATH=src python3 tools/serve_consistency.py --arch xlstm_350m 24 --seeds 10
 
 ``chip_smoke.py`` holds the port's full-width bf16 serving to a limit on
 the relative L2 gap between decoding token s after a prefill of s tokens and
@@ -22,6 +23,13 @@ top-k sets of the decode step that differ from those of the longer
 prefill's last position (``*_flips`` of ``topk_sets``).  A port whose
 flips far outnumber the JAX package's on the same weights has a fault of
 its own; as many flips in both are the bf16 walk's.
+
+The recurrent archs (``--recurrent``: xlstm_350m at its reduced 4 and its
+full 24 layers, recurrentgemma_9b at its reduced 3 and its full 38, the
+latter's prompt two whole windows) decode in the step form with fp32
+state, where the prefill runs the chunkwise mLSTM (its memory in bf16,
+its gates through ``log(f + 1e-6)``), the sLSTM loop and the RG-LRU's
+associative scan: the gap measures how far the two forms part in bf16.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ from repro_torch.models import modules as tmod  # noqa: E402
 P, M, B, PROMPT = 2, 2, 2, 16
 SEEDS = (0, 1, 2)
 MOE_CASES = (("qwen2_moe_a2_7b", 24), ("deepseek_v3_671b", 2), ("deepseek_v3_671b", 24))
+RECURRENT_CASES = (("xlstm_350m", 4), ("xlstm_350m", 24), ("recurrentgemma_9b", 3),
+                   ("recurrentgemma_9b", 38))
 
 
 @contextlib.contextmanager
@@ -197,7 +207,9 @@ def one_case(arch: str, n_layers: int, seed: int) -> dict:
     jax_rel, jax_max = _gap(jax_run[1], jax_ref[0])
     port_dec = port_run.logits[1].float().numpy()
     port_rel, port_max = _gap(port_dec, port_ref.logits[0].float().numpy())
-    return dict(arch=arch, n_layers=n_layers, sublayers=2 * n_layers, seed=seed, prompt=PROMPT,
+    period = cfg_t.block_pattern
+    sublayers = sum(len(period[i % len(period)]) for i in range(n_layers))
+    return dict(arch=arch, n_layers=n_layers, sublayers=sublayers, seed=seed, prompt=PROMPT,
                 same_next_token=bool((jax_tok == port_tok).all()),
                 jax_rel_l2=jax_rel, jax_max_abs=jax_max, port_rel_l2=port_rel,
                 port_max_abs=port_max,
@@ -205,13 +217,21 @@ def one_case(arch: str, n_layers: int, seed: int) -> dict:
 
 
 def main(argv=None) -> int:
-    """``--moe`` runs only the moe cases."""
+    """``--moe`` runs only the moe cases, ``--recurrent`` only the recurrent
+    ones, ``--arch NAME LAYERS`` one case; ``--seeds N`` seeds 0..N-1 (default
+    3)."""
     torch.manual_seed(0)
     dense = [(arch, n) for arch in ("internlm2_1_8b", "gemma2_2b")
              for n in (get_reduced(arch).n_layers, jax_get_config(arch).n_layers)]
-    cases = list(MOE_CASES) if "--moe" in (argv or sys.argv[1:]) else dense + list(MOE_CASES)
+    args = argv or sys.argv[1:]
+    cases = (list(MOE_CASES) if "--moe" in args else list(RECURRENT_CASES)
+             if "--recurrent" in args else dense + list(MOE_CASES) + list(RECURRENT_CASES))
+    if "--arch" in args:  # one arch at one depth: --arch NAME LAYERS
+        i = args.index("--arch")
+        cases = [(args[i + 1], int(args[i + 2]))]
+    seeds = range(int(args[args.index("--seeds") + 1])) if "--seeds" in args else SEEDS
     for arch, n_layers in cases:
-        rows = [one_case(arch, n_layers, seed) for seed in SEEDS]
+        rows = [one_case(arch, n_layers, seed) for seed in seeds]
         for row in rows:
             print(json.dumps(row), flush=True)
         summary = dict(arch=arch, n_layers=n_layers, seeds=len(rows),
