@@ -10,7 +10,8 @@ train), 22-23 next in a third (deepseek-v3-671b: 50 GB of weights to
 serve; in both the training phase first, in a fresh process, as the
 memory record it is gated against was measured), 24-27 next in a fourth
 (whisper-tiny and llava-next-mistral-7b, the training phases first),
-28-29 in a fifth (xlstm-350m) and 30-31 in a sixth (recurrentgemma-9b),
+28-29 in a fifth (xlstm-350m), 30-31 in a sixth (recurrentgemma-9b) and
+32-33 in a seventh (internlm2-1.8b at seq 4096),
 17 after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
 launcher runs); any failed check raises and the exit code is not 0.
@@ -55,8 +56,9 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               xlstm-350m's (1024, 1024) at N = 2048 on wgmma and its
               (1024, 4) gate products on mma_sync, recurrentgemma-9b's
               (4096, 4096), (4096, 256), (4096, 12288), (12288, 4096) on
-              wgmma (RMSNorm: llava's, whisper's and xlstm's rows too, 384
-              and 1024 in the sweep):
+              wgmma, internlm2's four at phase 32's N = 4096 (RMSNorm:
+              llava's, whisper's and xlstm's rows too, 384 and 1024 in the
+              sweep, and phase 32's 4096 x 2048):
               it adds into a clone of acc in
               place and is held against the plain version on the original,
               and a second launch on another clone must agree bit for bit;
@@ -86,7 +88,7 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               positions).
 5. serve   -- internlm2-1.8b at full width and depth (bf16, random weights
               from a seed): 4 pipeline stages on the one card, 8 request
-              groups of 2, 512-token prompts, 16 greedy tokens.  Kernel
+              groups of 2, 512-token prompts, 4 greedy tokens.  Kernel
               launch counts are read around this run only.
 6. consistency -- decoding token s after a prefill of s tokens matches the
               last position of a prefill of s + 1 tokens, at full width.
@@ -190,15 +192,15 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               weights from a seed): 4 stages on the one card, 4 request
               groups of 1, 4100-token prompts (past the window and not a
               multiple of it, so each local layer's ring holds a rolled
-              tail), 16 greedy tokens: prefill and decode ms, RMSNorm
+              tail), 4 greedy tokens: prefill and decode ms, RMSNorm
               launches == the structure's count, and decoding token 4100
               against a prefill of 4101 tokens within a stated limit.
 18. train-gpt3 -- gpt3-1.5b, the paper's model and the launcher's default
-              arch, at full width and depth (22 layers, d 2304, 24 heads of
-              96, d_ff 9216, vocab 50257; bf16, random weights from a seed):
-              the step-0 gradient of the eager zb-h1 walk against plain
-              torch.autograd; then 4 stages on the one card, 8 microbatches
-              of 1 x 1024 tokens, 4 steps under one schedule of each
+              arch, at full width (d 2304, 24 heads of 96, d_ff 9216, vocab
+              50257; bf16, random weights from a seed) and G3_LAYERS of its
+              22 layers: the step-0 gradient of the eager zb-h1 walk against
+              plain torch.autograd; then 4 stages on the one card, 8
+              microbatches of 1 x 1024 tokens, 3 steps under one schedule of each
               placement, zb-h1 and zb-v (phase 16 runs all eight under the
               graph), with the
               pipeline captured in a CUDA graph (the AdamW state allocated
@@ -247,8 +249,9 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               and shares of the calibration record that
               ``launch/calibrate.py --layers 4 --p 2`` wrote at this cut),
               which may pass it by at most PLAN_OVERSHOOT_MAX of the peak;
-              the memory window is ``launch/calibrate.py``'s (the profiled
-              step after it is outside).
+              the memory window is ``launch/calibrate.py``'s.  (Phases 21,
+              23-25, 28 and 30 profiled one more zb-h1 graph step until
+              phase 32 needed the time; PERF.md §5 keeps their readings.)
 22. serve-deepseek-v3 -- deepseek-v3-671b at full width (every matrix at
               its published shape: d 7168, 128 mla heads of 128 + a
               shared rope key of 64, q rank 1536, kv rank 512; 256 routed
@@ -288,12 +291,12 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               counted.
 26. serve-llava -- llava-next-mistral-7b at full width and depth (32
               layers, 7.25 B parameters), p=4, phase 5's groups, 576
-              patches + 512-token prompts, 16 greedy tokens, the cache
+              patches + 512-token prompts, 4 greedy tokens, the cache
               holding the patches: prefill and decode ms, tok/s, RMSNorm
               launches == the structure's count, decoding token 512
               against a prefill of 513 within LS_CONSIST_REL_L2.
 27. serve-whisper -- whisper-tiny whole, p=2, phase 5's groups, 1500
-              frames, 432-token prompts, 16 greedy tokens (the decoder's
+              frames, 432-token prompts, 4 greedy tokens (436 of the decoder's
               448 positions; a decode step runs 3 of a block's 5 norms),
               gated as phase 26 at WS_CONSIST_REL_L2.
 28. train-xlstm -- xlstm-350m whole (24 layers: 18 mLSTM, 6 sLSTM; d
@@ -317,6 +320,20 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
 31. serve-recurrentgemma -- recurrentgemma-9b at full width and depth (38
               layers in 42 slots at p=2; 11.3 B parameters allocated), as
               phase 29, within RS_CONSIST_REL_L2.
+32. train-long -- internlm2-1.8b at full width and depth (24 layers) at
+              the JAX package's train_4k sequence: p=4, 8 microbatches of 1
+              x 4096 (past 2 x 1024 queries: the chunked attention, its
+              query blocks recomputed in B), zb-h1 and zb-v under the
+              graph executor, 2 steps after the capture, every batch read
+              from a token file of the synthetic stream's seed-0 batches
+              through TokenFileLM and prefetch: phase 21's checks and gate
+              against the record calibrated at seq 4096, the reserved peak
+              under TL_RESERVED_MAX_GB, and the measured residual slot per
+              token at seq 4096 at most the one at 1024.
+33. train-long-reduced -- reduced internlm2 (2 layers, f32) at seq 2304,
+              p=2, zb-h1 and zb-v: cuda against cpu (losses 1e-5
+              relative, grad norms 1e-4) and the graph against the eager
+              walk (phase 16's rules).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -347,13 +364,13 @@ import torch  # noqa: E402
 
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import all_configs, get_config, get_reduced  # noqa: E402
-from repro_torch.core.executor import PipelineExecutor  # noqa: E402
+from repro_torch.core.executor import PipelineExecutor, slot_bytes  # noqa: E402
 from repro_torch.core.memory import cuda_temp_record, record_key  # noqa: E402
 from repro_torch.core.planner import HBMPlanner, stage_program_factory  # noqa: E402
 from repro_torch.core.schedules import compile_plan  # noqa: E402
 from repro_torch.core.schedules.ir import Placement  # noqa: E402
 from repro_torch.core.simulator import TimeModel, simulate  # noqa: E402
-from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM, TokenFileLM, prefetch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import slstm_scan as slstm_kernel  # noqa: E402
@@ -391,7 +408,8 @@ FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 ARCH = "internlm2_1_8b"
-P, M, B, PROMPT, NEW = 4, 8, 2, 512, 16  # full-width serving run
+# full-width serving run (NEW was 16 until phase 32 needed the time)
+P, M, B, PROMPT, NEW = 4, 8, 2, 512, 4
 RED_P, RED_M, RED_B, RED_PROMPT, RED_NEW = 2, 4, 2, 16, 4  # reduced cuda-vs-cpu run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # as tests/test_kernels.py
 # phase 3's RMSNorm sweep: every width of the port's dense configs, and rows
@@ -444,7 +462,7 @@ RED_PROMPTS = {ARCH: RED_PROMPT, GPT3: RED_PROMPT, GEMMA2: 19, MOE: RED_PROMPT,
 RED_ARCHS = (ARCH, GPT3, GEMMA2, MOE, DEEPSEEK, LLAVA, WHISPER, XLSTM, RGEMMA)
 # gemma2 serving at full width: p stages, m groups of b, prompts past the
 # 4096 window and not a multiple of it, new greedy tokens
-GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 16
+GS_P, GS_M, GS_B, GS_PROMPT, GS_NEW = 4, 4, 1, 4100, 4
 # its decode-vs-prefill limit, derived as CONSIST_REL_L2 is, before any run
 # of it: phase 6's rule (twice a random walk of one bf16 ulp, 2^-9, per
 # sublayer) gives 2 * sqrt(52) * 2^-9 = 2.8e-2 for gemma2's 52 sublayers,
@@ -457,8 +475,10 @@ GS_CONSIST_REL_L2 = 6e-2
 # gpt3-1.5b training: phase 9's run shape, GPT3_STEPS steps a schedule, one
 # schedule a placement (phase 16 runs all eight under the graph on
 # internlm2), and the LM head's GEMMs timed at the odd vocabulary and
-# padded ones
-GPT3_STEPS = 4
+# padded ones; phases 18-19 at G3_LAYERS of its 22 layers (2 a stage in
+# both placements), gated against its record calibrated there (4 steps at
+# the full depth until phase 32 needed the time)
+GPT3_STEPS, G3_LAYERS = 3, 8
 GPT3_SCHEDULES = ("zb-h1", "zb-v")
 GPT3_HEAD_VOCABS = (50257, 50264, 50304)
 GPT3_CHILD = "--gpt3-phases"  # the argument that runs phases 18-19 alone
@@ -469,6 +489,7 @@ XLSTM_CHILD = "--xlstm-phases"  # ... and phases 28-29
 RGEMMA_CHILD = "--recurrentgemma-phases"  # ... and phases 30-31
 GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
+LONG_CHILD = "--long-phases"  # ... and phases 32-33
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq;
 # internlm2's training phases (9-16 and the held-out runs) run at T_LAYERS
@@ -621,7 +642,7 @@ WHISPER_TRAIN = dict(tag="train-whisper", p=2, schedules=("zb-h1", "zb-v"), seq=
 # O(1) of their norm
 LS_P, LS_CONSIST_REL_L2, LS_CONSIST_MAX_ABS = 4, 6.6e-2, 0.78
 # whisper serving (phase 27): full width and depth, p=2, phase 5's groups
-# and batch, 1500 frames, 432-token prompts and 16 new tokens: the
+# and batch, 1500 frames, 432-token prompts and NEW new tokens, within the
 # decoder's 448 positions.  Its limit by the same rule: the encoder stream
 # is the same in both prefills (its shapes do not depend on the prompt),
 # so the walk runs over the decoder's 12 sublayers (4 x self-attention,
@@ -648,6 +669,31 @@ XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=X
 # step and held to RT_PRICE_GIB
 RT_LAYERS, RT_P, RT_VOCAB, RT_PRICE_GIB = 6, 2, 65536, 70.0
 RGEMMA_TRAIN = dict(tag="train-recurrentgemma", p=RT_P, schedules=("zb-h1", "zb-h2"))
+# internlm2-1.8b trained at the JAX package's train_4k sequence (phase 32):
+# full width and depth (24 layers), p=4, m=8 microbatches of 1 x 4096 (past
+# 2 x 1024 queries: the chunked attention and its remat), zb-h1 and zb-v
+# under the graph executor, 2 steps after the capture, every batch read from
+# a token file (written from the synthetic stream's seed-0 batches) through
+# TokenFileLM and prefetch; gated as phase 21 is against the calibration
+# record measured at this seq, and its reserved peak held under the card's
+# 80 GB.  The remat's own gate: the measured residual slot per token at
+# 4096 is at most the one at 1024, where the dense path keeps its scores
+TL_P, TL_SEQ, TL_RESERVED_MAX_GB = 4, 4096, 80.0
+LONG_TRAIN = dict(tag="train-long", p=TL_P, seq=TL_SEQ, modes=("graph",))
+# ... zb-h1 and zb-v do not fit the card at the full depth: at 24 layers
+# zb-h1's first optimizer step ran out of memory with 43.05 GiB in the
+# graph's pool (the price, measured fidelity: 82.50 GiB, of which the walk
+# 41.95: residuals 21.45, W-contexts 14.72, two sink slots 5.71; the
+# optimizer's transient 12.34; H100, 700 W), zb-v's is priced 84.28 GiB.
+# So the full depth trains under 1F1B (priced 69.65 GiB: W runs beside B,
+# so it holds 4.03 GiB of W-contexts), and zb-h1 and zb-v at the deepest
+# depth that holds both placements unpadded and fits, 16 layers (priced
+# 61.96 and 62.75 GiB), each depth against a record measured there
+TL_RUNS = ((24, ("1f1b",)), (16, ("zb-h1", "zb-v")))
+# ... and its reduced twin (phase 33): reduced internlm2 (2 layers) in f32 at
+# seq 2304, p=2, zb-h1 and zb-v: cuda against cpu as phase 8, the graph
+# against the eager walk as phase 16
+TLR_P, TLR_M, TLR_B, TLR_SEQ, TLR_STEPS = 2, 2, 1, 2304, 2
 # their serving (phases 29 and 31), at phase 5's groups, batch, prompts and
 # new tokens: xlstm whole at p=3; recurrentgemma at full width and depth (38
 # layers, 10.4 B parameters; p=2 gives 42 slots, 4 of them padded, 11.3 B
@@ -714,8 +760,9 @@ L_BUDGET_MB, L_STEPS = 36864, 4
 # bit for bit but the embedding gradient (index_add_ atomics, ~1e-7
 # relative), and every later loss and grad norm, within 1e-6 relative; it
 # runs G_STEPS steps, the first T_STEPS against phase 9, and its step time is
-# the median of the G_STEPS - 1 replayed steps after the capturing one
-G_RTOL, G_STEPS = 1e-6, 3
+# the median of the G_STEPS - 1 replayed steps after the capturing one (3
+# steps until phase 32 needed the time)
+G_RTOL, G_STEPS = 1e-6, 2
 # the driver's failure replay: full width, 1 layer a stage (a 6.3 GB
 # checkpoint against the full depth's 19 GB; 2 a stage, 8.8 GB, until the
 # moe phases lengthened the script), a failure at step 3 restored
@@ -931,6 +978,8 @@ def phase_kernels(cfg_full, cfg_red):
         ("xlstm-train", T_B * XT_SEQ, xl.d_model, bf16, bf16, "bulk"),
         ("xlstm-prefill", B * PROMPT, xl.d_model, bf16, bf16, "bulk"),
         ("xlstm-decode", B, xl.d_model, bf16, bf16, "latency"),
+        # internlm2 trained at seq 4096: its blocks' and sink's rows
+        ("long-train", T_B * TL_SEQ, d, bf16, bf16, "bulk"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1179,6 +1228,7 @@ def phase_kernels_wgrad(cfg_red):
             ("enc ", T_B * n_wh), ("dec ", T_B * WT_SEQ)) for name, h, f in WGRAD_WHISPER] + [
         (name, T_B * XT_SEQ, h, f, bf16) for name, h, f in WGRAD_XLSTM] + [
         (name, n, h, f, bf16) for name, h, f in WGRAD_RGEMMA] + [
+        (f"long {name}", T_B * TL_SEQ, h, f, bf16) for name, h, f in WGRAD_MAIN] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -1194,7 +1244,7 @@ def phase_kernels_wgrad(cfg_red):
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
         if label.startswith(("gpt3", "qwen2-moe", "deepseek", "llava", "whisper", "xlstm",
-                             "recurrentgemma")):
+                             "recurrentgemma", "long")):
             # a main-path W op: bf16 on wgmma (on mma_sync where F is no
             # multiple of 8: mlstm's gates), fp32 on fma
             want_path = "fma" if dt == f32 else "mma_sync" if f % 8 else "wgmma"
@@ -1885,11 +1935,12 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 4):
+def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 2):
     """Device busy share of the serving path under torch.profiler: a
-    prefill-only run and a prefill + decode run; decode's share is their
-    difference.  The profiler adds host time to every op, so the idle share
-    it shows is an upper bound on the unprofiled run's."""
+    prefill-only run and a prefill + decode run (2 decode steps; 4 until
+    phase 32 needed the time); decode's share is their difference.  The
+    profiler adds host time to every op, so the idle share it shows is an
+    upper bound on the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
 
     runs, t_phase = {}, time.perf_counter()
@@ -1989,16 +2040,19 @@ def _gate(tag, what, one, mem, share=PLAN_OVERSHOOT_MAX):
     return over
 
 
-def _own_record(cfg, mode, p):
+def _own_record(cfg, mode, p, seq=T_SEQ, own_seq=False):
     """The calibration record that prices a gated run of ``cfg`` on ``p``
-    stages, checked to be measured at the run's own depth: its cut's, or the
-    published depth's where it has no cut."""
-    rec = cuda_temp_record(cfg.name, mode, layers=cfg.n_layers, p=p)
+    stages at ``seq``, checked to be measured at the run's own depth: its
+    cut's, or the published depth's where it has no cut; with ``own_seq``
+    at the run's own seq as well."""
+    rec = cuda_temp_record(cfg.name, mode, layers=cfg.n_layers, p=p, seq_len=seq)
     check(rec is not None, f"{cfg.name}: no calibration record under the {mode} executor")
     full = {c.name: c.n_layers for c in all_configs().values()}[cfg.name]
-    own = [(cfg.n_layers, p)] + ([None] if (cfg.n_layers, p) == (full, rec["p"]) else [])
-    check(record_key(rec) in own, f"{cfg.name} {mode}: priced with a record measured at "
-          f"{rec.get('cut') or 'the full depth'}, not at this run's {cfg.n_layers} layers at p={p}")
+    layers_at, p_at, seq_at = record_key(rec)
+    check((layers_at or full, p_at) == (cfg.n_layers, p) and (seq_at == seq or not own_seq),
+          f"{cfg.name} {mode}: priced with a record measured at "
+          f"{rec.get('cut') or 'the full depth'}, not at this run's {cfg.n_layers} layers at "
+          f"p={p}" + (f", seq {seq}" if own_seq else ""))
     return rec
 
 
@@ -2724,7 +2778,8 @@ def _gpt3_plan_vs_card(cfg, runs):
 
 def phase_launch_gpt3(cfg, runs, planners):
     """Phase 19: ``launch.train.main`` with its default ``--arch`` (zb-h1 at
-    the seq phase 18 ran it at); returns both kernels' launches."""
+    the seq and ``--layers`` phase 18 ran it at); returns both kernels'
+    launches."""
     name = "zb-h1"
     seq = runs[name]["seq"]
     out = io.StringIO()
@@ -2734,7 +2789,7 @@ def phase_launch_gpt3(cfg, runs, planners):
         with contextlib.redirect_stdout(out):
             res = train_main(["--pipe-size", str(T_P), "--m", str(T_M), "--microbatch", str(T_B),
                               "--seq-len", str(seq), "--steps", str(GPT3_STEPS), "--lr", "1e-3",
-                              "--schedule", name, "--device", DEV])
+                              "--schedule", name, "--device", DEV, "--layers", str(cfg.n_layers)])
     finally:
         print(out.getvalue(), end="")
     launches = _read_counts()
@@ -2913,9 +2968,10 @@ def phase_serve_moe(cfg, tag="serve-qwen2-moe", p=P, limit=MOE_CONSIST_REL_L2):
 
 
 def _cut_run(cfg, tr, name, mode, seq, eager=None):
-    """One schedule of phase 21, 23, 24 or 25 (``tr``: its tag, p,
-    schedules and seq) under ``mode``: the seed-0 model (relaid onto the V placement when it
-    has two chunks), the AdamW state allocated, a first walk whose gradient
+    """One schedule of phase 21, 23, 24, 25, 28, 30 or 32 (``tr``: its tag,
+    p, schedules, seq and, for phase 32, its ``data``) under ``mode``: the
+    seed-0 model (relaid onto the V placement when it has two chunks), the
+    AdamW state allocated, a first walk whose gradient
     is kept on the host (in graph mode the capture and its replay), then
     MT_STEPS driver steps from that state, the clip off; the memory window
     is ``launch/calibrate.py::measure_run``'s (the cache emptied and the
@@ -2931,6 +2987,8 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
         cfg, p, sched.n_chunks, T_M), slstm_per_step=expected_slstm_launches(
         cfg, p, sched.n_chunks, T_M))
     stacked, shared, spec, data = _init_full(cfg, sched, seq)
+    if "data" in tr:  # the run's own batches
+        data = tr["data"]()
     step, _ = build_train_step(cfg, spec, plan, sched.placement, TrainStepConfig(
         adamw=adamw.AdamWConfig(grad_clip=None), executor_mode=mode))
     torch.cuda.synchronize()
@@ -2956,7 +3014,8 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
     mem = _mem(walk)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-    if mode == "graph" and name == tr["schedules"][0]:  # one more step, profiled, its moments
+    if mode == "graph" and name == tr["schedules"][0] and tr.get("profile"):
+        # one more step, profiled, its moments
         phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
                             tag=tag.replace("train", "profile"),
                             opts=(state["opt"], state["shared_opt"]), cfg=cfg)
@@ -3028,28 +3087,33 @@ def phase_train_cut(cfg, tr=MOE_TRAIN):
     zb-v), phase 23 (deepseek-v3-671b's cut, p=2, zb-h1 and zb-h2), phase
     24 (whisper-tiny whole, p=2, zb-h1 and zb-v) and phase 25
     (llava-next-mistral-7b at full width and a depth cut, p=2, zb-h1 and
-    zb-v): both schedules of ``tr`` eager then graph, and each run's
-    reserved peak gated against its priced one-card total as phase 13
-    gates the dense runs; returns {run: both kernels' launches}.  The runs come first in
+    zb-v), 28 and 30 (xlstm, recurrentgemma): both schedules of ``tr``
+    eager then graph, and each run's reserved peak gated against its
+    priced one-card total as phase 13 gates the dense runs; returns {run:
+    both kernels' launches}.  Phase 32's ``tr`` names its ``modes`` (the
+    graph alone): its record must be its seq's, and it returns the runs
+    without the plain autograd walk.  The runs come first in
     their process (the children run this phase before their serving one)
     and in ``launch/calibrate.py``'s order, every schedule eager and then
     every one under the graph, so each run's memory window follows what
     it follows when the record is measured, as a launcher's fresh process
     has nothing before its run: after a serving phase in the same process
     deepseek's eager zb-h2 run reserved 0.48 GiB more (H100, 700 W)."""
-    tag, p, names = tr["tag"], tr["p"], tr["schedules"]
+    tag, p, names, modes = tr["tag"], tr["p"], tr["schedules"], tr.get("modes", ("eager", "graph"))
     runs = {}
-    for mode in ("eager", "graph"):
+    for mode in modes:
         for name in names:
             runs[(name, mode)] = _cut_schedule(cfg, tr, name, mode, runs.get((name, "eager")))
     for r in runs.values():
         r.pop("keyed")
     band = (0.1 * np.log(cfg.vocab), 3.0 * np.log(cfg.vocab))
-    eager = {n: runs[(n, "eager")] for n in names}
+    eager = {n: runs[(n, modes[0])] for n in names}
     first = {n: r["res"].losses[0] for n, r in eager.items()}
     for n, l0 in first.items():
         check(band[0] < l0 < band[1], f"{cfg.name} {n}: step-0 loss {l0} outside {band}")
-    if len({r["seq"] for r in eager.values()}) == 1:
+    if len(names) == 1:
+        print(f"[{tag}] step-0 loss {first} in band ({band[0]:.3f}, {band[1]:.3f}); one schedule")
+    elif len({r["seq"] for r in eager.values()}) == 1:
         check(len(set(first.values())) == 1, f"{cfg.name} step-0 losses differ: {first}")
         later = max(abs(a - b) / abs(b) for a, b in zip(eager[names[1]]["res"].losses[1:],
                                                         eager[names[0]]["res"].losses[1:]))
@@ -3060,8 +3124,8 @@ def phase_train_cut(cfg, tr=MOE_TRAIN):
     else:
         print(f"[{tag}] step-0 losses {first} in band; the schedules ran at other seq lengths, so "
               f"no cross-schedule check")
-    for mode in ("eager", "graph"):
-        rec = _own_record(cfg, mode, p)
+    for mode in modes:
+        rec = _own_record(cfg, mode, p, tr.get("seq", T_SEQ), own_seq="modes" in tr)
         print(f"[{tag}] {cfg.name} {mode}: priced with the calibration record measured at "
               f"{rec.get('cut')} on {rec['card']}")
     overs = []
@@ -3075,16 +3139,156 @@ def phase_train_cut(cfg, tr=MOE_TRAIN):
                 continue
             overs.append(_gate(tag, f"{cfg.name} {mode} {name} at seq {seq}",
                                measured.one_card_bytes(r["sched"], mode), r["mem"]))
+            if r["sched"].n_chunks == 1 and "modes" in tr:  # phase 32's remat gate reads it
+                tr["res_per_token"] = measured.slot_bytes(1)[1]["res"][0] / (T_B * seq)
             print(f"[{tag}] {cfg.name} {mode} {name}: the model fidelity's total "
                   f"{_gib(model.one_card_bytes(r['sched'], mode).total)} GiB")
         del measured
         torch.cuda.empty_cache()
     print(f"[{tag}] {cfg.name}: overshoot over {len(overs)} runs min {_gib(min(overs))} max "
           f"{_gib(max(overs))} GiB")
+    if "modes" in tr:  # phase 32: its own gates in place of the plain autograd walk
+        return runs
     t0 = time.perf_counter()
     _pipeline_vs_plain(cfg, tag, p=p, seq=tr.get("seq", T_SEQ))
     print(f"[{tag}] eager zb-h1 walk and plain autograd in {time.perf_counter() - t0:.1f}s")
     return {f"{tag}-{n}-{mode}": r["launches"] for (n, mode), r in runs.items()}
+
+
+# --------------------------------------------------------------------- #
+# phases 32-33: internlm2-1.8b at seq 4096, the chunked attention's remat
+# --------------------------------------------------------------------- #
+class _Fetched:
+    """``batch_at(k)`` over a prefetched stream, for ``TrainDriver``'s
+    ``data_at``: batches are taken from the stream in order and kept, so a
+    step may read one again (the first walk and step 0 read batch 0)."""
+
+    def __init__(self, stream):
+        self.stream, self.got = stream, []
+
+    def batch_at(self, k: int) -> dict:
+        while len(self.got) <= k:
+            self.got.append(next(self.stream))
+        return self.got[k]
+
+
+def _token_file(path, cfg, seq: int, n_batches: int) -> str:
+    """A flat int32 token file of the synthetic stream's seed-0 batches
+    0..n_batches-1 at ``seq`` (each row's tokens, then the last label), so
+    ``TokenFileLM`` at that seq reads the same tokens back."""
+    data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
+    batches = [data.batch_at(k) for k in range(n_batches)]
+    flat = np.concatenate([b["tokens"].reshape(-1) for b in batches]
+                          + [batches[-1]["labels"][-1, -1:]]).astype(np.int32)
+    flat.tofile(path)
+    files = TokenFileLM(path, DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
+    for k, b in enumerate(batches):
+        check(np.array_equal(files.batch_at(k)["tokens"], b["tokens"]),
+              f"the token file's batch {k} is not the synthetic stream's")
+    return path
+
+
+def _res_per_token(cfg, seq: int) -> float:
+    """The measured residual slot of one chunk a stage (``slot_bytes``:
+    stage 0's F of one microbatch on the card), per token, as phase 32's
+    gating planner measures it at seq 4096."""
+    prog, stage, shared, side = stage_program_factory(cfg, TL_P, T_M, T_B, seq, DEV)(1)
+    res = slot_bytes(prog, stage, shared, side)["res"][0]
+    del prog, stage, shared, side
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res / (T_B * seq)
+
+
+def phase_train_long(cfg):
+    """Phase 32: internlm2-1.8b at full width, p=4, 8 x 4096 under the
+    graph executor, each depth of TL_RUNS with its schedules (the full one
+    first, in a fresh process, as its record was measured), each run's
+    batches read from a token file through ``TokenFileLM`` and
+    ``prefetch``: phase 21's checks and gate against the record of the
+    run's depth at this seq, the reserved peak under TL_RESERVED_MAX_GB, and
+    the remat's gate on the measured residual per token; returns {run: the
+    kernels' launches}."""
+    t0 = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _token_file(str(pathlib.Path(tmp) / "tokens.bin"), cfg, TL_SEQ, MT_STEPS + 2)
+        files = TokenFileLM(path, DataConfig(global_batch=T_M * T_B, seq_len=TL_SEQ,
+                                             vocab=cfg.vocab))
+        print(f"[train-long] token file of {files.n_seq} sequences of {TL_SEQ} "
+              f"({pathlib.Path(path).stat().st_size} bytes) written in "
+              f"{time.perf_counter() - t0:.1f} s; batches through TokenFileLM and "
+              f"prefetch(depth=2)")
+        for layers, names in TL_RUNS:
+            cut = dataclasses.replace(cfg, n_layers=layers)
+            tag = f"train-long-{layers}L"
+            tr = dict(LONG_TRAIN, tag=tag, schedules=names, profile="zb-h1" in names,
+                      data=lambda: _Fetched(prefetch(iter(files), depth=2)))
+            runs = phase_train_cut(cut, tr)
+            if layers == cfg.n_layers:
+                long = tr["res_per_token"]
+            for (name, mode), r in runs.items():
+                print(f"[{tag}] {name} {mode}: reserved peak {r['reserved_gb']:.2f} GB (limit "
+                      f"{TL_RESERVED_MAX_GB} GB), allocated {r['peak_gb']:.2f} GB")
+                check(r["reserved_gb"] < TL_RESERVED_MAX_GB, f"{cut.name} {layers} layers {name} "
+                      f"{mode} at seq {TL_SEQ}: reserved {r['reserved_gb']:.2f} GB")
+                counts[f"{tag}-{name}-{mode}"] = r["launches"]
+            del runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    short = _res_per_token(cfg, T_SEQ)
+    print(f"[train-long] {cfg.n_layers} layers: measured residual slot per token (one chunk a "
+          f"stage): {short:.0f} B at seq {T_SEQ} (dense: the scores kept), {long:.0f} B at seq "
+          f"{TL_SEQ} (query blocks recomputed in B): {long / short:.3f} of it")
+    check(long <= short, f"{cfg.name}: the residual per token at seq {TL_SEQ} ({long:.0f} B) "
+          f"passes the one at seq {T_SEQ} ({short:.0f} B)")
+    return counts
+
+
+def _reduced_long_run(cfg, name, device, mode):
+    """Phase 33's run: the reduced model (seed 2) under ``name`` at seq
+    TLR_SEQ on ``device`` under ``mode``: its first walk's gradient (keyed,
+    on the host) and loss, then TLR_STEPS steps."""
+    sched = make_schedule(name, TLR_P, TLR_M)
+    spec = RunSpec(p=TLR_P, n_chunks=sched.n_chunks, microbatch=TLR_B, seq_len=TLR_SEQ, m=TLR_M)
+    step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement,
+                               TrainStepConfig(adamw.AdamWConfig(lr=3e-3), executor_mode=mode))
+    stacked, shared = (_to(t, device) for t in init_params(cfg, spec, sched.placement, seed=2,
+                                                           device="cpu"))
+    data = SyntheticLM(DataConfig(global_batch=TLR_M * TLR_B, seq_len=TLR_SEQ, vocab=cfg.vocab))
+    state = init_state(stacked, shared)
+    g, sg, loss0 = step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, device))
+    keyed = [(k, t.cpu()) for k, t in keyed_leaves((g, sg))]
+    res = train(cfg, spec, step, stacked, shared, data, TLR_STEPS, state=state)
+    return res, keyed, float(loss0)
+
+
+def phase_train_long_reduced(cfg):
+    """Phase 33: the reduced model in f32 at seq 2304 (the chunked
+    attention and its remat), p=2, zb-h1 and zb-v: the card's eager run
+    against the CPU's (losses 1e-5 relative, grad norms 1e-4, as phase 8),
+    and the card's graph against its eager walk (step-0 gradient bit for
+    bit but the embedding's, G_RTOL; step-0 loss equal; later losses and
+    grad norms within G_RTOL, as phase 16)."""
+    for name in ("zb-h1", "zb-v"):
+        cpu, _, _ = _reduced_long_run(cfg, name, "cpu", "eager")
+        eager, ref, loss_e = _reduced_long_run(cfg, name, DEV, "eager")
+        graph, got, loss_g = _reduced_long_run(cfg, name, DEV, "graph")
+        l_rel = max(abs(a - b) / abs(b) for a, b in zip(eager.losses, cpu.losses))
+        g_rel = max(abs(a - b) / abs(b) for a, b in zip(eager.grad_norms, cpu.grad_norms))
+        check(l_rel <= 1e-5 and g_rel <= 1e-4, f"{cfg.name} {name} at seq {TLR_SEQ}: cuda vs "
+              f"cpu losses {l_rel:.3g}, grad norms {g_rel:.3g}")
+        exact, embed_gap = _graph_vs_eager(f"{cfg.name} {name} seq {TLR_SEQ}", ref, got)
+        check(loss_g == loss_e, f"{name}: graph step-0 loss {loss_g!r} != eager {loss_e!r}")
+        later = max(abs(a - b) / abs(b) for a, b in zip(graph.losses + graph.grad_norms,
+                                                        eager.losses + eager.grad_norms))
+        check(later <= G_RTOL, f"{name}: graph losses/grad norms differ from eager by {later}")
+        print(f"[train-long-reduced] {cfg.name} p={TLR_P} m={TLR_M} b={TLR_B} seq={TLR_SEQ} f32 "
+              f"{name}, {TLR_STEPS} steps: losses cuda={eager.losses} cpu={cpu.losses} max "
+              f"rel_err {l_rel:.3g} (tol 1e-5), grad norms max rel_err {g_rel:.3g} (tol 1e-4); "
+              f"graph vs eager: step-0 gradient {exact} of {exact + 1} leaves bit for bit, "
+              f"embedding rel_l2 {embed_gap:.3g} (limit {G_RTOL}), step-0 loss equal, later "
+              f"max rel gap {later:.3g} (limit {G_RTOL})")
 
 
 # --------------------------------------------------------------------- #
@@ -3229,6 +3433,8 @@ def main() -> int:
     more.update(run_child(RGEMMA_CHILD, "recurrentgemma_launches"))
     print(f"[time] recurrentgemma phases (child process) done at "
           f"{time.perf_counter() - t_start:.1f}s")
+    more.update(run_child(LONG_CHILD, "long_launches"))
+    print(f"[time] seq-4096 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     print(f"[time] rmsnorm kernel phase done at {time.perf_counter() - t_start:.1f}s")
     wrows = phase_kernels_wgrad(cfg_red)
@@ -3316,7 +3522,7 @@ def gpt3_child_main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.build()  # the parent built them: this only loads the cached libraries
     t0 = time.perf_counter()
-    cfg = get_config(GPT3)
+    cfg = dataclasses.replace(get_config(GPT3), n_layers=G3_LAYERS)
     runs, planners = phase_train_gpt3(cfg)
     print(f"[time] gpt3 training phase done at {time.perf_counter() - t0:.1f}s (child)")
     counts = {f"train-gpt3-{n}": r["launches"] for n, r in runs.items()}
@@ -3442,6 +3648,25 @@ def recurrentgemma_child_main() -> int:
     return 0
 
 
+def long_child_main() -> int:
+    """Phases 32 and 33: internlm2-1.8b at seq 4096 first, in a fresh
+    process as its record was measured, then the reduced twin at 2304;
+    the last line is a JSON object with the kernels' launches of each
+    run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    t0 = time.perf_counter()
+    counts = phase_train_long(get_config(ARCH))
+    print(f"[time] train-long phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_long_reduced(get_reduced(ARCH))
+    print(f"[time] train-long-reduced phase done at {time.perf_counter() - t0:.1f}s (child)")
+    print(json.dumps({"long_launches": counts}))
+    return 0
+
+
 def graph_child_main(eager_path) -> int:
     """Phase 16 with its half of phase 13 (the graph gate), alone in this
     process, against phase 9's results read from
@@ -3536,4 +3761,6 @@ if __name__ == "__main__":
         sys.exit(graph_child_main(sys.argv[2]))
     if sys.argv[1:2] == [HELDOUT_CHILD]:
         sys.exit(heldout_child_main())
+    if sys.argv[1:2] == [LONG_CHILD]:
+        sys.exit(long_child_main())
     sys.exit(main())

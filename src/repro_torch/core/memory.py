@@ -38,6 +38,7 @@ the port calls them: ``ActivationByteModel.from_measured``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -45,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..configs import all_configs
 from .schedules.ir import OpKind, Schedule
 from .simulator import TimeModel, simulate
 
@@ -161,8 +163,10 @@ def memory_timeline(schedule: Schedule, times: Optional[TimeModel] = None, m_b: 
 # --------------------------------------------------------------------- #
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
 
-# query-block size of the JAX package's attention: sequences up to 2 * block
-# take the dense path and store the per-head (s, s) probabilities
+# query-block size of the attention in both packages: sequences up to
+# 2 * block take the dense path and store the per-head (s, s) probabilities;
+# longer ones recompute each query block's in B (``models/modules.py::remat``)
+# and store none
 _ATTN_CHUNK_BLOCK = 1024
 
 # W-context / stored-activation ratios per kind bucket, the JAX package's
@@ -205,32 +209,54 @@ def cuda_temp_records(arch_name: str, executor_mode: str, path=None) -> List[dic
     return [] if got is None else list(got) if isinstance(got, list) else [got]
 
 
-def record_key(rec: dict):
+# the tokens a microbatch of the calibration cell (``launch/calibrate.py::
+# CELL``): a record whose cut names no seq_len was measured at it
+CALIBRATION_SEQ = 1024
+
+
+def record_key(rec: dict) -> Tuple[Optional[int], int, int]:
     """What tells two records of an arch and executor mode apart: the
-    ``(layers, p)`` of the record's ``cut``, or None for a record of the
-    config's full depth."""
-    cut = rec.get("cut")
-    return None if cut is None else (cut["layers"], cut["p"])
+    ``(layers, p, seq_len)`` it was measured at, from its ``cut``; layers is
+    None for a record of the config's full depth (no cut), and seq_len the
+    cell's where the cut does not name one."""
+    cut = rec.get("cut") or {}
+    return cut.get("layers"), cut.get("p", rec["p"]), cut.get("seq_len", CALIBRATION_SEQ)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_depth(arch_name: str) -> Optional[int]:
+    """The published depth of the config named ``arch_name``, or None."""
+    return {c.name: c.n_layers for c in all_configs().values()}.get(arch_name)
 
 
 def cuda_temp_record(arch_name: str, executor_mode: str, path=None,
-                     layers: Optional[int] = None, p: Optional[int] = None) -> Optional[dict]:
-    """The record that prices a run of ``layers`` layers on ``p`` stages:
-    the one measured at that cut, else the one measured at the config's full
-    depth (no ``cut``), else the first; None when the arch has none under
-    the mode."""
+                     layers: Optional[int] = None, p: Optional[int] = None,
+                     seq_len: Optional[int] = None) -> Optional[dict]:
+    """The record that prices a run of ``layers`` layers on ``p`` stages at
+    ``seq_len`` tokens a microbatch: of the records measured at that depth
+    and p (a record with no ``cut`` is at the config's published depth),
+    the one measured at that seq_len (None: the cell's), else the one
+    measured at the cell's, or at any when the run names none; else the
+    one of the config's full depth; else the first.  None when the arch has
+    none under the mode."""
+    full = _full_depth(arch_name)
+    seq = seq_len or CALIBRATION_SEQ
+
     def rank(rec):
-        cut = rec.get("cut")
-        if cut is None:
-            return 1
-        return 0 if layers == cut["layers"] and p in (None, cut["p"]) else 2
+        at_layers, at_p, at_seq = record_key(rec)
+        if layers is not None and layers == (at_layers or full) and p in (None, at_p):
+            if at_seq == seq:
+                return 0
+            if at_seq == CALIBRATION_SEQ or seq_len is None:
+                return 1
+        return 2 if "cut" not in rec else 3
 
     return min(cuda_temp_records(arch_name, executor_mode, path), key=rank, default=None)
 
 
 def cuda_optimizer_shares(arch_name: str, executor_mode: str, path=None,
-                          layers: Optional[int] = None,
-                          p: Optional[int] = None) -> Tuple[float, float]:
+                          layers: Optional[int] = None, p: Optional[int] = None,
+                          seq_len: Optional[int] = None) -> Tuple[float, float]:
     """(overhang, reuse) of the optimizer's transient on the card, from a
     record: ``optimizer_overhang``, the largest share of the transient a run
     held above its walk's reserved peak, and ``optimizer_reuse``, the
@@ -240,7 +266,7 @@ def cuda_optimizer_shares(arch_name: str, executor_mode: str, path=None,
     record, the structural shares: (1, 0) under the graph executor (the
     walk's memory stays in the graph's pool, so nothing of it is reused),
     (0, 1) under the eager one (the larger of walk and transient)."""
-    rec = cuda_temp_record(arch_name, executor_mode, path, layers, p)
+    rec = cuda_temp_record(arch_name, executor_mode, path, layers, p, seq_len)
     if rec is None or "optimizer_overhang" not in rec:
         return (1.0, 0.0) if executor_mode == "graph" else (0.0, 1.0)
     return float(rec["optimizer_overhang"]), float(rec["optimizer_reuse"])
@@ -249,7 +275,8 @@ def cuda_optimizer_shares(arch_name: str, executor_mode: str, path=None,
 def default_cuda_temp_bytes(arch_name: str, executor_mode: str,
                             m_b_bytes: Optional[float] = None,
                             weights_bytes: Optional[float] = None, path=None,
-                            layers: Optional[int] = None, p: Optional[int] = None) -> float:
+                            layers: Optional[int] = None, p: Optional[int] = None,
+                            seq_len: Optional[int] = None) -> float:
     """Per-device share of the calibrated CUDA remainder for a planned run.
 
     A record (``launch/calibrate.py``) holds ``cuda_temp_bytes``: the most
@@ -275,10 +302,10 @@ def default_cuda_temp_bytes(arch_name: str, executor_mode: str,
     One card holds all p stages, so a device's share is the remainder
     divided by the record's ``p`` (a calibration across cards would
     measure it per device).  The record is :func:`cuda_temp_record`'s for
-    the run's ``layers`` and ``p``.  An arch or executor mode with no record
+    the run's ``layers``, ``p`` and ``seq_len``.  An arch or executor mode with no record
     prices 0, as the JAX package prices an uncalibrated arch.
     """
-    rec = cuda_temp_record(arch_name, executor_mode, path, layers, p)
+    rec = cuda_temp_record(arch_name, executor_mode, path, layers, p, seq_len)
     if rec is None:
         return 0.0
 

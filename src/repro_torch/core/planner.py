@@ -379,8 +379,9 @@ class HBMPlanner:
         self._static: Optional[List[PipelinePlan]] = None
         self._dynamic: Dict[str, PipelinePlan] = {}
         self._slots: Dict[int, Tuple] = {}
-        # which calibration record prices the run: the one of its depth
-        self._depth = dict(layers=cfg.n_layers, p=p)
+        # which calibration record prices the run: the one of its depth,
+        # stages and sequence
+        self._depth = dict(layers=cfg.n_layers, p=p, seq_len=seq_len)
 
     # -- fixed (schedule-independent) state ---------------------------- #
     def state(self, n_chunks: int) -> StateBytes:

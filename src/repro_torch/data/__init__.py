@@ -1,5 +1,5 @@
-"""Deterministic synthetic token stream (numpy)."""
+"""Deterministic token data: the synthetic stream, a token file, prefetch (numpy)."""
 
-from .pipeline import DataConfig, SyntheticLM
+from .pipeline import DataConfig, SyntheticLM, TokenFileLM, prefetch
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "TokenFileLM", "prefetch"]

@@ -52,7 +52,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..configs import get_config
-from ..core.memory import CUDA_TEMP_TABLE, ActivationByteModel, record_key
+from ..core.memory import CALIBRATION_SEQ, CUDA_TEMP_TABLE, ActivationByteModel, record_key
 from ..core.planner import EXECUTOR_MODES, HBMPlanner, stage_program_factory
 from ..core.schedules import compile_plan
 from ..data import DataConfig, SyntheticLM
@@ -135,9 +135,9 @@ def calibration_record(cfg, executor_mode: str, runs: Dict[str, Dict[str, float]
 
 def write_calibration_table(records: Sequence[dict], path=None) -> dict:
     """Merge ``records`` into the table at ``path``, keyed by arch name,
-    executor mode and depth (``core/memory.py::record_key``: a record
-    replaces the one of its own cut, and one of another depth stays beside
-    it, so an entry with more than one is a list); every other record
+    executor mode, depth, stages and sequence length (``core/memory.py::
+    record_key``: a record replaces the one of its own cut, and one of
+    another stays beside it, so an entry with more than one is a list); every other record
     stays, as the JAX writer keeps the other archs'.  Returns the table
     written."""
     path = path or CUDA_TEMP_TABLE
@@ -178,7 +178,7 @@ def measure_run(cfg, step, stacked, shared, spec, data, steps: int):
 
 # the calibration cell: the train cell of ``chip_smoke.py`` (p stages on the
 # one card, m microbatches of microbatch x seq_len tokens), its steps and seed
-CELL = dict(p=4, m=8, microbatch=1, seq_len=1024)
+CELL = dict(p=4, m=8, microbatch=1, seq_len=CALIBRATION_SEQ)
 STEPS, SEED = 3, 0
 DEVICE = "cuda"  # the card it measures on
 

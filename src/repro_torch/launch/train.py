@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_reduced
-from ..core.memory import CUDA_TEMP_TABLE, cuda_temp_record
+from ..core.memory import CUDA_TEMP_TABLE, cuda_temp_record, record_key
 from ..core.planner import stage_program_factory
 from ..core.schedules import (
     compile_plan,
@@ -112,7 +112,8 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
         print(f"per-device HBM breakdown (slots measured on the run's device, temp of the "
               f"{tcfg.executor_mode} executor):")
         print(report.chosen.breakdown.report())
-        rec = cuda_temp_record(cfg.name, tcfg.executor_mode, layers=cfg.n_layers, p=pipe_size)
+        rec = cuda_temp_record(cfg.name, tcfg.executor_mode, layers=cfg.n_layers, p=pipe_size,
+                               seq_len=seq_len)
         if rec is None:
             print(f"temp remainder 0: no calibration record for {cfg.name} under the "
                   f"{tcfg.executor_mode} executor in {CUDA_TEMP_TABLE.name} (accumulators and "
@@ -123,11 +124,14 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
                   + "".join(f", {k} {cut[k]}" for k in ("experts", "vocab", "seq_len")
                             if k in cut)
                   if cut else f"the full depth at p={rec['p']}, every schedule")
-            at_depth = (cut["layers"], cut["p"]) if cut else (depth, rec["p"])
+            layers_at, p_at, seq_at = record_key(rec)
+            at_depth = (layers_at or depth, p_at)
             print(f"temp remainder from the calibration record of {cfg.name} under the "
                   f"{tcfg.executor_mode} executor, measured at {at} ({rec.get('card')}), "
                   f"scaled to this run"
-                  + ("" if at_depth == (cfg.n_layers, pipe_size) else
+                  + (f" at seq {seq_len}: no record was measured at that sequence length"
+                     if at_depth == (cfg.n_layers, pipe_size) and seq_at != seq_len else
+                     "" if at_depth == (cfg.n_layers, pipe_size) else
                      f" of {cfg.n_layers} layers at p={pipe_size}: no record was measured at "
                      f"that depth, so the price is an extrapolation no card run has checked"))
         one_card = report.planner.one_card_bytes(sched)

@@ -205,6 +205,44 @@ def _softcap(x, cap):
 
 
 # --------------------------------------------------------------------- #
+# remat: the JAX package's jax.checkpoint
+# --------------------------------------------------------------------- #
+class _Remat(torch.autograd.Function):
+    """``fn(*tensors, *args)`` whose residuals are recomputed: F runs it
+    without a graph and saves only ``tensors``; B runs it again under grad
+    and differentiates that.  A ``Function`` rather than
+    ``torch.utils.checkpoint``: what it saves goes through the caller's
+    ``saved_tensors_hooks`` (``core/executor.py::slot_bytes`` counts a
+    residual there), and it reads no RNG state, so a CUDA graph captures it
+    as any other op."""
+
+    @staticmethod
+    def forward(ctx, fn, args, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.fn, ctx.args = fn, args
+        return fn(*tensors, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.fn(*ins, *ctx.args)
+            got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need) if n], g))
+        return (None, None, *(next(got) if n else None for n in need))
+
+
+def remat(fn: Callable, tensors: Tuple[torch.Tensor, ...], *args):
+    """``fn(*tensors, *args)`` -> one tensor.  While grad is on and a tensor
+    needs it, a training step keeps only ``tensors`` between F and B and
+    runs ``fn`` again in B (the numbers are the same); otherwise ``fn``
+    runs as it is."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Remat.apply(fn, args, *tensors)
+    return fn(*tensors, *args)
+
+
+# --------------------------------------------------------------------- #
 # attention (dense for short sequences, a loop over query blocks beyond)
 # --------------------------------------------------------------------- #
 def _attend_dense(q, k, v, softcap, window=None, q_offset=0, causal=True):
@@ -231,13 +269,13 @@ def _attend_dense(q, k, v, softcap, window=None, q_offset=0, causal=True):
 
 def _attend_chunked(q, k, v, softcap, window=None, block=1024, causal=True):
     """Query blocks one at a time, so the scores stay (block, sk) per head.
-    Serving keeps no residuals, so the JAX version's remat has no part there;
-    a training step at s > 2 * block keeps every block's scores for B."""
+    Each block goes through :func:`remat`, as the JAX version wraps it in
+    ``jax.checkpoint``: a training step keeps the q block (a view of q), k
+    and v, never a block's scores; with grad off (serving) the blocks run
+    as they are."""
     s = q.shape[1]
-    outs = [
-        _attend_dense(q[:, i : i + block], k, v, softcap, window, q_offset=i, causal=causal)
-        for i in range(0, s, block)
-    ]
+    outs = [remat(_attend_dense, (q[:, i : i + block], k, v), softcap, window, i, causal)
+            for i in range(0, s, block)]
     return torch.cat(outs, dim=1)
 
 
@@ -613,6 +651,44 @@ def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
+def _mlstm_chunks(q, k, v, f_g, i_g, chunk: int) -> torch.Tensor:
+    """The chunkwise core of :func:`mlstm_forward`: q, k, v (b, nh, s, dh)
+    in the model dtype, the gates (b, nh, s) fp32 -> (b, nh, s, dh)."""
+    b, nh, s, dh = q.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    qp, kp, vp, fp, ip = q, k, v, f_g, i_g
+    if pad:
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        fp = torch.nn.functional.pad(f_g, (0, pad), value=1.0)
+        ip = torch.nn.functional.pad(i_g, (0, pad))
+    # every chunk at once, (b, nh, nc, chunk, ...); only C's carry is a loop
+    qc, kc, vc = (t.reshape(b, nh, nc, chunk, dh).float() for t in (qp, kp, vp))
+    fc, ic = fp.reshape(b, nh, nc, chunk), ip.reshape(b, nh, nc, chunk)
+    cum = torch.cumsum(torch.log(fc + 1e-6), dim=-1)
+    total = cum[..., -1:]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    # the masked half's exponent is set to -inf before the exp, not its
+    # value to 0 after (as the JAX code does): past a few dozen positions
+    # a chunk's cum(log f) spans more than fp32's exp range, so the
+    # masked half overflows to inf and 0 * inf makes the gradient NaN
+    decay = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                                  float("-inf")))
+    att = torch.einsum("bhnqd,bhnkd->bhnqk", qc, kc) * decay * ic[..., None, :]
+    intra = torch.einsum("bhnqk,bhnkd->bhnqd", _rounded(att, q.dtype), vc)
+    qdec = _rounded(qc * torch.exp(cum)[..., None], q.dtype)
+    C = [torch.zeros((b, nh, dh, dh), dtype=q.dtype, device=q.device)]
+    if nc > 1:  # what each chunk but the last adds to the memory, and keeps of it
+        cum_, total_, ic_ = cum[:, :, :-1], total[:, :, :-1], ic[:, :, :-1]
+        kdec = _rounded(kc[:, :, :-1] * (torch.exp(total_ - cum_) * ic_)[..., None], q.dtype)
+        update = torch.einsum("bhnkd,bhnke->bhnde", kdec, vc[:, :, :-1])
+        keep = _rounded(torch.exp(total_)[..., None], q.dtype)
+        for j in range(nc - 1):  # the memory before chunk j + 1, carried in x's dtype
+            C.append((C[-1].float() * keep[:, :, j] + update[:, :, j]).to(q.dtype))
+    inter = torch.einsum("bhnqd,bhnde->bhnqe", qdec, torch.stack(C, dim=2).float())
+    return (intra + inter).to(q.dtype).reshape(b, nh, nc * chunk, dh)[:, :, :s]
+
+
 def mlstm_forward(p, x, cfg, ctx: ShardCtx, chunk: int = 128):
     """``apply_mlstm`` that also returns what a prefill needs to build the
     decode state: k (scaled by 1/sqrt(dh)) and v, (b, nh, s, dh) in x's
@@ -634,9 +710,12 @@ def mlstm_forward(p, x, cfg, ctx: ShardCtx, chunk: int = 128):
     float32 these are the JAX numbers, and so is the gradient wherever the
     JAX one is finite: the JAX decay overflows in its masked half once a
     chunk's forget gates multiply below ~1e-38 (its gradient is then NaN;
-    a full-width chunk of 128 gets there), the port's exponent is masked.  The JAX package wraps each chunk's
-    step in ``jax.checkpoint``; the port keeps its residuals instead, which
-    changes no number, only what a training step holds between F and B."""
+    a full-width chunk of 128 gets there), the port's exponent is masked.
+    The JAX package wraps each chunk's step in ``jax.checkpoint``; the port
+    wraps the whole core (:func:`_mlstm_chunks`) in :func:`remat`, so a
+    training step keeps q, k, v and the gates (less than the JAX steps'
+    inputs and carries of C) and B recomputes the rest, which changes no
+    number."""
     b, s, h = x.shape
     nh = cfg["n_heads"]
     dh = h // nh
@@ -646,39 +725,7 @@ def mlstm_forward(p, x, cfg, ctx: ShardCtx, chunk: int = 128):
     v = linear(xin, p["mv"]).reshape(b, s, nh, dh).transpose(1, 2)
     f_g = torch.sigmoid(linear(xin, p["mfg"]).float()).transpose(1, 2)
     i_g = torch.sigmoid(linear(xin, p["mig"]).float()).transpose(1, 2)
-
-    nc = -(-s // chunk)
-    pad = nc * chunk - s
-    qp, kp, vp, fp, ip = q, k, v, f_g, i_g
-    if pad:
-        qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
-        fp = torch.nn.functional.pad(f_g, (0, pad), value=1.0)
-        ip = torch.nn.functional.pad(i_g, (0, pad))
-    # every chunk at once, (b, nh, nc, chunk, ...); only C's carry is a loop
-    qc, kc, vc = (t.reshape(b, nh, nc, chunk, dh).float() for t in (qp, kp, vp))
-    fc, ic = fp.reshape(b, nh, nc, chunk), ip.reshape(b, nh, nc, chunk)
-    cum = torch.cumsum(torch.log(fc + 1e-6), dim=-1)
-    total = cum[..., -1:]
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    # the masked half's exponent is set to -inf before the exp, not its
-    # value to 0 after (as the JAX code does): past a few dozen positions
-    # a chunk's cum(log f) spans more than fp32's exp range, so the
-    # masked half overflows to inf and 0 * inf makes the gradient NaN
-    decay = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
-                                  float("-inf")))
-    att = torch.einsum("bhnqd,bhnkd->bhnqk", qc, kc) * decay * ic[..., None, :]
-    intra = torch.einsum("bhnqk,bhnkd->bhnqd", _rounded(att, x.dtype), vc)
-    qdec = _rounded(qc * torch.exp(cum)[..., None], x.dtype)
-    C = [torch.zeros((b, nh, dh, dh), dtype=x.dtype, device=x.device)]
-    if nc > 1:  # what each chunk but the last adds to the memory, and keeps of it
-        cum_, total_, ic_ = cum[:, :, :-1], total[:, :, :-1], ic[:, :, :-1]
-        kdec = _rounded(kc[:, :, :-1] * (torch.exp(total_ - cum_) * ic_)[..., None], x.dtype)
-        update = torch.einsum("bhnkd,bhnke->bhnde", kdec, vc[:, :, :-1])
-        keep = _rounded(torch.exp(total_)[..., None], x.dtype)
-        for j in range(nc - 1):  # the memory before chunk j + 1, carried in x's dtype
-            C.append((C[-1].float() * keep[:, :, j] + update[:, :, j]).to(x.dtype))
-    inter = torch.einsum("bhnqd,bhnde->bhnqe", qdec, torch.stack(C, dim=2).float())
-    out = (intra + inter).to(x.dtype).reshape(b, nh, nc * chunk, dh)[:, :, :s]
+    out = remat(_mlstm_chunks, (q, k, v, f_g, i_g), chunk)
     out = out.transpose(1, 2).reshape(b, s, h)
     return x + linear(out, p["mo"]), (k, v, f_g, i_g)
 

@@ -316,14 +316,23 @@ def test_checked_in_table_holds_both_training_configs():
         for mode in table[name]:
             recs = tmem.cuda_temp_records(name, mode)
             # one record at the published depth, and internlm2's also at the
-            # training phases' cut of chip_smoke.py, beside it
-            assert sorted(map(tmem.record_key, recs), key=str) == (
-                [(8, 4), None] if name == "internlm2-1.8b" else [None]), (name, mode)
+            # training phases' cut of chip_smoke.py, beside it, and under the
+            # graph at phase 32's seq 4096 (1F1B at the full depth, zb-h1 and
+            # zb-v at 16 layers); gpt3's under the graph at phase 18's cut
+            # (8 layers, zb-h1 and zb-v)
+            some = {("internlm2-1.8b", "graph"): [(24, 4, 4096), (16, 4, 4096)],
+                    ("gpt3_1_5b", "graph"): [(8, 4, 1024)]}.get((name, mode), [])
+            assert sorted(map(tmem.record_key, recs), key=str) == sorted(
+                ([(8, 4, 1024)] if name == "internlm2-1.8b" else []) + [(None, 4, 1024)] + some,
+                key=str), (name, mode)
             for rec in recs:
                 assert rec["executor_mode"] == mode and rec["devices"] == 1 and rec["p"] == 4
-                assert rec["tokens"] == 1024 and rec["cuda_temp_bytes"] >= 0
+                assert rec["cuda_temp_bytes"] >= 0
                 assert "H100" in rec["card"] and rec["card"].rstrip().endswith("W")
-                assert set(rec["runs"]) == set(launcher.SCHEDULES)
+                assert rec["tokens"] == tmem.record_key(rec)[2]
+                # the cell's records ran every schedule, the later cuts some
+                assert set(rec["runs"]) == set(rec["cut"]["schedules"] if tmem.record_key(rec)
+                                               in some else launcher.SCHEDULES)
 
 
 # --------------------------------------------------------------------- (h)
@@ -381,7 +390,9 @@ def test_default_cell_record_has_the_checked_in_form():
     """No cut given, no ``cut`` key: a record of the default cell has the
     keys of the checked-in ones measured there; internlm2-1.8b's records at
     its training phases' cut in ``chip_smoke.py`` (8 layers, p=4, every
-    schedule) have the same keys and the ``cut``."""
+    schedule) and, under the graph, at phase 32's seq 4096 (1F1B at the
+    full depth, zb-h1 and zb-v at 16 layers), and gpt3-1.5b's at phase
+    18's 8 layers, have the same keys and the ``cut``."""
     table = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
     cfg = get_reduced("internlm2_1_8b")
     rec = calibrate.calibration_record(
@@ -392,10 +403,15 @@ def test_default_cell_record_has_the_checked_in_form():
         for mode in table[name]:
             for old in tmem.cuda_temp_records(name, mode, tmem.CUDA_TEMP_TABLE):  # read anew
                 cut = old.pop("cut", None)
+                some = {("internlm2-1.8b", "graph"): [
+                    {"layers": 24, "p": 4, "schedules": ["1f1b"], "seq_len": 4096},
+                    {"layers": 16, "p": 4, "schedules": ["zb-h1", "zb-v"], "seq_len": 4096}],
+                    ("gpt3_1_5b", "graph"): [
+                    {"layers": 8, "p": 4, "schedules": ["zb-h1", "zb-v"]}]}.get((name, mode), [])
                 assert cut in (None, {"layers": 8, "p": 4, "schedules": list(launcher.SCHEDULES)}
-                               if name == "internlm2-1.8b" else None), (name, mode)
+                               if name == "internlm2-1.8b" else None, *some), (name, mode)
                 assert set(old) == set(rec), (name, mode)
-                assert old["shape"] == "p4_m8_b1_s1024"
+                assert old["shape"] == f"p4_m8_b1_s{(cut or {}).get('seq_len', 1024)}"
     assert calibrate.cut_config(cfg) == cfg
     with pytest.raises(ValueError, match="no routed experts"):
         calibrate.cut_config(cfg, experts=4)
@@ -486,7 +502,7 @@ def test_records_of_two_depths_stay_side_by_side(tmp_path, capsys):
     at8 = HBMPlanner(dataclasses.replace(get_reduced("internlm2_1_8b"), n_layers=8), p=4, m=8,
                      microbatch=2, seq_len=32, executor_mode="graph")
     rec8 = tmem.cuda_temp_record("internlm2-1.8b", "graph", layers=8, p=4)
-    assert tmem.record_key(rec8) == (8, 4)
+    assert tmem.record_key(rec8) == (8, 4, 1024)
     assert at8.one_card_bytes(at8.plan(math.inf).chosen.schedule).overhang == \
         rec8["optimizer_overhang"]
     launcher.main(planner_tests_launch() + ["--steps", "1", "--memory-budget-mb", "64"])

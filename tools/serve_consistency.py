@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python3 tools/serve_consistency.py [--moe | --recurrent]  # CPU, minutes
     PYTHONPATH=src python3 tools/serve_consistency.py --arch xlstm_350m 24 --seeds 10
+    PYTHONPATH=src python3 tools/serve_consistency.py --arch xlstm_350m 24 --seeds 20 \
+        --first-seed 30
 
 ``chip_smoke.py`` holds the port's full-width bf16 serving to a limit on
 the relative L2 gap between decoding token s after a prefill of s tokens and
@@ -219,7 +221,9 @@ def one_case(arch: str, n_layers: int, seed: int) -> dict:
 def main(argv=None) -> int:
     """``--moe`` runs only the moe cases, ``--recurrent`` only the recurrent
     ones, ``--arch NAME LAYERS`` one case; ``--seeds N`` seeds 0..N-1 (default
-    3)."""
+    3), from ``--first-seed K`` on when given.  Each case's summary holds
+    the paired difference of the gaps, port minus JAX, seed by seed: its
+    mean and the half-width of its 95% interval (1.96 standard errors)."""
     torch.manual_seed(0)
     dense = [(arch, n) for arch in ("internlm2_1_8b", "gemma2_2b")
              for n in (get_reduced(arch).n_layers, jax_get_config(arch).n_layers)]
@@ -229,14 +233,21 @@ def main(argv=None) -> int:
     if "--arch" in args:  # one arch at one depth: --arch NAME LAYERS
         i = args.index("--arch")
         cases = [(args[i + 1], int(args[i + 2]))]
-    seeds = range(int(args[args.index("--seeds") + 1])) if "--seeds" in args else SEEDS
+    first = int(args[args.index("--first-seed") + 1]) if "--first-seed" in args else 0
+    seeds = (range(first, first + int(args[args.index("--seeds") + 1])) if "--seeds" in args
+             else SEEDS)
     for arch, n_layers in cases:
         rows = [one_case(arch, n_layers, seed) for seed in seeds]
         for row in rows:
             print(json.dumps(row), flush=True)
+        diff = np.array([r["port_rel_l2"] - r["jax_rel_l2"] for r in rows])
         summary = dict(arch=arch, n_layers=n_layers, seeds=len(rows),
                        jax_rel_l2_mean=float(np.mean([r["jax_rel_l2"] for r in rows])),
-                       port_rel_l2_mean=float(np.mean([r["port_rel_l2"] for r in rows])))
+                       port_rel_l2_mean=float(np.mean([r["port_rel_l2"] for r in rows])),
+                       port_minus_jax_mean=float(diff.mean()),
+                       port_minus_jax_ci95=float(1.96 * diff.std(ddof=1) / np.sqrt(len(diff)))
+                       if len(diff) > 1 else float("nan"),
+                       port_larger=int((diff > 0).sum()))
         if "topk_sets" in rows[0]:
             summary.update(topk_sets=sum(r["topk_sets"] for r in rows),
                            jax_flips=sum(r["jax_flips"] for r in rows),
