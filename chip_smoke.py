@@ -54,7 +54,7 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               whisper-tiny's (384, 384), (384, 1536), (1536, 384) at the
               encoder's N = 1500 and the decoder's N = 448, on wgmma, and
               xlstm-350m's (1024, 1024) at N = 2048 on wgmma and its
-              (1024, 4) gate products on mma_sync, recurrentgemma-9b's
+              (1024, 4) gate products on thin, recurrentgemma-9b's
               (4096, 4096), (4096, 256), (4096, 12288), (12288, 4096) on
               wgmma, internlm2's four at phase 32's N = 4096 (RMSNorm:
               llava's, whisper's and xlstm's rows too, 384 and 1024 in the
@@ -62,9 +62,10 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               it adds into a clone of acc in
               place and is held against the plain version on the original,
               and a second launch on another clone must agree bit for bit;
-              its path (wgmma / mma_sync / fma) is printed per shape, and
-              for every fp32 shape the fma plan (tile, split, cluster and
-              grid sizes, N's slices) and the errors of kernel and plain
+              its path (wgmma / thin / mma_sync / fma) is printed per
+              shape, and for every fp32 and thin shape its plan (tile,
+              split, cluster and grid sizes, N's slices), for every fp32
+              one the errors of kernel and plain
               version against an fp64 sum, to which the routers are held
               at the stock 1e-5 (deepseek's against the plain version at
               WGRAD_FP32_N1024_ATOL); kernel and library are timed in
@@ -76,7 +77,8 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               bit for bit, the gradients within SLSTM_GRAD_RTOL, two
               launches bit for bit; at the training shape device ms
               beside the plain loop's and the bound (bytes, operations
-              and the 2 s-step chain).
+              and the 2 s-step chain) and the design's own byte floor
+              (the 17 arrays the pair moves).
 4. reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b, qwen2-moe-a2.7b,
               deepseek-v3-671b, llava-next-mistral-7b, whisper-tiny,
               xlstm-350m and recurrentgemma-9b
@@ -304,9 +306,10 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               a seed), p=3, 8 microbatches of 1 x 2048 (16 mLSTM chunks,
               the sLSTM kernel over 2048 steps), zb-h1 and zb-v: phase 21's
               checks and gate; 5 wgrad_accum launches a sLSTM block and 6
-              an mLSTM block (mfg and mig on mma_sync), one rmsnorm a
+              an mLSTM block (mfg and mig on thin), one rmsnorm a
               block, a forward and a backward sLSTM kernel a sLSTM block
-              and microbatch.
+              and microbatch; one zb-h1 graph step profiled: each port
+              kernel's share of the device time.
 29. serve-xlstm -- xlstm-350m whole, p=3, phase 5's groups, prompts and
               new tokens: prefill and decode ms, RMSNorm and sLSTM kernel
               launches == the structure's count (a forward a sLSTM block
@@ -443,8 +446,8 @@ LINEARS_PER_KIND = {"attn": 4, "attn_local": 4, "mla": 6, "mlp": 3, "moe": 4, "e
                     "slstm": 5, "mlstm": 6, "rglru": 5}
 # ... of which fp32, on wgrad_accum's fma path: the moe router
 FMA_LINEARS_PER_KIND = {"moe": 1}
-# ... of which bf16 and n_heads wide, on its mma_sync path where n_heads is
-# no multiple of 8 (4 in xlstm-350m): mlstm's gate products mfg and mig
+# ... of which bf16 and n_heads wide, on its thin path where n_heads is no
+# multiple of 8 (4 in xlstm-350m): mlstm's gate products mfg and mig
 HEADS_WIDE_LINEARS_PER_KIND = {"mlstm": 2}
 # sLSTM time-loop kernel launches of a slstm block and microbatch: the
 # forward in F (and in a prefill), the backward in B; a decode step runs the
@@ -536,7 +539,7 @@ WGRAD_LLAVA_FRONT = (1024, 4096)
 WGRAD_WHISPER = (("wq,wk,wv,wo", 384, 384), ("wu,wg", 384, 1536), ("wd", 1536, 384))
 # ... and of xlstm-350m's blocks at N = 2048 (every sLSTM and mLSTM product
 # is (1024, 1024) but mfg and mig, (1024, 4): bf16 rows of 8 bytes, so on
-# mma_sync), and of recurrentgemma-9b's at N = 1024 (rx, ry, ra, ri, ro and
+# thin), and of recurrentgemma-9b's at N = 1024 (rx, ry, ra, ri, ro and
 # wq, wo (4096, 4096); its one kv head's wk, wv (4096, 256); the mlp's)
 # the sLSTM loop's kernels against the plain loop on the card: h and the
 # state are the same fp32 operations in the same order (no contraction into
@@ -545,11 +548,14 @@ WGRAD_WHISPER = (("wq,wk,wv,wo", 384, 384), ("wu,wg", 384, 1536), ("wd", 1536, 3
 # step, which the chain's contraction (each step multiplies the carried
 # gradient by the forget gate, at most 1) keeps from growing
 SLSTM_GRAD_RTOL = 1e-5
-# the chain bound: a step's state waits on at least 4 dependent fp32
-# operations (f + m, the max, the subtraction and the exponential's ex2)
-# of 4 cycles each at the H100 SXM's 1.98 GHz boost clock (NVIDIA's data
-# sheet); the exponential alone takes more
-SLSTM_CHAIN_OPS, SLSTM_OP_CYCLES, H100_BOOST_HZ = 4, 4, 1.98e9
+# the chain bound: the dependent fp32 operations that carry a step's state
+# to the next, of 4 cycles each at the H100 SXM's 1.98 GHz boost clock
+# (NVIDIA's data sheet).  Forward 2: m_t = max(f_t + m_{t-1}, i_t) is an
+# add and a max, and c_t = fe c_{t-1} + ie z, n_t = fe n_{t-1} + ie a mul
+# and an add each beside it (the exponentials need m_t alone, so they run
+# ahead of the c and n chains).  Backward 4: the dm carry's sub, sub, mul,
+# add (dc and dn carry an add and a mul each beside it)
+SLSTM_CHAIN_OPS, SLSTM_OP_CYCLES, H100_BOOST_HZ = (2, 4), 4, 1.98e9
 WGRAD_XLSTM = (("xlstm si,sf,sz,sog,so,mq,mk,mv,mo", 1024, 1024), ("xlstm mfg,mig", 1024, 4))
 WGRAD_RGEMMA = (("recurrentgemma rx,ry,ra,ri,ro,wq,wo", 4096, 4096),
                 ("recurrentgemma wk,wv", 4096, 256), ("recurrentgemma wu,wg", 4096, 12288),
@@ -654,9 +660,11 @@ WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS = 2, 432, 3e-2, 0.108
 # vocab 50304), p=3: 8 layers a stage, and the V placement's 6 groups of 4
 # hold the 24 layers too (at p=2 the V placement, at p=4 both, pad 8 of 32
 # slots); m=8 microbatches of 1 x 2048, so each sequence crosses 16 mLSTM
-# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v
+# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v, the
+# zb-h1 graph step profiled (the sLSTM and thin W kernels' shares)
 XT_P, XT_SEQ = 3, 2048
-XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=XT_SEQ)
+XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=XT_SEQ,
+                   profile=True)
 # recurrentgemma-9b training (phase 30): full width (d 4096, 16 q / 1 kv
 # heads of 256, lru_width 4096, d_ff 12288, window 2048), 6 of its 38
 # layers (two periods of rglru, rglru, attn_local), p=2, m=8 of 1 x 1024,
@@ -1245,9 +1253,9 @@ def phase_kernels_wgrad(cfg_red):
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
         if label.startswith(("gpt3", "qwen2-moe", "deepseek", "llava", "whisper", "xlstm",
                              "recurrentgemma", "long")):
-            # a main-path W op: bf16 on wgmma (on mma_sync where F is no
+            # a main-path W op: bf16 on wgmma (on thin where F is no
             # multiple of 8: mlstm's gates), fp32 on fma
-            want_path = "fma" if dt == f32 else "mma_sync" if f % 8 else "wgmma"
+            want_path = "fma" if dt == f32 else "thin" if f % 8 else "wgmma"
             check(path == want_path, f"the W op {label} takes the {path} path, not {want_path}")
         ref = wgrad_accum_ref(a, g, acc)  # the plain version, on the original
         out, again = acc.clone(), acc.clone()
@@ -1259,17 +1267,18 @@ def phase_kernels_wgrad(cfg_red):
               f"wgrad_accum {label}: two launches on clones of acc differ")
         err = float((out - ref).abs().max())
         tol = atol = TOL[dt]
-        plan, exact = None, ""
+        exact = ""
+        plan = wgrad_kernel.plan_of(path, n_, h, f, sms)
+        if plan is not None:
+            print(f"[kernels] wgrad_accum {label} {path} plan: tile {plan.tile_h}x{plan.tile_f}, "
+                  f"split {plan.split} (N in slices {[plan.slice(r, n_) for r in range(plan.split)]}"
+                  f"), clusters of {plan.split}, grid {plan.grid} blocks of {plan.threads} "
+                  f"threads, {plan.smem_bytes} B shared a block")
         if dt == f32:
-            plan = wgrad_kernel.plan_fp32(n_, h, f, sms)
             ref64 = acc.double() + a.double().t() @ g.double()
             err64 = float((out - ref64).abs().max())
             exact = (f"; against an fp64 sum: kernel {err64:.3g}, "
                      f"plain {float((ref - ref64).abs().max()):.3g}")
-            print(f"[kernels] wgrad_accum {label} fp32 plan: tile {plan.tile_h}x{plan.tile_f}, "
-                  f"split {plan.split} (N in slices {[plan.slice(r, n_) for r in range(plan.split)]}"
-                  f"), clusters of {plan.split}, grid {plan.grid} blocks of {plan.threads} "
-                  f"threads, {plan.smem_bytes} B shared a block")
             if label in {name for name, _, _ in WGRAD_MOE_FP32 + WGRAD_DS_FP32}:
                 torch.testing.assert_close(out.double(), ref64, rtol=tol, atol=tol)
                 exact += f" (tol {tol})"
@@ -1292,6 +1301,7 @@ def phase_kernels_wgrad(cfg_red):
         )
         if plan is not None:
             row["plan"] = dict(tile_f=plan.tile_f, split=plan.split, grid=plan.grid)
+        if dt == f32:
             row["fp64_err"] = err64
         row["bound_ms"], row["bound_by"] = wgrad_bound_ms(n_, h, f, dt)
         rows[label] = row
@@ -1316,27 +1326,37 @@ def slstm_bound_ms(b: int, s: int, h: int):
     the two functions must move (forward: i, f, z read, h written, the final
     state written; backward: i, f, z and dh read, di, df, dz written; each
     (b, s, h) fp32 once), ~40 fp32 operations a step and channel over the
-    fp32 rate, or the chain: each channel's 2 s dependent steps, each at
-    least SLSTM_CHAIN_OPS dependent fp32 operations of SLSTM_OP_CYCLES
-    cycles at the H100's boost clock.  The chain counts as operations.
+    fp32 rate, or the chain: each channel's s dependent steps forward and s
+    backward, each SLSTM_CHAIN_OPS (forward, backward) dependent fp32
+    operations of SLSTM_OP_CYCLES cycles at the H100's boost clock.  The
+    chain counts as operations.
     Returns (ms, what bounds it, {bytes, operations, chain: ms})."""
     parts = dict(bytes=(11 * b * s * h + 3 * b * h) * 4 / HBM_BYTES_PER_S * 1e3,
                  operations=40 * b * s * h / FP32_OPS_PER_S * 1e3,
-                 chain=2 * s * SLSTM_CHAIN_OPS * SLSTM_OP_CYCLES / H100_BOOST_HZ * 1e3)
+                 chain=s * sum(SLSTM_CHAIN_OPS) * SLSTM_OP_CYCLES / H100_BOOST_HZ * 1e3)
     ms = max(parts.values())
     return ms, "bytes" if ms == parts["bytes"] else "operations", parts
 
 
-def _slstm_check(b: int, s: int, h: int, seed: int):
+def _slstm_check(b: int, s: int, h: int, seed: int, offset: int = 0):
     """The sLSTM loop's kernels against the plain loop on the card at one
     (b, s, h), forward then backward, on the same inputs: h and the final
     state bit for bit (the same fp32 operations in the same order), the
     gradients within SLSTM_GRAD_RTOL of the largest; two launches bit for
-    bit.  Returns (inputs, the plain pass, {what: (max_abs_err, largest)})."""
+    bit.  ``offset`` > 0 puts the inputs and dh that many floats into their
+    buffers, so their bases are not 16-byte aligned.  Returns (inputs, the
+    plain pass, {what: (max_abs_err, largest)})."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    i_pre, f_pre, z = ((torch.randn((b, s, h), generator=gen, device="cuda") * sc).contiguous()
+
+    def placed(t):
+        if not offset:
+            return t.contiguous()
+        buf = torch.empty(offset + t.numel(), device="cuda")
+        return buf[offset:].view(t.shape).copy_(t)
+
+    i_pre, f_pre, z = (placed(torch.randn((b, s, h), generator=gen, device="cuda") * sc)
                        for sc in (1.5, 1.5, 0.8))
-    dh = torch.randn((b, s, h), generator=gen, device="cuda")
+    dh = placed(torch.randn((b, s, h), generator=gen, device="cuda"))
 
     def kernels():
         hs, c, n, m = slstm_kernel.forward(i_pre, f_pre, z)
@@ -1351,7 +1371,7 @@ def _slstm_check(b: int, s: int, h: int, seed: int):
 
     (fwd, grads), (fwd2, grads2), (pfwd, pgrads) = kernels(), kernels(), plain()
     torch.cuda.synchronize()
-    what = f"slstm_scan at (b, s, h) = ({b}, {s}, {h})"
+    what = f"slstm_scan at (b, s, h) = ({b}, {s}, {h})" + (f", {offset} floats in" if offset else "")
     check(all(torch.equal(a, b_) for a, b_ in zip(fwd + grads, fwd2 + grads2)),
           f"{what}: two launches differ")
     check(all(torch.equal(a, b_) for a, b_ in zip(fwd, pfwd)),
@@ -1374,26 +1394,40 @@ def phase_kernels_slstm():
     path gives them (:func:`_slstm_check`): xlstm-350m's training shape
     (1, 2048, 1024) and its serving's, phase 29's prefills of PROMPT and of
     PROMPT + 1 tokens in groups of B (2, 512, 1024) and (2, 513, 1024),
-    whose steps are not a whole number of the kernels' 8-step ring.  At the
-    training shape the pair's device ms (CUDA events around a CUDA graph of
-    calls) beside the plain version's (eager: ~40 launches a step) and the
-    bound.  No PyTorch call computes the loop, so it has no library time."""
+    whose steps are not a whole number of the kernels' chunks; and, bit for
+    bit as well, the branches no main-path shape takes: h = 37 (no multiple
+    of 4: 4-byte copies, and a last block of 5 of its 8 channels), h = 36
+    (16-byte copies, a last block of 4 channels) and h = 1024 with bases
+    off 16-byte alignment (4-byte copies).  At the training shape the pair's device ms (CUDA events around a CUDA graph of
+    calls) beside the plain version's (eager: ~40 launches a step), the
+    bound, and the design's own byte floor: the forward writes c, n, m of
+    every step and the backward reads them back, 17 (b, s, h) fp32 arrays
+    once each, where the bound counts the 11 the two functions must move.
+    No PyTorch call computes the loop, so it has no library time."""
     h = get_config(XLSTM).d_model
     for seed, s in enumerate((PROMPT, PROMPT + 1), start=5):
         _slstm_check(B, s, h, seed)
+    for seed, shape in enumerate(((3, 37, 37), (2, 70, 36)), start=7):
+        _slstm_check(*shape, seed)
+    _slstm_check(B, 70, h, 9, offset=1)
     b, s = T_B, XT_SEQ
     (i_pre, f_pre, z, _), (kernels, plain), errs = _slstm_check(b, s, h, 4)
     ms = device_ms(kernels, iters=20)
     plain_ms = eager_ms(plain, iters=1, warmup=0)  # the check above ran it once
     bound, bound_by, parts = slstm_bound_ms(b, s, h)
+    floor = 17 * b * s * h * 4 / HBM_BYTES_PER_S * 1e3
     row = dict(max_abs_err=max(e for e, _ in errs.values()), ms=ms, plain_ms=plain_ms,
-               bound_ms=bound, bound_by=bound_by, chain_ms=parts["chain"], library_ms=None,
+               bound_ms=bound, bound_by=bound_by, chain_ms=parts["chain"],
+               bytes_ms=parts["bytes"], floor_ms=floor, library_ms=None,
                fwd_ms=device_ms(lambda: slstm_kernel.forward(i_pre, f_pre, z), iters=20))
-    print(f"[kernels] slstm_scan (b, s, h) = ({b}, {s}, {h}) fp32, forward + backward: device "
+    print(f"[kernels] slstm_scan (b, s, h) = ({b}, {s}, {h}) fp32, {slstm_kernel.grid(b, h)} "
+          f"blocks of {slstm_kernel.WARPS} warps, {slstm_kernel.CHANNELS} channels and "
+          f"{slstm_kernel.CHUNK}-step chunks a block, forward + backward: device "
           f"ms kernels={ms:.4f} (forward {row['fwd_ms']:.4f}) plain={plain_ms:.1f} (eager, host "
           f"included) bound={bound:.4f} ({bound_by}: "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-          + f"), kernels at {bound / ms:.1%} of it; no library call computes the loop")
+          + f"), kernels at {bound / ms:.1%} of it; the design's byte floor (17 arrays once) "
+          f"{floor:.4f}, kernels at {floor / ms:.1%} of it; no library call computes the loop")
     del i_pre, f_pre, z, kernels, plain
     torch.cuda.empty_cache()
     return row
@@ -1461,7 +1495,7 @@ def expected_fma_launches(cfg, p, n_chunks, m):
 def expected_narrow_launches(cfg, p, n_chunks, m):
     """Of those wgrad_accum launches, the bf16 ones n_heads wide where
     n_heads is no multiple of 8 (mlstm's mfg and mig), which take the
-    mma_sync path."""
+    thin path."""
     if cfg.n_heads % 8 == 0:
         return 0
     return m * p * n_chunks * _per_group(cfg, p, n_chunks, HEADS_WIDE_LINEARS_PER_KIND)
@@ -1517,18 +1551,18 @@ def _check_counts(what, launches, want_per_step, n_steps, extra=(0, 0), fma_per_
     """The kernels' launches over ``n_steps`` training steps (plus ``extra``
     outside them) equal the counts the port's structure implies, every bf16
     W op on the wgmma path but the ``narrow_per_step`` ones n_heads wide
-    (mlstm's gates, on mma_sync) and the ``fma_per_step`` fp32 ones (the moe
+    (mlstm's gates, on thin) and the ``fma_per_step`` fp32 ones (the moe
     routers) on fma; the sLSTM kernel's ``slstm_per_step`` (by kernel; none
     by default)."""
     want = tuple(n_steps * n + e for n, e in zip(want_per_step, extra))
     check(launches[:2] == want, f"{what}: (wgrad_accum, rmsnorm) launches {launches[:2]} != "
           f"{want} implied by the port's structure")
     fma, narrow = n_steps * fma_per_step, n_steps * narrow_per_step
-    want_paths = {k: {"wgmma": want[0] - fma - narrow, "fma": fma, "mma_sync": narrow}.get(k, 0)
+    want_paths = {k: {"wgmma": want[0] - fma - narrow, "fma": fma, "thin": narrow}.get(k, 0)
                   for k in wgrad_kernel.PATHS}
     check(launches[2] == want_paths, f"{what}: wgrad_accum launches by path {launches[2]} != "
           f"{want_paths}: every bf16 W op of the training step should take the wgmma path but "
-          f"the n_heads-wide ones (mma_sync), every fp32 one (a moe router) fma")
+          f"the n_heads-wide ones (thin), every fp32 one (a moe router) fma")
     want_sl = {k: n_steps * (slstm_per_step or {}).get(k, 0) for k in slstm_kernel.PATHS}
     check(launches[4] == want_sl, f"{what}: sLSTM kernel launches {launches[4]} != {want_sl} "
           f"(a forward and a backward a slstm block and microbatch)")
@@ -1903,9 +1937,23 @@ def phase_profile_train(name, plan, state, tag="profile-train", opts=None, cfg=N
           f"activities; wgrad_accum kernels {wg / 1e3:.1f} ms = {wg / total:.1%} of device time")
     for kernel, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[{tag}] {us / total:6.1%} {us / 1e3:9.2f} ms {n_by_name[kernel]:6d}x  {kernel[:100]}")
+    shares = []
+    for label, key in PORT_KERNELS.items():
+        us = sum(v for k, v in by_name.items() if key in k)
+        n = sum(c for k, c in n_by_name.items() if key in k)
+        if n:
+            shares.append(f"{label} {us / 1e3:.2f} ms in {n} launches = {us / total:.2%}")
+    print(f"[{tag}] {name}: the port's kernels' shares of device time: " + "; ".join(shares))
     print(f"[{tag}] {name}: profiled step and its reading took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return n_by_name
+
+
+# the port's hand-written kernels by path, as the profiler names them
+PORT_KERNELS = {"wgrad_accum wgmma": "wgrad_wgmma_kernel", "wgrad_accum thin": "wgrad_thin_kernel",
+                "wgrad_accum fma": "wgrad_f32_kernel", "wgrad_accum mma_sync": "wgrad_bf16_kernel",
+                "rmsnorm": "rmsnorm_", "slstm_scan fwd": "slstm_fwd_kernel",
+                "slstm_scan bwd": "slstm_bwd_kernel"}
 
 
 def _profile_events(prof):
@@ -3056,7 +3104,7 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
           f"init; {capture}first walk {first_s:.2f} s; ms_per_step median={med * 1e3:.1f} "
           f"all={[round(x * 1e3, 1) for x in res.step_s]} tokens_per_s={tokens / med:.0f}; peak GB "
           f"allocated={peak_gb:.2f} reserved={reserved_gb:.2f}; launches a step wgrad_accum="
-          f"{want[0]} (fma {fma}, mma_sync {kw['narrow_per_step']}) rmsnorm={want[1]} sLSTM "
+          f"{want[0]} (fma {fma}, thin {kw['narrow_per_step']}) rmsnorm={want[1]} sLSTM "
           f"kernel={kw['slstm_per_step']}, by path {counted[2]} {counted[3]} {counted[4]} over "
           f"{'the first walk and the steps' if mode == 'eager' else 'the warm-up and captured walks'}; "
           f"losses {res.losses} grad_norms {res.grad_norms}{gap}")
@@ -3505,6 +3553,7 @@ def main() -> int:
                     "none: port-only, the lax.scan of src/repro/models/modules.py:500 "
                     "(apply_slstm)", sum(slstm_by_run.values()), slstm_by_run, srow,
                     launches_by_kernel_path=slstm_by_path, chain_ms=srow["chain_ms"],
+                    bytes_ms=srow["bytes_ms"], floor_ms=srow["floor_ms"],
                     fwd_ms=srow["fwd_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

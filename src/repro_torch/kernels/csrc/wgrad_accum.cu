@@ -23,7 +23,7 @@
 // traffic at its floor (one read, one write) with device memory busy while
 // the products run.
 //
-// Three paths, chosen by shape in the wrapper (kernels/wgrad_accum.py::
+// Four paths, chosen by shape in the wrapper (kernels/wgrad_accum.py::
 // plan_launch; a dispatch by shape, not a fallback: a launch that fails
 // raises):
 //  * "wgmma" -- bfloat16 with H % 8 == 0, F % 8 == 0 and 16-byte aligned
@@ -64,6 +64,34 @@
 //    training shape with this epilogue, and an L2 prefetch of acc ahead of
 //    the reduces slowed it, so the tile is 128 x 128 and nothing is
 //    prefetched.
+//  * "thin" -- bfloat16 with F <= 16 and F % 8 != 0, H % 8 == 0 and a
+//    16-byte aligned a (xlstm's mLSTM gate products mfg and mig: a (2048,
+//    1024), g (2048, 4), acc (1024, 4)).  Bound: 2 N H F = 16.8 MFLOP
+//    against N H 2 = 4.2 MB of a, so a's bytes bound it (1.3 us at 3.35
+//    TB/s): the whole of a has to be in flight across the card at once.
+//    The mma_sync path took 135 us there (8 blocks of 128 x 128 tiles, 97%
+//    of each tile padding, scalar loads of a, each block walking all of N).
+//    This design (kernels/wgrad_accum.py::plan_thin fixes its numbers from
+//    (N, H, F, SMs) alone):
+//      - a block owns kThinTileH = 64 of H's columns (128 bytes of each row
+//        of a, one line), its threads kThinTileH / kThinCols = 8 across a
+//        row, each 8 columns as one 16-byte load, and kThinBK = 32 rows of
+//        N a step; a thread holds its 8 x F outputs in fp32 registers (F
+//        padded to 4, 8 or 16, the template width; the padding's g is 0);
+//      - g's rows (8 bytes at F = 4) are read straight from L1/L2 by the 8
+//        threads of a row, a broadcast;
+//      - N is split over a thread-block cluster of up to 8 blocks, as the
+//        fma path's plan splits it (the same rule and the same slices), so
+//        xlstm's (1024, 4) runs as 16 tiles x 8 = 128 blocks; each thread
+//        issues the loads of kThinUnroll steps (8 rows of a and g) before
+//        it multiplies any, so at N = 2048 all of a is requested at once;
+//      - the reduction, in a fixed order and without atomics: the 4 rows a
+//        warp holds are summed by a fixed xor-shuffle tree (fp32 addition
+//        commutes exactly, so every lane holds the same bits), the 8 warps'
+//        partials in warp order through shared memory, then the cluster's
+//        blocks in rank order through distributed shared memory
+//        (cluster_sum4, the fma path's reduction), and block q adds its
+//        share of the tile into acc once.  Two launches agree bit for bit.
 //  * "mma_sync" -- other bfloat16 shapes: the pre-Hopper wmma API (mma.sync
 //    16x16x16 bf16 fragments, fp32 accumulators), one 128 x 128 tile a
 //    block with 8 warps of 64 x 32, 32-row slices of a and g through a
@@ -110,13 +138,13 @@
 //        copies move the same numbers in the same order), and an output
 //        sums runs of N / split products (128 at the routers) rather than
 //        one of 1024.
-//  The mma_sync and fma paths read acc[o] and write acc[o] from the same
-//  thread, so acc is not declared __restrict__ anywhere.
+//  The thin, mma_sync and fma paths read acc[o] and write acc[o] from the
+//  same thread, so acc is not declared __restrict__ anywhere.
 //
 // Plain C interface, bound with ctypes: the wrapper passes raw pointers,
-// the shape, the path code (0 = fma, 1 = mma_sync, 2 = wgmma), the fp32
-// plan's tile width and split (ignored by the other paths) and the CUDA
-// stream.  It returns
+// the shape, the path code (0 = fma, 1 = mma_sync, 2 = wgmma, 3 = thin),
+// the fp32 or thin plan's tile width and split (ignored by the other
+// paths) and the CUDA stream.  It returns
 // cudaGetLastError()'s code, or -1 when the driver has no
 // cuTensorMapEncodeTiled, or -2 when the driver refuses a tensor map; the
 // wrapper raises on anything but 0.  cuTensorMapEncodeTiled lives in the
@@ -584,6 +612,29 @@ __device__ __forceinline__ void f32_load_rows(const float* __restrict__ src, int
   }
 }
 
+// The sum over a cluster's `split` blocks of the float4 at `off` in each
+// block's `part` (shared memory), in rank order 0 .. split-1, every peer's
+// load in flight at once: the fixed order that makes two launches agree
+// bit for bit (the fma and thin paths' reduction).
+__device__ __forceinline__ float4 cluster_sum4(cg::cluster_group& cluster, float* part, int off,
+                                               int split) {
+  float4 p[kF32MaxSplit];
+#pragma unroll
+  for (int q = 0; q < kF32MaxSplit; ++q)
+    if (q < split) p[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) + off);
+  float4 s = p[0];
+#pragma unroll
+  for (int q = 1; q < kF32MaxSplit; ++q) {
+    if (q < split) {
+      s.x += p[q].x;
+      s.y += p[q].y;
+      s.z += p[q].z;
+      s.w += p[q].w;
+    }
+  }
+  return s;
+}
+
 // One launch: grid = tiles x split blocks, clusters of split consecutive
 // blocks (the cluster dimension set at launch), F-tiles fastest.
 template <int BN, bool kVec>
@@ -677,21 +728,7 @@ wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ g, float
   for (int e = threadIdx.x; e < rows * (BN / 4); e += T::kThreads) {
     const int r = rank * rows + e / (BN / 4);
     const int col = (e % (BN / 4)) * 4;
-    const int off = r * BN + col;
-    float4 p[kF32MaxSplit];  // every peer's load in flight at once
-#pragma unroll
-    for (int q = 0; q < kF32MaxSplit; ++q)
-      if (q < split) p[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) + off);
-    float4 s = p[0];
-#pragma unroll
-    for (int q = 1; q < kF32MaxSplit; ++q) {
-      if (q < split) {
-        s.x += p[q].x;
-        s.y += p[q].y;
-        s.z += p[q].z;
-        s.w += p[q].w;
-      }
-    }
+    const float4 s = cluster_sum4(cluster, part, r * BN + col, split);
     const int gh = h0 + r, gf = f0 + col;
     if (gh >= h || gf >= f) continue;
     float* o = acc + (size_t)gh * f + gf;
@@ -707,6 +744,137 @@ wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ g, float
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (gf + j < f) o[j] = o[j] + sv[j];
+    }
+  }
+  cluster.sync();  // no block exits while a peer may still read its shared memory
+}
+
+// ---------------------------------------------------------------------- //
+// bfloat16, thin path: F <= 16 and not a multiple of 8, N split across a
+// thread-block cluster (measured by tools/wgrad_thin_variants.py)
+// ---------------------------------------------------------------------- //
+constexpr int kThinTileH = 64;    // H columns a block (acc rows of a tile)
+constexpr int kThinCols = 8;      // H columns a thread: one 16-byte load of a row of a
+constexpr int kThinThreads = 256;
+constexpr int kThinTX = kThinTileH / kThinCols;  // threads across a row of the tile
+constexpr int kThinBK = kThinThreads / kThinTX;  // rows of N a step: one a thread
+constexpr int kThinUnroll = 8;    // steps whose loads a thread issues before it multiplies
+constexpr int kThinMaxF = 16;     // the widest F the path takes
+static_assert(kThinCols == 8, "a thread loads 16 bytes of a row");
+static_assert(kThinTX <= 32 && 32 % kThinTX == 0, "a warp holds whole rows of the tile");
+
+template <int kC>
+struct ThinLoad;  // kC bf16 of a row: one aligned vector load, widened to fp32
+template <>
+struct ThinLoad<8> {
+  using V = uint4;
+  __device__ static void widen(const V& v, float* x) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x[2 * q] = __uint_as_float(w[q] << 16);
+      x[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+    }
+  }
+};
+
+// One launch: grid = tiles x split blocks, clusters of split consecutive
+// blocks; FP = F padded to 4, 8 or 16.  The block's slice of N is cut as
+// the fma path cuts it (Fp32Plan.slice / ThinPlan.slice in the wrapper).
+template <int FP>
+__global__ void __launch_bounds__(kThinThreads)
+wgrad_thin_kernel(const bf16* __restrict__ a, const bf16* __restrict__ g, float* acc, int n,
+                  int h, int f) {
+  using L = ThinLoad<kThinCols>;
+  constexpr int kWarps = kThinThreads / 32;
+  constexpr int kTile = kThinTileH * FP;  // floats of the tile, [column of H][FP]
+  constexpr int kUnroll = kThinUnroll * 4 / FP > 0 ? kThinUnroll * 4 / FP : 1;  // registers
+  __shared__ __align__(16) float warp_part[kWarps][kTile];
+  __shared__ __align__(16) float part[kTile];
+  auto cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h0 = (blockIdx.x / split) * kThinTileH;
+  const int k_steps = (n - 1) / kThinBK + 1;
+  const int s0 = static_cast<int>(static_cast<long long>(rank) * k_steps / split);
+  const int s1 = static_cast<int>(static_cast<long long>(rank + 1) * k_steps / split);
+  const int tx = threadIdx.x % kThinTX, ty = threadIdx.x / kThinTX;
+  const int col = h0 + tx * kThinCols;  // h % kThinCols == 0: wholly inside or outside
+  const bool col_in = col < h;
+
+  float c[kThinCols][FP];
+#pragma unroll
+  for (int i = 0; i < kThinCols; ++i)
+#pragma unroll
+    for (int j = 0; j < FP; ++j) c[i][j] = 0.f;
+  for (int t = s0; t < s1; t += kUnroll) {
+    typename L::V av[kUnroll];
+    float gv[kUnroll][FP];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {  // every load of kUnroll steps in flight at once
+      const int row = (t + u) * kThinBK + ty;
+      const bool in = t + u < s1 && row < n;
+      av[u] = in && col_in ? __ldg(reinterpret_cast<const typename L::V*>(a + (size_t)row * h + col))
+                           : typename L::V{};
+#pragma unroll
+      for (int j = 0; j < FP; ++j)
+        gv[u][j] = in && j < f ? __bfloat162float(g[(size_t)row * f + j]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float x[kThinCols];
+      L::widen(av[u], x);
+#pragma unroll
+      for (int i = 0; i < kThinCols; ++i)
+#pragma unroll
+        for (int j = 0; j < FP; ++j) c[i][j] = fmaf(x[i], gv[u][j], c[i][j]);
+    }
+  }
+
+  // the warp's rows (lanes tx, tx + kThinTX, ...): a fixed xor tree
+#pragma unroll
+  for (int i = 0; i < kThinCols; ++i)
+#pragma unroll
+    for (int j = 0; j < FP; ++j)
+#pragma unroll
+      for (int o = kThinTX; o < 32; o *= 2) c[i][j] += __shfl_xor_sync(0xffffffffu, c[i][j], o);
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 < kThinTX) {
+#pragma unroll
+    for (int i = 0; i < kThinCols; ++i)
+#pragma unroll
+      for (int j = 0; j < FP; j += 4)
+        *reinterpret_cast<float4*>(&warp_part[warp][(tx * kThinCols + i) * FP + j]) =
+            make_float4(c[i][j], c[i][j + 1], c[i][j + 2], c[i][j + 3]);
+  }
+  __syncthreads();
+  // the block's partial: the warps in order
+  for (int e = threadIdx.x; e < kTile / 4; e += kThinThreads) {
+    float4 s = *reinterpret_cast<const float4*>(&warp_part[0][4 * e]);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 p = *reinterpret_cast<const float4*>(&warp_part[w][4 * e]);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    *reinterpret_cast<float4*>(&part[4 * e]) = s;
+  }
+  cluster.sync();  // every partial of the cluster is written and visible
+  // block `rank` sums its share of the tile over the cluster, in rank
+  // order, and adds it into acc once
+  const int share = kTile / 4 / split;
+  for (int e = rank * share + threadIdx.x; e < (rank + 1) * share; e += kThinThreads) {
+    const float4 s = cluster_sum4(cluster, part, 4 * e, split);
+    const int gh = h0 + (4 * e) / FP, j0 = (4 * e) % FP;
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (gh < h && j0 + q < f) {
+        float* o = acc + (size_t)gh * f + j0 + q;
+        *o = *o + sv[q];
+      }
     }
   }
   cluster.sync();  // no block exits while a peer may still read its shared memory
@@ -785,15 +953,16 @@ int launch_wgmma(const void* a, const void* g, float* acc, int n, int h, int f, 
   return (int)cudaGetLastError();
 }
 
-// One fp32 launch: clusters of `split` blocks, tiles x split blocks.
-template <int BN, bool kVec>
-cudaError_t launch_f32_as(const float* a, const float* g, float* acc, int n, int h, int f,
-                          int split, long long tiles, cudaStream_t s) {
-  using T = F32Tile<BN>;
+// One launch of tiles x split blocks in clusters of `split` consecutive
+// blocks (the fma and thin paths).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), long long tiles, int split, int threads,
+                            int smem, cudaStream_t s, Args... args) {
+  if (tiles * split > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tiles * split));
-  cfg.blockDim = dim3(T::kThreads);
-  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -802,7 +971,16 @@ cudaError_t launch_f32_as(const float* a, const float* g, float* acc, int n, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, wgrad_f32_kernel<BN, kVec>, a, g, acc, n, h, f);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// One fp32 launch: clusters of `split` blocks, tiles x split blocks.
+template <int BN, bool kVec>
+cudaError_t launch_f32_as(const float* a, const float* g, float* acc, int n, int h, int f,
+                          int split, long long tiles, cudaStream_t s) {
+  using T = F32Tile<BN>;
+  return launch_clusters(wgrad_f32_kernel<BN, kVec>, tiles, split, T::kThreads, T::kSmemBytes, s,
+                         a, g, acc, n, h, f);
 }
 
 template <int BN, bool kVec>
@@ -836,7 +1014,6 @@ int launch_f32(const float* a, const float* g, float* acc, int n, int h, int f, 
   }
   const int bm = kF32TileHs[f32_width_index(tile_f)];
   const long long tiles = ((h + bm - 1LL) / bm) * ((f + tile_f - 1LL) / tile_f);
-  if (tiles * split > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const bool vec = h % 4 == 0 && f % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(acc) % 16 == 0;
@@ -851,6 +1028,25 @@ int launch_f32(const float* a, const float* g, float* acc, int n, int h, int f, 
     case 256: ce = launch_f32_as<128, false>(a, g, acc, n, h, f, split, tiles, s); break;
     default: return (int)cudaErrorInvalidValue;  // a tile width the kernel was not built for
   }
+  if (ce != cudaSuccess) return (int)ce;
+  return (int)cudaGetLastError();
+}
+
+// The thin path at the wrapper's plan (fp = F padded to 4, 8 or 16; split).
+int launch_thin(const bf16* a, const bf16* g, float* acc, int n, int h, int f, int fp, int split,
+                cudaStream_t s) {
+  if (split != 1 && split != 2 && split != 4 && split != kF32MaxSplit)
+    return (int)cudaErrorInvalidValue;
+  if (f > kThinMaxF || f % 8 == 0 || h % kThinCols != 0 || f > fp ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(const bf16*, const bf16*, float*, int, int, int) =
+      fp == 4 ? wgrad_thin_kernel<4> : fp == 8 ? wgrad_thin_kernel<8>
+                                     : fp == 16 ? wgrad_thin_kernel<16> : nullptr;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;  // a width not built
+  const long long tiles = (h + kThinTileH - 1LL) / kThinTileH;
+  const cudaError_t ce = launch_clusters(kernel, tiles, split, kThinThreads, 0, s, a, g, acc, n,
+                                         h, f);
   if (ce != cudaSuccess) return (int)ce;
   return (int)cudaGetLastError();
 }
@@ -880,6 +1076,8 @@ extern "C" int wgrad_accum(const void* a, const void* g, void* acc, long long n,
       wgrad_bf16_kernel<false><<<grid, kThreads, 0, s>>>(ab, gb, accf, ni, hi, fi);
     return (int)cudaGetLastError();
   }
+  if (path == 3)  // thin
+    return launch_thin(ab, gb, accf, ni, hi, fi, tile_f, split, s);
   if (path == 2) {  // wgmma: TMA wants 16-byte aligned bases and row pitches
     if (h % 8 != 0 || f % 8 != 0 || !aligned || reinterpret_cast<uintptr_t>(acc) % 16 != 0)
       return (int)cudaErrorInvalidValue;

@@ -11,6 +11,13 @@ last step's (c, n, m) is what a prefill keeps; the backward kernel
 CUDA tensors only and count each launch in the module-level integer
 ``launches`` and, per kernel, in ``launches_by_path``; a launch that fails
 raises.  The plain version is ``kernels/ref.py::slstm_scan_ref``.
+
+The kernels run a block for each ``CHANNELS`` channels of a batch row,
+the steps in chunks of ``CHUNK`` through a ring of ``FWD_RING`` /
+``BWD_RING`` chunks in shared memory, with two warps on the loop-carried
+chains and the rest of the block's ``WARPS`` warps on everything else (the
+note in the source); these constants are the source's, and :func:`grid`
+is its launch (``tools/slstm_variants.py`` times other values).
 """
 
 from __future__ import annotations
@@ -22,12 +29,25 @@ import torch
 
 from . import build
 
-__all__ = ["SLSTMScan", "check_args", "forward", "backward", "launches", "launches_by_path",
-           "PATHS"]
+__all__ = ["SLSTMScan", "check_args", "forward", "backward", "grid", "launches",
+           "launches_by_path", "PATHS", "CHANNELS", "CHUNK", "FWD_RING", "BWD_RING", "WARPS"]
 
 PATHS = ("fwd", "bwd")
 launches = 0  # kernel launches since the caller last set it to 0
 launches_by_path = {p: 0 for p in PATHS}  # the same, per kernel
+
+# The kernels' layout; csrc/slstm_scan.cu holds the same numbers.
+CHANNELS = 8   # channels a block: 32 bytes of a step of each array
+CHUNK = 64     # steps a chunk: one tick of the block's pipeline
+FWD_RING = 12  # chunk slots of the forward's ring in shared memory
+BWD_RING = 8   # ... and of the backward's
+WARPS = 16     # warps a block: two chains, two groups of workers
+
+
+def grid(b: int, h: int) -> int:
+    """Blocks of a launch at (b, s, h): one each ``CHANNELS`` channels of a
+    batch row."""
+    return b * -(-h // CHANNELS)
 
 
 def check_args(i_pre: torch.Tensor, f_pre: torch.Tensor, z: torch.Tensor) -> None:

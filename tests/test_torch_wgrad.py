@@ -16,14 +16,19 @@ JAX package.
   4e-6 -- is held to the Pallas kernel at 2e-5 in float32.
 * ``ops.wgrad_accum`` adds into its accumulator in place and returns it.
 * The wrapper refuses what the CUDA kernel would refuse, on the CPU too, and
-  ``plan_launch`` picks the kernel path (wgmma / mma_sync / fma) by shape,
-  dtype and alignment, without a card.
+  ``plan_launch`` picks the kernel path (wgmma / thin / mma_sync / fma) by
+  shape, dtype and alignment, without a card: xlstm's mLSTM gate products
+  (F = 4) take ``thin`` in bf16 and ``fma`` in the reduced f32 models.
 * ``plan_fp32``, the fp32 path's launch plan, at the routers' shapes, the
   square fp32 shape, the reduced model's and a ragged one, on 132 SMs: the
   tile width follows F, the split is 1, 2, 4 or 8 (1 where the tiles fill
   the card), the slices of N cover it once, the grid, block and shared
   memory stay within CUDA's limits, the plan reads no address, and its
   constants are those compiled into ``csrc/wgrad_accum.cu``.
+* ``plan_thin``, the thin path's plan, at xlstm's gate shapes (N = 2048 and
+  1024) and two ragged ones, alike: F padded to 4, 8 or 16, the fma plan's
+  split rule, N's slices covered once, CUDA's grid, cluster and static
+  shared-memory limits, no address read, constants = the .cu's.
 * The RMSNorm ``autograd.Function`` backward against the JAX ``_rms_bwd``
   and against ``jax.grad`` of ``modules.rmsnorm`` (f32, 1e-5: one rsqrt and
   a few sums in another order).
@@ -61,7 +66,8 @@ WGRAD_SHAPES = [
     (128, 128, 512, 128, 128, 128),
     (1024, 128, 256, 512, 128, 128),
 ]
-RAGGED = [(32, 48, 96), (32, 96, 48), (77, 129, 257), (1, 3, 5)]
+RAGGED = [(32, 48, 96), (32, 96, 48), (77, 129, 257), (1, 3, 5),
+          (2048, 1024, 4), (77, 136, 5)]  # the last two: the thin path's shapes
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PALLAS_F32_TOL = 2e-5  # the JAX oracle's own distance to its Pallas kernel (see above)
 
@@ -128,6 +134,17 @@ def test_wgrad_accumulates_in_place():
         (1024, 2048, 2048, torch.bfloat16, (0, 0, 4), "mma_sync"),  # acc misaligned
         (1024, 2048, 2048, torch.float32, (0, 0, 0), "fma"),
         (32, 48, 96, torch.float32, (4, 4, 4), "fma"),
+        # xlstm's mLSTM gate products mfg, mig: F = n_heads = 4
+        (2048, 1024, 4, torch.bfloat16, (0, 0, 0), "thin"),
+        (1024, 1024, 4, torch.bfloat16, (0, 0, 0), "thin"),
+        (2048, 1024, 4, torch.bfloat16, (0, 2, 4), "thin"),  # g, acc alignment not needed
+        (2048, 1024, 4, torch.float32, (0, 0, 0), "fma"),  # the reduced f32 models
+        (1000, 200, 12, torch.bfloat16, (0, 0, 0), "thin"),
+        (77, 136, 5, torch.bfloat16, (0, 0, 0), "thin"),
+        (2048, 1024, 4, torch.bfloat16, (2, 0, 0), "mma_sync"),  # a misaligned
+        (2048, 1020, 4, torch.bfloat16, (0, 0, 0), "mma_sync"),  # H % 8 != 0
+        (2048, 1024, 16, torch.bfloat16, (0, 0, 0), "wgmma"),  # F % 8 == 0
+        (2048, 1024, 20, torch.bfloat16, (0, 0, 0), "mma_sync"),  # wider than the thin path
     ],
 )
 def test_plan_launch_picks_path_and_tile(n, h, f, dtype, offsets, want):
@@ -268,6 +285,86 @@ def test_plan_fp32_constants_match_the_kernel_source():
         assert f"launch_f32_as<{tile_f}, true>" in src and f"launch_f32_as<{tile_f}, false>" in src
 
 
+# (n, h, f) of the thin path's shapes, and F padded
+THIN_SHAPES = {
+    "xlstm mfg,mig": ((2048, 1024, 4), 4),
+    "N=1024": ((1024, 1024, 4), 4),
+    "F=12": ((1000, 200, 12), 16),
+    "F=5": ((77, 136, 5), 8),
+}
+
+
+@pytest.mark.parametrize("label", list(THIN_SHAPES))
+def test_plan_thin_tile_and_split(label):
+    (n, h, f), want = THIN_SHAPES[label]
+    plan = twg.plan_thin(n, h, f, SMS)
+    assert (plan.tile_h, plan.tile_f, plan.bk) == (twg.THIN_TILE_H, want, twg.THIN_BK)
+    assert plan.tiles == -(-h // twg.THIN_TILE_H) and plan.k_steps == -(-n // twg.THIN_BK)
+    # the fma plan's rule: 1 where the tiles fill the card, else as many
+    # slices as the steps allow, up to 8
+    assert plan.split == (1 if plan.tiles >= SMS
+                          else min(8, 1 << (plan.k_steps.bit_length() - 1)))
+    want_split = {"xlstm mfg,mig": 8, "N=1024": 8, "F=12": 8, "F=5": 2}[label]
+    assert plan.split == want_split
+    if label == "xlstm mfg,mig":  # 16 tiles x 8: all but 4 of the SMs, one block each
+        assert (plan.tiles, plan.grid) == (16, 128)
+
+
+@pytest.mark.parametrize("label", list(THIN_SHAPES))
+def test_plan_thin_slices_cover_n_once(label):
+    (n, h, f), _ = THIN_SHAPES[label]
+    plan = twg.plan_thin(n, h, f, SMS)
+    slices = [plan.slice(r, n) for r in range(plan.split)]
+    assert slices[0][0] == 0 and slices[-1][1] == n
+    for (_, e0), (b1, _) in zip(slices, slices[1:]):
+        assert e0 == b1
+    for b, e in slices:
+        assert b < e and b % plan.bk == 0
+    if label == "xlstm mfg,mig":
+        assert slices == [(256 * r, 256 * (r + 1)) for r in range(8)]
+
+
+@pytest.mark.parametrize("label", list(THIN_SHAPES))
+def test_plan_thin_launch_stays_within_cuda_limits(label):
+    (n, h, f), _ = THIN_SHAPES[label]
+    plan = twg.plan_thin(n, h, f, SMS)
+    assert 1 <= plan.grid <= 2**31 - 1 and plan.grid % plan.split == 0
+    assert plan.split in twg.FP32_SPLITS and plan.split <= 8  # the portable cluster size
+    assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
+    assert plan.smem_bytes <= 48 * 1024  # static shared memory
+    # each block of a cluster adds a whole number of the tile's float4s
+    assert (plan.tile_h * plan.tile_f // 4) % plan.split == 0
+    # a thread's columns of a row are one aligned load, wholly in or out of H
+    assert h % twg.THIN_COLS == 0 and twg.THIN_TILE_H % twg.THIN_COLS == 0
+
+
+def test_plan_thin_reads_no_address():
+    assert list(inspect.signature(twg.plan_thin).parameters) == ["n", "h", "f", "sms"]
+    assert twg.plan_thin(2048, 1024, 4, SMS) == twg.plan_thin(2048, 1024, 4, SMS)
+    assert twg.plan_thin(2048, 1024, 4, SMS) == twg.ThinPlan(64, 4, 32, 8, 16, 64)
+    assert twg.plan_of("thin", 2048, 1024, 4, SMS) == twg.plan_thin(2048, 1024, 4, SMS)
+    assert twg.plan_of("fma", 1024, 2048, 60, SMS) == twg.plan_fp32(1024, 2048, 60, SMS)
+    assert twg.plan_of("wgmma", 1024, 2048, 2048, SMS) is None
+    with pytest.raises(ValueError):
+        twg.plan_thin(2048, 1024, 17, SMS)
+
+
+def test_plan_thin_constants_match_the_kernel_source():
+    src = (build.CSRC / "wgrad_accum.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kThinTileH") == twg.THIN_TILE_H
+    assert const("kThinCols") == twg.THIN_COLS
+    assert const("kThinThreads") == twg.THIN_THREADS
+    assert const("kThinMaxF") == twg.THIN_MAX_F
+    assert const("kThinThreads") // (const("kThinTileH") // const("kThinCols")) == twg.THIN_BK
+    for fp in twg.THIN_FS:  # every padded width has its kernel
+        assert f"fp == {fp} ? wgrad_thin_kernel<{fp}>" in src
+    assert twg._PATH_CODE["thin"] == 3 and "if (path == 3)  // thin" in src
+
+
 def test_kernel_launcher_never_takes_cpu_tensors():
     before, by_path = twg.launches, dict(twg.launches_by_path)
     with pytest.raises(ValueError, match="CUDA"):
@@ -325,6 +422,9 @@ def test_rmsnorm_backward_keeps_dtypes():
     (1024, 2048, 60, torch.float32, "fma"),  # qwen2-moe's router: split 8
     (1024, 7168, 16, torch.float32, "fma"),  # deepseek-v3's cut's router: split 8
     (77, 129, 257, torch.float32, "fma"),  # ragged: 4-byte copies
+    (2048, 1024, 4, torch.bfloat16, "thin"),  # xlstm's mfg, mig: split 8
+    (1024, 1024, 4, torch.bfloat16, "thin"),
+    (77, 136, 5, torch.bfloat16, "thin"),  # ragged N, F padded to 8
 ])
 def test_cuda_kernel_matches_plain(n, h, f, dtype, path):
     if not torch.cuda.is_available():
