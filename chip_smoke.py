@@ -10,8 +10,9 @@ train), 22-23 next in a third (deepseek-v3-671b: 50 GB of weights to
 serve; in both the training phase first, in a fresh process, as the
 memory record it is gated against was measured), 24-27 next in a fourth
 (whisper-tiny and llava-next-mistral-7b, the training phases first),
-28-29 in a fifth (xlstm-350m), 30-31 in a sixth (recurrentgemma-9b) and
-32-33 in a seventh (internlm2-1.8b at seq 4096),
+28-29 in a fifth (xlstm-350m), 30-31 in a sixth (recurrentgemma-9b),
+32-34 in a seventh (internlm2-1.8b at seq 4096, then the optimizer) and
+35 next (each example in a child process of its own),
 17 after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
 launcher runs); any failed check raises and the exit code is not 0.
@@ -56,9 +57,11 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               xlstm-350m's (1024, 1024) at N = 2048 on wgmma and its
               (1024, 4) gate products on thin, recurrentgemma-9b's
               (4096, 4096), (4096, 256), (4096, 12288), (12288, 4096) on
-              wgmma, internlm2's four at phase 32's N = 4096 (RMSNorm:
-              llava's, whisper's and xlstm's rows too, 384 and 1024 in the
-              sweep, and phase 32's 4096 x 2048):
+              wgmma, internlm2's four at phase 32's N = 4096, and
+              train_100m's gpt-100m (640, 640), (640, 2560), (2560, 640)
+              at N = 256 in fp32 on fma (RMSNorm: llava's, whisper's and
+              xlstm's rows too, 384 and 1024 in the sweep, phase 32's
+              4096 x 2048 and gpt-100m's 256 x 640 in fp32):
               it adds into a clone of acc in
               place and is held against the plain version on the original,
               and a second launch on another clone must agree bit for bit;
@@ -126,9 +129,9 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               zb-h1's; then zb-h1 and zb-v once more, 2 steps each with
               the clip off, where their losses and grad norms must agree
               within the same tolerance.
-11. profile-train -- torch.profiler over one full-width step of zb-h1 and
-              one of zb-v, each run right after that schedule's steps in
-              phase 9: the plan's ticks and chunk ops, host spans of the
+11. profile-train -- torch.profiler over one full-width step of zb-h1
+              (zb-v's too, until phases 34-35 needed the time), run right after its
+              steps in phase 9: the plan's ticks and chunk ops, host spans of the
               pipeline and the optimizer, device busy share, top kernels,
               wgrad_accum's share of device time.
 12. plan    -- the HBM planner at the train phase's run shape, per-device
@@ -213,7 +216,7 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               bit but the embedding's; launches per capture, replay ms,
               allocated and reserved peaks (a schedule that runs out of
               memory at seq 1024 runs again at seq 512, and says so); a
-              profiled replayed zb-h1 step, and the LM head's three GEMMs
+              profiled replayed zb-v step (after both gated runs), and the LM head's three GEMMs
               at the odd vocabulary beside a vocabulary padded to 64.
 19. launch-gpt3 -- ``launch.train.main`` with the default ``--arch`` at full
               width, 4 steps of zb-h1: it trains gpt3-1.5b, its losses
@@ -308,8 +311,8 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               checks and gate; 5 wgrad_accum launches a sLSTM block and 6
               an mLSTM block (mfg and mig on thin), one rmsnorm a
               block, a forward and a backward sLSTM kernel a sLSTM block
-              and microbatch; one zb-h1 graph step profiled: each port
-              kernel's share of the device time.
+              and microbatch; one zb-v graph step profiled after the gated
+              runs: each port kernel's share of the device time.
 29. serve-xlstm -- xlstm-350m whole, p=3, phase 5's groups, prompts and
               new tokens: prefill and decode ms, RMSNorm and sLSTM kernel
               launches == the structure's count (a forward a sLSTM block
@@ -326,7 +329,7 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
 32. train-long -- internlm2-1.8b at full width and depth (24 layers) at
               the JAX package's train_4k sequence: p=4, 8 microbatches of 1
               x 4096 (past 2 x 1024 queries: the chunked attention, its
-              query blocks recomputed in B), zb-h1 and zb-v under the
+              query blocks recomputed in B), 1F1B, zb-h1 and zb-v under the
               graph executor, 2 steps after the capture, every batch read
               from a token file of the synthetic stream's seed-0 batches
               through TokenFileLM and prefetch: phase 21's checks and gate
@@ -337,6 +340,24 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               p=2, zb-h1 and zb-v: cuda against cpu (losses 1e-5
               relative, grad norms 1e-4) and the graph against the eager
               walk (phase 16's rules).
+34. optim-inplace -- the training step's optimizer, which steps each
+              stage's leaves slice by slice in place, against the
+              whole-stage path it replaced (each stage's new state built
+              whole, then copied back), from one state: internlm2-1.8b at
+              full width, OI_LAYERS layers, p=4, bf16, one step kept (clip
+              off), one skipped then scaled, one amended (rolled back and
+              redone): every parameter, m and v bit for bit, at their
+              addresses; each path's allocated peak beside the priced
+              transient.
+35. examples -- quickstart, serve_pipeline and train_100m (EX_STEPS
+              steps, then the same command on its checkpoint directory),
+              each a child process that runs ``python -m
+              repro_torch.examples.<name>`` as a user starts it, the
+              kernels' launches counted from 0 and tallied by shape: exit
+              0 and OK; the pipelined loss in (0.1, 3)·ln V, the decoded
+              ids in [0, V), train_100m's losses finite and falling (all
+              its fp32 W ops on fma), the second run resumed at step
+              EX_STEPS.  Phase 3 holds its W ops and norm rows.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -383,6 +404,8 @@ from repro_torch.launch.calibrate import calibration_record, cut_config  # noqa:
 from repro_torch.launch.serve import draw_front, serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
 from repro_torch.launch.steps import build_serve_step  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.examples.train_100m import gpt_100m  # noqa: E402
 from repro_torch.launch.train import init_state, make_data_at, make_schedule, make_step_fn  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import TrainResult, side_from_batch, train  # noqa: E402
@@ -399,7 +422,7 @@ from repro_torch.models.lm import (  # noqa: E402
 from repro_torch.models import modules as layers  # noqa: E402
 from repro_torch.models.lm import layer_cfg  # noqa: E402
 from repro_torch.models.modules import ShardCtx, moe_capacity  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim import adamw, postval  # noqa: E402
 from repro_torch.runtime import DriverConfig, TrainDriver, replan_under_budget  # noqa: E402
 from repro_torch.tree import keyed_leaves, tree_flatten, tree_leaves, tree_map  # noqa: E402
 from repro_torch.tree import tree_unflatten  # noqa: E402
@@ -492,7 +515,8 @@ XLSTM_CHILD = "--xlstm-phases"  # ... and phases 28-29
 RGEMMA_CHILD = "--recurrentgemma-phases"  # ... and phases 30-31
 GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
-LONG_CHILD = "--long-phases"  # ... and phases 32-33
+LONG_CHILD = "--long-phases"  # ... and phases 32-34
+EXAMPLE_CHILD = "--example"  # ... and one example of phase 35
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq;
 # internlm2's training phases (9-16 and the held-out runs) run at T_LAYERS
@@ -632,7 +656,8 @@ LLAVA_TRAIN = dict(tag="train-llava", p=LT_P, schedules=("zb-h1", "zb-v"), seq=T
 # p=2, m=8 microbatches of 1 x (1500 frames + 448 tokens, its decoder's
 # length), zb-h1 and zb-v
 WT_SEQ = 448
-WHISPER_TRAIN = dict(tag="train-whisper", p=2, schedules=("zb-h1", "zb-v"), seq=WT_SEQ)
+WHISPER_TRAIN = dict(tag="train-whisper", p=2, schedules=("zb-h1", "zb-v"), seq=WT_SEQ,
+                     opt_earlier="125 ms of a 162 ms profiled zb-h1 graph step")
 # llava serving (phase 26): full width and depth (32 layers, 7.25 B
 # parameters, 14.5 GB in bf16), p=4, phase 5's groups and batch, 576
 # patches + PROMPT tokens, NEW greedy tokens.  Its decode-vs-prefill limit,
@@ -660,8 +685,10 @@ WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS = 2, 432, 3e-2, 0.108
 # vocab 50304), p=3: 8 layers a stage, and the V placement's 6 groups of 4
 # hold the 24 layers too (at p=2 the V placement, at p=4 both, pad 8 of 32
 # slots); m=8 microbatches of 1 x 2048, so each sequence crosses 16 mLSTM
-# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v, the
-# zb-h1 graph step profiled (the sLSTM and thin W kernels' shares)
+# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v, one
+# zb-v graph step profiled after the gated runs (the sLSTM and thin W
+# kernels' shares; a profiled step left zb-v's window 0.34 GiB above its
+# record when zb-h1's was profiled before it: H100, 700 W)
 XT_P, XT_SEQ = 3, 2048
 XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=XT_SEQ,
                    profile=True)
@@ -688,20 +715,47 @@ RGEMMA_TRAIN = dict(tag="train-recurrentgemma", p=RT_P, schedules=("zb-h1", "zb-
 # 4096 is at most the one at 1024, where the dense path keeps its scores
 TL_P, TL_SEQ, TL_RESERVED_MAX_GB = 4, 4096, 80.0
 LONG_TRAIN = dict(tag="train-long", p=TL_P, seq=TL_SEQ, modes=("graph",))
-# ... zb-h1 and zb-v do not fit the card at the full depth: at 24 layers
-# zb-h1's first optimizer step ran out of memory with 43.05 GiB in the
-# graph's pool (the price, measured fidelity: 82.50 GiB, of which the walk
-# 41.95: residuals 21.45, W-contexts 14.72, two sink slots 5.71; the
-# optimizer's transient 12.34; H100, 700 W), zb-v's is priced 84.28 GiB.
-# So the full depth trains under 1F1B (priced 69.65 GiB: W runs beside B,
-# so it holds 4.03 GiB of W-contexts), and zb-h1 and zb-v at the deepest
-# depth that holds both placements unpadded and fits, 16 layers (priced
-# 61.96 and 62.75 GiB), each depth against a record measured there
-TL_RUNS = ((24, ("1f1b",)), (16, ("zb-h1", "zb-v")))
+# ... 1F1B, zb-h1 and zb-v, all at the full depth, in one process and in
+# launch/calibrate.py's order (each run's graph pool freed before the next).
+# Until the optimizer stepped in place zb-h1 did not fit: its first
+# optimizer step ran out of memory with 43.05 GiB in the graph's pool
+# (priced 82.50 GiB, the optimizer's whole-stage transient 12.34 of it;
+# zb-v 84.28; H100, 700 W), and both ran at 16 layers
+TL_RUNS = ((24, ("1f1b", "zb-h1", "zb-v")),)
+# tokens/s at seq 4096 with the whole-stage optimizer (NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's: 1F1B at 24 layers, zb-h1 and
+# zb-v at 16
+TL_EARLIER_TOK_S = {"1f1b": "8,132-8,157 at 24 layers", "zb-h1": "11,824-11,996 at 16 layers",
+                    "zb-v": "11,824-11,996 at 16 layers"}
 # ... and its reduced twin (phase 33): reduced internlm2 (2 layers) in f32 at
 # seq 2304, p=2, zb-h1 and zb-v: cuda against cpu as phase 8, the graph
 # against the eager walk as phase 16
 TLR_P, TLR_M, TLR_B, TLR_SEQ, TLR_STEPS = 2, 2, 1, 2304, 2
+# the in-place optimizer against the whole-stage one it replaced (phase
+# 34): internlm2-1.8b at full width, OI_LAYERS of its 24 layers (both
+# paths' state and the whole stage's transient fit beside each other), p=4,
+# bf16, one step from the same state on each path of post-validation:
+# kept (clip off), skipped then scaled (every prefix norm over the clip),
+# amended (stage 0's partial norm under it, the full norm over it)
+OI_LAYERS, OI_P = 8, 4
+OI_PATHS = ("kept", "skipped-then-scaled", "amended")
+# the examples (phase 35), each a child process started as a user starts
+# it, `python -m repro_torch.examples.<name>`, with the card to itself;
+# train_100m twice on one checkpoint directory (the second resumes), at
+# 200 steps: the launcher's gate, the loss falls over the run, failed at 5
+# steps (10.5031 -> 10.5657) and first held around step 130 (10.4049 at
+# step 129, 10.1850 at 199, 8.8670 at 299; NVIDIA H100 80GB HBM3, 700 W):
+# lr 1e-3 with no warm-up on a 32768-token vocabulary.  The JAX example's
+# own 5-step smoke fails the same assert of its launcher (10.5201 ->
+# 10.5287, on a CPU); its default is 300 steps, cut to 200 for time
+EX_STEPS = 200
+# train_100m's W ops (gpt-100m, fp32: d 640, MHA, d_ff 2560) at its N =
+# 256 tokens a microbatch, on wgrad_accum's fma path, and its norms' rows
+GPT100M = gpt_100m()
+EX_SEQ = 256
+WGRAD_GPT100M = (("gpt-100m wq,wk,wv,wo", GPT100M.d_model, GPT100M.d_model),
+                 ("gpt-100m wu,wg", GPT100M.d_model, GPT100M.d_ff),
+                 ("gpt-100m wd", GPT100M.d_ff, GPT100M.d_model))
 # their serving (phases 29 and 31), at phase 5's groups, batch, prompts and
 # new tokens: xlstm whole at p=3; recurrentgemma at full width and depth (38
 # layers, 10.4 B parameters; p=2 gives 42 slots, 4 of them padded, 11.3 B
@@ -988,6 +1042,8 @@ def phase_kernels(cfg_full, cfg_red):
         ("xlstm-decode", B, xl.d_model, bf16, bf16, "latency"),
         # internlm2 trained at seq 4096: its blocks' and sink's rows
         ("long-train", T_B * TL_SEQ, d, bf16, bf16, "bulk"),
+        # train_100m's gpt-100m (fp32): its blocks' and sink's rows
+        ("gpt-100m-train", T_B * EX_SEQ, GPT100M.d_model, f32, f32, "bulk"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1237,6 +1293,7 @@ def phase_kernels_wgrad(cfg_red):
         (name, T_B * XT_SEQ, h, f, bf16) for name, h, f in WGRAD_XLSTM] + [
         (name, n, h, f, bf16) for name, h, f in WGRAD_RGEMMA] + [
         (f"long {name}", T_B * TL_SEQ, h, f, bf16) for name, h, f in WGRAD_MAIN] + [
+        (name, T_B * EX_SEQ, h, f, f32) for name, h, f in WGRAD_GPT100M] + [
         ("ragged-N", 1000, 2048, 2048, bf16),
         ("fp32", n, 2048, 2048, f32),
         ("reduced", TR_B * TR_SEQ, cfg_red.d_model, cfg_red.d_ff, f32),
@@ -1252,7 +1309,7 @@ def phase_kernels_wgrad(cfg_red):
         acc = torch.randn(h, f, generator=gen, device="cuda")
         path = wgrad_kernel.plan_launch(n_, h, f, dt, a.data_ptr(), g.data_ptr(), acc.data_ptr())
         if label.startswith(("gpt3", "qwen2-moe", "deepseek", "llava", "whisper", "xlstm",
-                             "recurrentgemma", "long")):
+                             "recurrentgemma", "long", "gpt-100m")):
             # a main-path W op: bf16 on wgmma (on thin where F is no
             # multiple of 8: mlstm's gates), fp32 on fma
             want_path = "fma" if dt == f32 else "thin" if f % 8 else "wgmma"
@@ -1628,16 +1685,29 @@ def plan_units(sched, plan):
     return float(act[t]), float(wctx[t]), profile
 
 
-def _init_full(cfg, sched, seq: int):
+def _init_full(cfg, sched, seq: int, compact: bool = False):
     """(stacked, shared, spec, data) of the train cell under ``sched`` (at its
     p): every schedule starts from the seed-0 model of the linear placement,
-    relaid layer by layer onto its own placement."""
+    relaid layer by layer onto its own placement; with ``compact`` (a graph
+    run's gated window follows) relaid on the host."""
     p = sched.placement.p
     spec = RunSpec(p=p, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=seq, m=T_M)
     lin_spec = RunSpec(p=p, n_chunks=1, microbatch=T_B, seq_len=seq, m=T_M)
     stacked, shared = init_params(cfg, lin_spec, Placement.linear(p), seed=0, device=DEV)
-    if sched.n_chunks != 1:
+    if sched.n_chunks != 1 and not compact:
         stacked = relay_to_placement(cfg, stacked, sched.placement)
+    elif sched.n_chunks != 1:
+        # relaid on the host and copied back, the stacked leaves first as
+        # init_params allocates them: relaid on the card, the new leaves sat
+        # in segments beside the freed linear ones, and xlstm's zb-v graph
+        # window rose 0.38 GiB over one initialised on its own placement
+        # (its eager window did not move; H100, 700 W)
+        host = tree_map(lambda a: a.cpu(), (stacked, shared))
+        del stacked, shared
+        torch.cuda.empty_cache()
+        stacked = tree_map(lambda a: a.to(DEV), relay_to_placement(cfg, host[0], sched.placement))
+        shared = tree_map(lambda a: a.to(DEV), host[1])
+        del host
     data = SyntheticLM(DataConfig(global_batch=T_M * T_B, seq_len=seq, vocab=cfg.vocab))
     return stacked, shared, spec, data
 
@@ -1729,7 +1799,7 @@ def phase_train(cfg):
                              t.numel() for t in tree_leaves((state[0], state[1]))),
                          param_bytes=sum(t.numel() * t.element_size()
                                          for t in tree_leaves((state[0], state[1]))))
-        if name in T_PROFILED:
+        if name == T_PROFILED[0]:  # zb-v's eager profile cut for time
             phase_profile_train(name, plan, state)
         del state
         torch.cuda.empty_cache()
@@ -2438,7 +2508,7 @@ def phase_train_graph(cfg, runs):
         eager, t_sched = runs[name], time.perf_counter()
         seq, sched, plan = eager["seq"], eager["sched"], eager["plan"]
         per_step = expected_train_launches(cfg, T_P, sched.n_chunks, T_M)
-        stacked, shared, spec, data = _init_full(cfg, sched, seq)
+        stacked, shared, spec, data = _init_full(cfg, sched, seq, compact=True)
         side0 = side_from_batch(data.batch_at(0), spec, DEV)
         # the step-0 gradient of a fresh eager walk, kept on the host; the
         # walk must not wait for the device (a capture would refuse it)
@@ -2544,7 +2614,7 @@ def phase_heldout(cfg):
     for name in H_SCHEDULES:
         sched = make_schedule(name, T_P, T_M)
         plan = compile_plan(sched)
-        stacked, shared, spec, data = _init_full(cfg, sched, H_SEQ)
+        stacked, shared, spec, data = _init_full(cfg, sched, H_SEQ, compact=True)
         step, _ = build_train_step(cfg, spec, plan, sched.placement,
                                    TrainStepConfig(executor_mode="graph"))
         walks = _count_walks(step.grad_fn)
@@ -2628,7 +2698,7 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
     sched = make_schedule(name, T_P, T_M)
     plan = compile_plan(sched)
     per_step = expected_train_launches(cfg, T_P, sched.n_chunks, T_M)
-    stacked, shared, spec, data = _init_full(cfg, sched, seq)
+    stacked, shared, spec, data = _init_full(cfg, sched, seq, compact=True)
     acfg = adamw.AdamWConfig() if clip else adamw.AdamWConfig(grad_clip=None)
     step, _ = build_train_step(cfg, spec, plan, sched.placement,
                                TrainStepConfig(adamw=acfg, executor_mode="graph"))
@@ -2660,6 +2730,9 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
     replay_launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    # the gate's window ends with the run's steps, as launch/calibrate.py's
+    # and _cut_run's do: the profiled step below starts from fresh moments
+    mem = _mem(walk)
     gf = step.grad_fn
     check(gf.captures == 1 and len(walks) == 2,
           f"gpt3 {name}: {gf.captures} captures and {len(walks)} walks, want 1 and 2")
@@ -2681,7 +2754,7 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
           f"wgrad_accum={walks[1][0][0]} {walks[1][0][2]} rmsnorm={walks[1][0][1]} (expected "
           f"{want}), from Python during the steps {replay_launches[:2]}; losses {res.losses} "
           f"grad_norms {res.grad_norms} amended {res.amended}{gap}")
-    if name == T_PROFILED[0] and clip:
+    if name == GPT3_SCHEDULES[-1] and clip:  # the last gated run: no gated window follows
         n_by_name = phase_profile_train(name, plan, (stacked, shared, spec, sched, step, data),
                                         tag="profile-gpt3")
         if n_by_name:
@@ -2692,7 +2765,7 @@ def _gpt3_graph_run(cfg, name, seq, ref=None, loss_ref=None, clip=True):
             print(f"[profile-gpt3] {name}: one replayed step ran {got[0]} wgrad_wgmma_kernel and "
                   f"{got[1]} rmsnorm_bulk_kernel (expected {per_step})")
     out = dict(res=res, seq=seq, chunks=sched.n_chunks, peak_gb=peak_gb,
-               reserved_gb=reserved_gb, ms=med * 1e3, sched=sched, mem=_mem(walk),
+               reserved_gb=reserved_gb, ms=med * 1e3, sched=sched, mem=mem,
                launches=_add_counts(walks[0][0], walks[1][0]))
     del step, gf, stacked, shared, res
     torch.cuda.empty_cache()
@@ -3034,7 +3107,7 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
     kw = dict(fma_per_step=fma, narrow_per_step=expected_narrow_launches(
         cfg, p, sched.n_chunks, T_M), slstm_per_step=expected_slstm_launches(
         cfg, p, sched.n_chunks, T_M))
-    stacked, shared, spec, data = _init_full(cfg, sched, seq)
+    stacked, shared, spec, data = _init_full(cfg, sched, seq, compact=mode == "graph")
     if "data" in tr:  # the run's own batches
         data = tr["data"]()
     step, _ = build_train_step(cfg, spec, plan, sched.placement, TrainStepConfig(
@@ -3056,13 +3129,15 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
     del g, sg
     walk = _walk_peaks()
     _reset_counts()
-    res = train(cfg, spec, step, stacked, shared, data, MT_STEPS,
-                log=lambda x: print(f"[{tag}] {name} {mode}: {x}"), state=state)
+    with _optimizer_spans() as opt_s:
+        res = train(cfg, spec, step, stacked, shared, data, MT_STEPS,
+                    log=lambda x: print(f"[{tag}] {name} {mode}: {x}"), state=state)
     launches = _read_counts()
     mem = _mem(walk)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-    if mode == "graph" and name == tr["schedules"][0] and tr.get("profile"):
+    if mode == "graph" and tr.get("profile") and name == tr["schedules"][-1]:
+        # the last run of the phase: no gated window follows a profiled step
         # one more step, profiled, its moments
         phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
                             tag=tag.replace("train", "profile"),
@@ -3107,13 +3182,37 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
           f"{want[0]} (fma {fma}, thin {kw['narrow_per_step']}) rmsnorm={want[1]} sLSTM "
           f"kernel={kw['slstm_per_step']}, by path {counted[2]} {counted[3]} {counted[4]} over "
           f"{'the first walk and the steps' if mode == 'eager' else 'the warm-up and captured walks'}; "
+          f"optimizer host span a step {[round(x * 1e3, 1) for x in opt_s]} ms"
+          + (f" (whole-stage optimizer: {tr['opt_earlier']})" if "opt_earlier" in tr else "")
+          + "; "
           f"losses {res.losses} grad_norms {res.grad_norms}{gap}")
     out = dict(res=res, keyed=keyed, loss0=loss0, seq=seq, sched=sched, peak_gb=peak_gb,
-               reserved_gb=reserved_gb, mem=mem, launches=counted)
+               reserved_gb=reserved_gb, mem=mem, launches=counted, tok_s=tokens / med,
+               opt_ms=[x * 1e3 for x in opt_s])
     del step, stacked, shared
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def _optimizer_spans():
+    """The host seconds of each call of the training step's optimizer half
+    (``launch/steps.py::_update``, the ``train_step.optimizer`` span of a
+    profile) while the block runs, in a list."""
+    spans, real = [], train_steps._update
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    train_steps._update = timed
+    try:
+        yield spans
+    finally:
+        train_steps._update = real
 
 
 def _cut_schedule(cfg, tr, name, mode, eager=None):
@@ -3270,14 +3369,19 @@ def phase_train_long(cfg):
         for layers, names in TL_RUNS:
             cut = dataclasses.replace(cfg, n_layers=layers)
             tag = f"train-long-{layers}L"
-            tr = dict(LONG_TRAIN, tag=tag, schedules=names, profile="zb-h1" in names,
+            tr = dict(LONG_TRAIN, tag=tag, schedules=names,
                       data=lambda: _Fetched(prefetch(iter(files), depth=2)))
             runs = phase_train_cut(cut, tr)
             if layers == cfg.n_layers:
                 long = tr["res_per_token"]
             for (name, mode), r in runs.items():
                 print(f"[{tag}] {name} {mode}: reserved peak {r['reserved_gb']:.2f} GB (limit "
-                      f"{TL_RESERVED_MAX_GB} GB), allocated {r['peak_gb']:.2f} GB")
+                      f"{TL_RESERVED_MAX_GB} GB), allocated {r['peak_gb']:.2f} GB; "
+                      f"tokens_per_s {r['tok_s']:.0f} (whole-stage optimizer: "
+                      f"{TL_EARLIER_TOK_S[name]}; "
+                      f"printed, not claimed); optimizer host span "
+                      f"{[round(x, 1) for x in r['opt_ms']]} ms a step (the whole-stage "
+                      f"optimizer's profiled zb-h1 step at 16 layers: 762 ms)")
                 check(r["reserved_gb"] < TL_RESERVED_MAX_GB, f"{cut.name} {layers} layers {name} "
                       f"{mode} at seq {TL_SEQ}: reserved {r['reserved_gb']:.2f} GB")
                 counts[f"{tag}-{name}-{mode}"] = r["launches"]
@@ -3337,6 +3441,218 @@ def phase_train_long_reduced(cfg):
               f"graph vs eager: step-0 gradient {exact} of {exact + 1} leaves bit for bit, "
               f"embedding rel_l2 {embed_gap:.3g} (limit {G_RTOL}), step-0 loss equal, later "
               f"max rel gap {later:.3g} (limit {G_RTOL})")
+
+
+# --------------------------------------------------------------------- #
+# phase 34: the in-place optimizer against the whole-stage one
+# --------------------------------------------------------------------- #
+def _whole_stage_update(stacked, shared, opt, shared_opt, grads, shared_grads, tcfg):
+    """The training step's optimizer half as it stood before it stepped in
+    place: each stage's new parameters and moments from the functional
+    post-validation (a whole stage's new state at once), then copied back
+    into the stored ones.  Returns (step count, amended, gradient norm);
+    ``tests/test_torch_optim_inplace.py`` holds ``_update`` to it too."""
+    acfg, p = tcfg.adamw, len(tree_leaves(grads)[0])
+    grads = tree_map(lambda g, f: torch.zeros_like(g) if f else g, grads,
+                     train_steps._freeze_filter(stacked))
+    stats_shared = postval.local_stats(shared_grads)
+    stats = []
+    for s in range(p):
+        st = postval.local_stats(train_steps._at(grads, s))
+        on0 = 1.0 if s == 0 else 0.0
+        stats.append(postval.GradStats(st.sumsq + on0 * stats_shared.sumsq,
+                                       st.nonfinite | (s == 0 and stats_shared.nonfinite)))
+    prefix, full = postval.pipe_prefix_stats(stats)
+    amended, new_t = False, opt.t
+    for s in range(p):
+        params, g, state = train_steps._stage(stacked, shared, grads, shared_grads, opt,
+                                              shared_opt, s)
+        if tcfg.postval_mode == "sync":
+            new_p, new_s = postval.sync_step(params, state, g, acfg, full)
+        else:
+            p1, s1, dec = postval.optimistic_step(params, state, g, prefix[s], acfg)
+            new_p, new_s, am = postval.validate_and_fix(p1, s1, g, dec, full, acfg)
+            amended = amended or am
+            del p1, s1
+        for dst, src in ((params, new_p), (state.m, new_s.m), (state.v, new_s.v)):
+            for d, x in zip(tree_leaves(dst), tree_leaves(src)):
+                d.copy_(x)
+        if s == 0:
+            new_t = new_s.t
+        del new_p, new_s
+    return new_t, amended, torch.sqrt(full.sumsq)
+
+
+def phase_optim_inplace():
+    """Phase 34: internlm2-1.8b at full width, OI_LAYERS layers, p=4, bf16:
+    from one state (the seed-0 weights, moments drawn on the card), one
+    optimizer step of the training step (``launch/steps.py::_update``, in
+    place, slice by slice) and one of the whole-stage path it replaced, on
+    each path of OI_PATHS, with gradients drawn on the card: every
+    parameter, ``m`` and ``v`` bit for bit, the step count and ``amended``
+    equal, the parameters and moments at their addresses; each path's
+    allocated peak above its state printed beside the priced transient."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=OI_LAYERS)
+    sched = make_schedule("zb-h1", OI_P, T_M)
+    spec = RunSpec(p=OI_P, n_chunks=1, microbatch=T_B, seq_len=T_SEQ, m=T_M)
+    t0 = time.perf_counter()
+    for path in OI_PATHS:
+        stacked, shared = init_params(cfg, spec, sched.placement, seed=0, device=DEV)
+        priced = train_steps.optimizer_transient_bytes(stacked, shared).one_card
+        got = init_state(stacked, shared)
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        for m, v in zip(tree_leaves((got["opt"].m, got["shared_opt"].m)),
+                        tree_leaves((got["opt"].v, got["shared_opt"].v))):
+            m.normal_(0.0, 1e-2, generator=gen)
+            v.uniform_(0.0, 1e-3, generator=gen)
+        want = tree_map(lambda a: a.clone(), got)
+        draw = lambda t: tree_map(lambda a: torch.randn(  # noqa: E731
+            a.shape, generator=gen, device=DEV), t)
+        grads, shared_grads = draw(stacked), draw(shared)
+        if path == "amended":  # stage 0 and the shared leaves tiny, the rest as drawn
+            for g in tree_leaves(grads):
+                g[0] *= 1e-6
+            for g in tree_leaves(shared_grads):
+                g *= 1e-6
+        tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(grad_clip=None if path == "kept" else 1.0))
+        bufs = lambda st: tree_leaves((st["params"], st["shared"], st["opt"].m,  # noqa: E731
+                                       st["opt"].v, st["shared_opt"].m, st["shared_opt"].v))
+        addresses = [t.data_ptr() for t in bufs(got)]
+        held = {}
+        for name, run in (
+                ("in place", lambda: train_steps._update(
+                    got["params"], got["shared"], got["opt"], got["shared_opt"], grads,
+                    shared_grads, torch.zeros((), device=DEV), tcfg)),
+                ("whole stage", lambda: _whole_stage_update(
+                    want["params"], want["shared"], want["opt"], want["shared_opt"], grads,
+                    shared_grads, tcfg))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            held[name] = run()
+            torch.cuda.synchronize()
+            held[name] = (held[name], time.perf_counter() - t1,
+                          torch.cuda.max_memory_allocated() - base)
+        (out, s_in, b_in), ((t_want, am_want, _), s_whole, b_whole) = (held["in place"],
+                                                                       held["whole stage"])
+        check(int(out[2].t) == int(t_want) == 1 and out[4]["amended"] == am_want ==
+              (path != "kept"), f"optim-inplace {path}: step count {int(out[2].t)} / "
+              f"{int(t_want)}, amended {out[4]['amended']} / {am_want}")
+        check([t.data_ptr() for t in bufs(got)] == addresses,
+              f"optim-inplace {path}: a parameter or moment moved")
+        differ = [k for (k, a), (_, b) in zip(keyed_leaves(bufs(got)), keyed_leaves(bufs(want)))
+                  if not torch.equal(a, b)]
+        check(not differ, f"optim-inplace {path}: {len(differ)} leaves differ from the "
+              f"whole-stage path, e.g. {differ[:3]}")
+        print(f"[optim-inplace] {cfg.name} {OI_LAYERS} layers p={OI_P} bf16, {path}: "
+              f"{len(addresses)} parameter and moment leaves bit for bit with the whole-stage "
+              f"path, at their addresses; amended={am_want}; allocated above the state: in "
+              f"place {_gib(b_in)} GiB (priced transient {_gib(priced)}), whole stage "
+              f"{_gib(b_whole)} GiB; host s: in place {s_in:.3f}, whole stage {s_whole:.3f}")
+        del stacked, shared, got, want, grads, shared_grads, out, held
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[optim-inplace] done in {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------- #
+# phase 35: the examples, as a user starts them
+# --------------------------------------------------------------------- #
+def _example_run(name, args):
+    """``python -m repro_torch.examples.<name> <args>``'s run in a child
+    process (this script's ``EXAMPLE_CHILD``): (stdout lines without the
+    counts line, the kernels' launch counts, launches by shape)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), EXAMPLE_CHILD,
+                          name, *args], capture_output=True, text=True, timeout=600)
+    shown = out.stdout.splitlines()
+    if len(shown) > 40:  # train_100m's 300 step lines: the first and the last
+        shown = shown[:12] + [f"... ({len(shown) - 40} lines)"] + shown[-28:]
+    print("\n".join(shown), flush=True)
+    print(out.stderr[-4000:], end="", file=sys.stderr, flush=True)
+    check(out.returncode == 0, f"python -m repro_torch.examples.{name} {' '.join(args)} exited "
+          f"{out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    got = json.loads(lines[-1])
+    check(lines[-2] == "OK", f"example {name}: its last line is {lines[-2]!r}, not OK")
+    print(f"[examples] {name} {' '.join(args)}: exit 0, OK, {time.perf_counter() - t0:.1f} s "
+          f"(the process included); launches {got['launches']}")
+    return lines[:-1], tuple(got["launches"]), got["shapes"]
+
+
+def phase_examples():
+    """Phase 35: quickstart, serve_pipeline and train_100m (twice, on one
+    checkpoint directory) run each in a child process as a user starts
+    them, with the card to itself: each exits 0 and prints OK; the
+    pipelined loss in the band of the train phases, the decoded ids in
+    [0, V), train_100m's losses finite and falling, its second run resumed
+    from the first's checkpoint (no step run again); returns {run: the
+    kernels' launches} and prints the shapes they launched at."""
+    red = get_reduced(ARCH)
+    band = (0.1 * np.log(red.vocab), 3.0 * np.log(red.vocab))
+    counts, shapes = {}, collections.Counter()
+    lines, counts["example-quickstart"], sh = _example_run("quickstart", [])
+    shapes.update(sh)
+    loss = float(next(x for x in lines if x.startswith("pipelined loss:")).split(":")[1])
+    check(band[0] < loss < band[1], f"quickstart: pipelined loss {loss} outside {band}")
+    lines, counts["example-serve_pipeline"], sh = _example_run("serve_pipeline", [])
+    shapes.update(sh)
+    ids = json.loads(next(x for x in lines if x.startswith("generated:")).split(":", 1)[1])
+    check(len(ids) == 9 and all(0 <= t < red.vocab for t in ids),
+          f"serve_pipeline: generated ids {ids} not 9 in [0, {red.vocab})")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--steps", str(EX_STEPS), "--ckpt-dir", str(pathlib.Path(tmp) / "ckpt")]
+        lines, counts["example-train_100m"], sh = _example_run("train_100m", args)
+        shapes.update(sh)
+        losses = [float(x.split("loss=")[1].split()[0]) for x in lines if x.startswith("step ")]
+        check(len(losses) == EX_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train_100m: losses {losses}")
+        check(counts["example-train_100m"][2]["fma"] == counts["example-train_100m"][0] > 0,
+              f"train_100m: wgrad_accum launches {counts['example-train_100m']}: its fp32 W "
+              f"ops should all take the fma path")
+        lines, again, sh = _example_run("train_100m", args)
+        shapes.update(sh)
+        check(not any(x.startswith("step ") for x in lines) and any(
+            x.startswith(f"steps=0: the checkpoint in") for x in lines),
+            f"train_100m run again: it did not resume from step {EX_STEPS}")
+        counts["example-train_100m-again"] = again
+    for run, c in counts.items():  # each went through the kernels on the card
+        want = (c[1] > 0) if run == "example-serve_pipeline" else (
+            c[0] > 0 and c[1] > 0) if run != "example-train_100m-again" else True
+        check(want, f"{run}: kernel launches {c}")
+    print(f"[examples] quickstart pipelined loss {loss:.6f} in ({band[0]:.3f}, {band[1]:.3f}); "
+          f"serve_pipeline generated {ids}; train_100m losses {losses}, run again it resumed at "
+          f"step {EX_STEPS}")
+    for key, n in sorted(shapes.items()):
+        print(f"[examples] launched at {key}: {n}")
+    return counts
+
+
+def example_child_main(name, args) -> int:
+    """One example, run as ``python -m repro_torch.examples.<name> <args>``
+    runs it (``runpy`` as ``__main__``), the kernels' launches counted from
+    0 and tallied by shape; the last line is a JSON object of them."""
+    import runpy
+
+    shapes = collections.Counter()
+    real_w, real_r = wgrad_kernel.wgrad_accum_cuda, rms_kernel.rmsnorm_fused
+
+    def wgrad(a, g, acc):
+        shapes[f"wgrad_accum (H, F)={tuple(acc.shape)} N={a.shape[0]} {a.dtype}"] += 1
+        return real_w(a, g, acc)
+
+    def norm(x, g, eps=1e-6):
+        shapes[f"rmsnorm ({x.numel() // x.shape[-1]}, {x.shape[-1]}) {x.dtype}"] += 1
+        return real_r(x, g, eps)
+
+    wgrad_kernel.wgrad_accum_cuda, rms_kernel.rmsnorm_fused = wgrad, norm
+    _reset_counts()
+    sys.argv = [f"repro_torch.examples.{name}", *args]
+    runpy.run_module(f"repro_torch.examples.{name}", run_name="__main__", alter_sys=True)
+    print(json.dumps({"launches": list(_read_counts()), "shapes": dict(shapes)}))
+    return 0
 
 
 # --------------------------------------------------------------------- #
@@ -3483,6 +3799,8 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f}s")
     more.update(run_child(LONG_CHILD, "long_launches"))
     print(f"[time] seq-4096 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
+    more.update(phase_examples())
+    print(f"[time] examples phase (child processes) done at {time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     print(f"[time] rmsnorm kernel phase done at {time.perf_counter() - t_start:.1f}s")
     wrows = phase_kernels_wgrad(cfg_red)
@@ -3698,10 +4016,10 @@ def recurrentgemma_child_main() -> int:
 
 
 def long_child_main() -> int:
-    """Phases 32 and 33: internlm2-1.8b at seq 4096 first, in a fresh
-    process as its record was measured, then the reduced twin at 2304;
-    the last line is a JSON object with the kernels' launches of each
-    run."""
+    """Phases 32-34: internlm2-1.8b at seq 4096 first, in a fresh
+    process as its record was measured, then the reduced twin at 2304,
+    then the in-place optimizer against the whole-stage one; the last line
+    is a JSON object with the kernels' launches of each run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build()
@@ -3712,6 +4030,10 @@ def long_child_main() -> int:
     torch.cuda.empty_cache()
     phase_train_long_reduced(get_reduced(ARCH))
     print(f"[time] train-long-reduced phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_optim_inplace()
+    print(f"[time] optim-inplace phase done at {time.perf_counter() - t0:.1f}s (child)")
     print(json.dumps({"long_launches": counts}))
     return 0
 
@@ -3810,6 +4132,8 @@ if __name__ == "__main__":
         sys.exit(graph_child_main(sys.argv[2]))
     if sys.argv[1:2] == [HELDOUT_CHILD]:
         sys.exit(heldout_child_main())
+    if sys.argv[1:2] == [EXAMPLE_CHILD]:
+        sys.exit(example_child_main(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == [LONG_CHILD]:
         sys.exit(long_child_main())
     sys.exit(main())

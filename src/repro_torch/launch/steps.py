@@ -8,7 +8,8 @@ once into a CUDA graph and replayed.  The training step mirrors the JAX
 one: grads of the pipelined step, the frozen ``mask`` leaves zeroed,
 per-stage gradient statistics with the shared parameters counted on stage
 0, then AdamW under optimizer post-validation (``within_step``) or the
-blocking baseline (``sync``).
+blocking baseline (``sync``), written into the parameters and moments in
+place, slice by slice, as the JAX step writes into its donated buffers.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..core.schedules.ir import ExecutionPlan, Placement
 from ..models.lm import ArchConfig, RunSpec, build_program
 from ..models.serve import build_serve_program
 from ..optim import adamw, postval
-from ..tree import tree_flatten, tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -55,11 +56,6 @@ def _freeze_filter(tree, frozen: bool = False):
     return frozen
 
 
-def _copy_into(dst: PyTree, src: PyTree) -> None:
-    for d, s in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
-        d.copy_(s)
-
-
 def _at(tree, s):
     """Stage s's views of per-chunk trees with a leading (p,) axis."""
     return tuple(tree_map(lambda a: a[s], x) for x in tree)
@@ -67,8 +63,12 @@ def _at(tree, s):
 
 def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss, tcfg: TrainStepConfig):
     """The optimizer half of the training step: the frozen leaves' gradients
-    zeroed, the statistics, then AdamW stage by stage; parameters and
-    moments are updated in place."""
+    zeroed, the statistics, then AdamW stage by stage, in place: each
+    stage's decisions are read once, and its leaves are stepped (rolled
+    back and stepped again when amended) slice by slice into the stored
+    parameters and moments (``adamw.step_``), as the JAX step writes its
+    update into the donated buffers.  Parameters and moments keep their
+    addresses."""
     acfg, p = tcfg.adamw, len(tree_leaves(grads)[0])
     grads = tree_map(lambda g, f: torch.zeros_like(g) if f else g, grads,
                      _freeze_filter(stacked))
@@ -87,31 +87,27 @@ def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss, tcfg: T
     for s in range(p):
         # stage 0 steps (local, shared) together, as every stage of the
         # JAX step does; the shared result of the other stages is unused
-        params = (_at(stacked, s), shared) if s == 0 else (_at(stacked, s),)
-        g = (_at(grads, s), shared_grads) if s == 0 else (_at(grads, s),)
-        state = adamw.AdamWState(
-            t=opt.t,
-            m=(_at(opt.m, s), shared_opt.m) if s == 0 else (_at(opt.m, s),),
-            v=(_at(opt.v, s), shared_opt.v) if s == 0 else (_at(opt.v, s),),
-        )
+        params, g, state = _stage(stacked, shared, grads, shared_grads, opt, shared_opt, s)
         if tcfg.postval_mode == "sync":
-            new_p, new_s = postval.sync_step(params, state, g, acfg, full)
+            _, new_s = postval.sync_step_(params, state, g, acfg, full)
         else:
-            p1, s1, dec = postval.optimistic_step(params, state, g, prefix[s], acfg)
-            new_p, new_s, am = postval.validate_and_fix(p1, s1, g, dec, full, acfg)
+            _, s1, dec = postval.optimistic_step_(params, state, g, prefix[s], acfg)
+            _, new_s, am = postval.validate_and_fix_(params, s1, g, dec, full, acfg)
             amended = amended or am
-        _copy_into(params, new_p)
-        _copy_into(state.m, new_s.m)
-        _copy_into(state.v, new_s.v)
         if s == 0:
             new_t = new_s.t
-        # copied back: free this stage's results before the next stage steps
-        del new_p, new_s
-        if tcfg.postval_mode != "sync":
-            del p1, s1
     metrics = {"loss": loss, "grad_norm": torch.sqrt(full.sumsq), "amended": amended}
     return (stacked, shared, adamw.AdamWState(new_t, opt.m, opt.v),
             adamw.AdamWState(new_t, shared_opt.m, shared_opt.v), metrics)
+
+
+def _stage(stacked, shared, grads, shared_grads, opt, shared_opt, s):
+    """(params, grads, AdamW state) that stage s steps: its views of the
+    stacked trees, and on stage 0 the shared ones beside them."""
+    both = (lambda x, y: (x, y)) if s == 0 else (lambda x, y: (x,))
+    return (both(_at(stacked, s), shared), both(_at(grads, s), shared_grads),
+            adamw.AdamWState(opt.t, both(_at(opt.m, s), shared_opt.m),
+                             both(_at(opt.v, s), shared_opt.v)))
 
 
 class _LiveBytes(TorchDispatchMode):
@@ -142,7 +138,8 @@ class _LiveBytes(TorchDispatchMode):
 @dataclasses.dataclass(frozen=True)
 class OptimizerTransient:
     """Peak bytes that the optimizer half of a step allocates beyond the
-    parameters, moments and gradients it is given."""
+    parameters, moments and gradients it is given (it writes its update
+    into them)."""
 
     one_card: int  # _update over all p stages, one after another on one card
     per_stage: Tuple[int, ...]  # stage s stepped alone, as one device of a pipeline steps
@@ -157,17 +154,20 @@ def optimizer_transient_bytes(stacked, shared,
     meta tensors of the leaves' shapes and dtypes (parameters as given,
     gradients in the accumulators' ``acc_dt``, fp32 moments) under
     :class:`_LiveBytes`: the frozen leaves' ``zeros_like``,
-    ``postval.local_stats`` per stage, then one ``adamw.step`` a stage
-    (stage 0 with the shared leaves), each holding a
-    new parameter, ``m`` and ``v`` a leaf (10 bytes an element for bf16
-    weights) plus the step's fp32 temporaries until ``_copy_into`` copies
-    them back; the loop frees a stage's results before the next stage
-    steps.  The decisions read the card,
-    so the path is fixed to the one every step takes unless it is amended:
-    one AdamW step a stage, optimistic or scaled after a skipped optimistic
-    step.  An amended step (a partial norm under the clip, the full one
-    over it) also holds the rolled-back state while it steps again, up to
-    two more parameter, ``m`` and ``v`` copies of that stage: not priced.
+    ``postval.local_stats`` per stage (each leaf's fp32 square whole, so
+    the norm keeps its bits), then each stage's in-place AdamW on the
+    path of an amended step, the longest: ``adamw.step_`` and ``adamw.
+    rollback_`` (the redo's ``step_`` holds what the first one held), each
+    holding one slice's new parameter, ``m`` and ``v`` and its fp32
+    temporaries (``adamw.SLICE`` elements) until they are written back.
+    Every other path (kept, skipped, skipped then scaled, ``sync``) runs a
+    prefix of it, so its peak is the larger of the optimistic and the
+    amended path's.  The
+    AdamW passes see each leaf's first slice alone (a flat view of at most
+    ``adamw.SLICE`` elements): every slice holds what the first one holds,
+    the ragged last one less, so the peak is the same, and a model of
+    billions of parameters is priced without walking its thousands of
+    slices.
     """
     acfg = acfg or adamw.AdamWConfig()
 
@@ -186,10 +186,10 @@ def optimizer_transient_bytes(stacked, shared,
     p = len(tree_leaves(stacked)[0])
 
     def stage(s):
-        with_shared = (lambda x, y: (x, y)) if s == 0 else (lambda x, y: (x,))
-        return (with_shared(_at(stacked, s), shared), with_shared(_at(grads, s), shared_grads),
-                adamw.AdamWState(opt.t, with_shared(_at(opt.m, s), shared_opt.m),
-                                 with_shared(_at(opt.v, s), shared_opt.v)))
+        return _stage(stacked, shared, grads, shared_grads, opt, shared_opt, s)
+
+    def first_slice(tree):
+        return tree_map(lambda a: a.view(-1)[:adamw.SLICE], tree)
 
     def run(stages):
         with torch.no_grad(), _LiveBytes() as live:
@@ -199,9 +199,9 @@ def optimizer_transient_bytes(stacked, shared,
             for s in stages:
                 postval.local_stats(stage(s)[1])
             for s in stages:
-                params, g, state = stage(s)
-                new = adamw.step(params, state, g, acfg, scale=scale)
-                del new
+                params, g, state = first_slice(stage(s))
+                _, state = adamw.step_(params, state, g, acfg, scale=scale)
+                adamw.rollback_(params, state, g, acfg, scale=1.0)
             del frozen
         return live.peak
 

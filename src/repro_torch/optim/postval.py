@@ -10,6 +10,12 @@ exactly (Alg. 1) and redoes it with the true global clip scale.
 All p stages sit on one device here, so ``pipe_prefix_stats`` is a prefix sum
 over the list of per-stage statistics with no collectives.  The decisions
 are host booleans: each is read once per stage and step (one device sync).
+
+``optimistic_step``, ``validate_and_fix`` and ``sync_step`` step through the
+functional ``adamw.step`` / ``adamw.rollback``; ``optimistic_step_``,
+``validate_and_fix_`` and ``sync_step_`` take the same decisions and step
+through ``adamw.step_`` / ``adamw.rollback_``, in place (the training
+step's path).
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ __all__ = [
     "optimistic_step",
     "validate_and_fix",
     "sync_step",
+    "optimistic_step_",
+    "validate_and_fix_",
+    "sync_step_",
 ]
 
 
@@ -48,6 +57,11 @@ class Decision(NamedTuple):
 
 
 def local_stats(grads: PyTree) -> GradStats:
+    """The sum of squares, each leaf's summed whole (the JAX package's
+    order, so the norm keeps its bits), and whether any entry is not
+    finite: NaN, +inf or -inf, each tested by a one-byte mask
+    (``torch.isfinite`` builds an fp32 ``abs`` and three masks of the
+    leaf's size at once, more than the square)."""
     leaves = tree_leaves(grads)
     dev = leaves[0].device if leaves else "cpu"
     sumsq = torch.zeros((), dtype=torch.float32, device=dev)
@@ -55,7 +69,8 @@ def local_stats(grads: PyTree) -> GradStats:
     for g in leaves:
         g32 = g.float()
         sumsq = sumsq + torch.sum(g32 * g32)
-        bad = bad | ~torch.all(torch.isfinite(g32))
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            bad = bad | torch.any(test(g32))
     return GradStats(sumsq, bad)
 
 
@@ -90,12 +105,47 @@ def decide_global(full: GradStats, cfg: adamw.AdamWConfig) -> Decision:
     return Decision(applied=not bool(full.nonfinite), scale=scale.float())
 
 
-def optimistic_step(params: PyTree, state: adamw.AdamWState, grads: PyTree, partial: GradStats,
-                    cfg: adamw.AdamWConfig) -> Tuple[PyTree, adamw.AdamWState, Decision]:
+# the names in ``adamw`` of (step, rollback) on the functional and on the
+# in-place path, looked up at each call
+_FUNCTIONAL = ("step", "rollback")
+_IN_PLACE = ("step_", "rollback_")
+
+
+def _op(ops, k):
+    return getattr(adamw, ops[k])
+
+
+def _optimistic(ops, params, state, grads, partial, cfg):
     dec = decide_partial(partial, cfg)
     if dec.applied:
-        params, state = adamw.step(params, state, grads, cfg, scale=1.0)
+        params, state = _op(ops, 0)(params, state, grads, cfg, scale=1.0)
     return params, state, dec
+
+
+def _validate(ops, params, state, grads, speculative, full, cfg):
+    want = decide_global(full, cfg)
+    applied_ok = speculative.applied and want.applied and bool(want.scale >= 1.0 - 1e-12)
+    skipped_ok = (not speculative.applied) and (not want.applied)
+    if applied_ok or skipped_ok:
+        return params, state, False
+    if speculative.applied:  # undo, then redo the true decision
+        params, state = _op(ops, 1)(params, state, grads, cfg, scale=1.0)
+    if want.applied:
+        params, state = _op(ops, 0)(params, state, grads, cfg, scale=want.scale)
+    return params, state, True
+
+
+def _sync(ops, params, state, grads, cfg, stats):
+    stats = stats if stats is not None else local_stats(grads)
+    want = decide_global(stats, cfg)
+    if want.applied:
+        return _op(ops, 0)(params, state, grads, cfg, scale=want.scale)
+    return params, state
+
+
+def optimistic_step(params: PyTree, state: adamw.AdamWState, grads: PyTree, partial: GradStats,
+                    cfg: adamw.AdamWConfig) -> Tuple[PyTree, adamw.AdamWState, Decision]:
+    return _optimistic(_FUNCTIONAL, params, state, grads, partial, cfg)
 
 
 def validate_and_fix(params: PyTree, state: adamw.AdamWState, grads: PyTree,
@@ -103,23 +153,31 @@ def validate_and_fix(params: PyTree, state: adamw.AdamWState, grads: PyTree,
                      ) -> Tuple[PyTree, adamw.AdamWState, bool]:
     """Rollback + redo when the optimistic decision was wrong.  Returns
     (params, state, amended)."""
-    want = decide_global(full, cfg)
-    applied_ok = speculative.applied and want.applied and bool(want.scale >= 1.0 - 1e-12)
-    skipped_ok = (not speculative.applied) and (not want.applied)
-    if applied_ok or skipped_ok:
-        return params, state, False
-    if speculative.applied:  # undo, then redo the true decision
-        params, state = adamw.rollback(params, state, grads, cfg, scale=1.0)
-    if want.applied:
-        params, state = adamw.step(params, state, grads, cfg, scale=want.scale)
-    return params, state, True
+    return _validate(_FUNCTIONAL, params, state, grads, speculative, full, cfg)
 
 
 def sync_step(params: PyTree, state: adamw.AdamWState, grads: PyTree, cfg: adamw.AdamWConfig,
               stats: Optional[GradStats] = None) -> Tuple[PyTree, adamw.AdamWState]:
     """Reference synchronous semantics: blocking global decision, then step."""
-    stats = stats if stats is not None else local_stats(grads)
-    want = decide_global(stats, cfg)
-    if want.applied:
-        return adamw.step(params, state, grads, cfg, scale=want.scale)
-    return params, state
+    return _sync(_FUNCTIONAL, params, state, grads, cfg, stats)
+
+
+def optimistic_step_(params: PyTree, state: adamw.AdamWState, grads: PyTree, partial: GradStats,
+                     cfg: adamw.AdamWConfig) -> Tuple[PyTree, adamw.AdamWState, Decision]:
+    """:func:`optimistic_step` in place: ``params`` and the moments of
+    ``state`` are overwritten; the returned state holds the new count."""
+    return _optimistic(_IN_PLACE, params, state, grads, partial, cfg)
+
+
+def validate_and_fix_(params: PyTree, state: adamw.AdamWState, grads: PyTree,
+                      speculative: Decision, full: GradStats, cfg: adamw.AdamWConfig
+                      ) -> Tuple[PyTree, adamw.AdamWState, bool]:
+    """:func:`validate_and_fix` in place: the rollback and the redo run
+    slice by slice into the stored parameters and moments."""
+    return _validate(_IN_PLACE, params, state, grads, speculative, full, cfg)
+
+
+def sync_step_(params: PyTree, state: adamw.AdamWState, grads: PyTree, cfg: adamw.AdamWConfig,
+               stats: Optional[GradStats] = None) -> Tuple[PyTree, adamw.AdamWState]:
+    """:func:`sync_step` in place."""
+    return _sync(_IN_PLACE, params, state, grads, cfg, stats)

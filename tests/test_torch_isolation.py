@@ -2,7 +2,7 @@
 neither ``jax`` nor the JAX package ``repro`` (the planner, the driver and
 the checkpoint store included, also once the planner has shape-evaluated a
 dense model, the two moe models, the second with the mla kind, the vlm and
-the encdec model), the serving and training
+the encdec model, and the examples), the serving and training
 entry points do not carry on on the CPU when the card they ask for is
 missing, and the training launcher takes every schedule of the JAX
 launcher when the CPU is asked for."""
@@ -42,6 +42,8 @@ def test_imports_pull_in_neither_jax_nor_repro():
         "import repro_torch.kernels.slstm_scan\n"
         "fixed_state_bytes(get_reduced('xlstm_350m'), 3, 2)\n"
         "fixed_state_bytes(get_reduced('recurrentgemma_9b'), 2, 2)\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.serve_pipeline\n"
+        "import repro_torch.examples.straggler_replan, repro_torch.examples.train_100m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

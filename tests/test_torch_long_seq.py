@@ -253,7 +253,7 @@ def _old_record(recs, layers, p):
     return min(recs, key=rank, default=None)
 
 
-LONG_RECORDS = {(24, 4, 4096): {"1f1b"}, (16, 4, 4096): {"zb-h1", "zb-v"}}
+LONG_RECORDS = {(24, 4, 4096): {"1f1b", "zb-h1", "zb-v"}}
 # the records that joined the table with the seq key: internlm2's at seq 4096
 # and gpt3's at the depth cut of chip_smoke.py phase 18
 NEW_RECORDS = {("internlm2-1.8b", "graph"): set(LONG_RECORDS),

@@ -6,13 +6,18 @@ Reduced configs; parameters and gradients from numpy with a seed.
   storages one eager walk allocates for ``grads`` and ``shared_acc``, on
   one card and per device (a stage's slice plus the shared leaves), for
   reduced internlm2 and gpt3-1.5b at p in {1, 2, 4} on both placements.
-* (b) ``optimizer_transient_bytes`` counts the leaves that ``adamw.step``
-  really steps per stage (stage 0, with the shared leaves, the largest),
-  and its one-card peak equals, within 256 bytes (a few 0-d tensors of the
-  decisions), the live bytes the real ``_update`` allocates on the path it
-  prices: one AdamW step a stage, optimistic (clip off) or scaled (clip on,
-  norms over it), for fp32 and bf16 weights.  An amended step, which rolls
-  back and steps again, holds more: documented as not priced.
+* (b) ``optimizer_transient_bytes`` counts the leaves that the in-place
+  ``adamw.step_`` really steps per stage (stage 0, with the shared leaves,
+  the largest), and its one-card peak equals, within 256 bytes (a few 0-d
+  tensors of the decisions), the live bytes the real ``_update`` allocates
+  on the path every step takes unless amended: one in-place AdamW step a
+  stage, optimistic (clip off) or scaled (clip on, norms over it), for
+  fp32 and bf16 weights.  An amended step, which rolls back and steps
+  again slice by slice, holds no more than priced (the price runs that
+  path).  internlm2-1.8b at full width, p=4, seq 4096, priced on meta
+  tensors, has a transient no larger than one slice's step plus the
+  largest leaf's fp32 square, and the planner prices its 24 layers under
+  zb-h1 and zb-v under the card's 80 GB with the graph records.
 * (c) With the same non-zero temp, ~30% of the cheapest total
   (``temp_bytes`` in the port, ``xla_temp_bytes`` in the JAX package), the
   two planners give the same candidates, choices, ``min_required_bytes``
@@ -53,6 +58,7 @@ torch = pytest.importorskip("torch")
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 import numpy as np  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 import test_torch_planner as planner_tests  # noqa: E402  (tests/ is on sys.path under pytest)
 
 from repro.configs import get_reduced as jax_get_reduced  # noqa: E402
@@ -117,21 +123,25 @@ def _numpy_like(tree, rng, scale):
 
 def _run_update(stacked, shared, grads, shared_grads, acfg):
     """The real optimizer half of a step under the live-bytes count;
-    returns (peak, elements per adamw.step call)."""
+    returns (peak, [(in-place op, elements it stepped)] in call order)."""
     state = launcher.init_state(stacked, shared)
-    calls, real_step = [], adamw.step
+    calls, real = [], {name: getattr(adamw, name) for name in ("step_", "rollback_")}
 
-    def counting_step(params, *a, **k):
-        calls.append(sum(t.numel() for t in tree_leaves(params)))
-        return real_step(params, *a, **k)
+    def counting(name):
+        def op(params, *a, **k):
+            calls.append((name, sum(t.numel() for t in tree_leaves(params))))
+            return real[name](params, *a, **k)
+        return op
 
-    adamw.step = counting_step
     try:
+        for name in real:
+            setattr(adamw, name, counting(name))
         with torch.no_grad(), steps._LiveBytes() as live:
             steps._update(stacked, shared, state["opt"], state["shared_opt"], grads, shared_grads,
                           torch.zeros(()), steps.TrainStepConfig(adamw=acfg))
     finally:
-        adamw.step = real_step
+        for name, fn in real.items():
+            setattr(adamw, name, fn)
     return live.peak, calls
 
 
@@ -148,7 +158,7 @@ def test_optimizer_transient_is_what_update_allocates(arch, dtype, path):
     shared_grads = _numpy_like(shared, rng, 10.0)
     priced = steps.optimizer_transient_bytes(stacked, shared, acfg)
     peak, calls = _run_update(stacked, shared, grads, shared_grads, acfg)
-    assert calls == list(priced.stage_elements)
+    assert calls == [("step_", n) for n in priced.stage_elements]
     assert priced.stage_elements[0] == max(priced.stage_elements)
     assert priced.per_stage[0] == max(priced.per_stage)
     assert priced.one_card <= peak <= priced.one_card + SCALAR_SLACK
@@ -156,9 +166,10 @@ def test_optimizer_transient_is_what_update_allocates(arch, dtype, path):
     assert max(priced.per_stage) <= priced.one_card
 
 
-def test_amended_step_holds_more_than_priced():
-    """The documented exclusion: stage 0's partial norm under the clip and
-    the full norm over it roll stage 0 back and step it again."""
+def test_amended_step_holds_no_more_than_priced():
+    """Stage 0's partial norm under the clip and the full norm over it roll
+    stage 0 back and step it again; slice by slice in place, that holds no
+    more than the price, which runs this path."""
     cfg, sched, spec, stacked, shared = _params("internlm2_1_8b", 4, "zb-h1")
     rng = np.random.default_rng(8)
     grads = _numpy_like(stacked, rng, 1.0)
@@ -168,8 +179,37 @@ def test_amended_step_holds_more_than_priced():
     acfg = adamw.AdamWConfig()
     priced = steps.optimizer_transient_bytes(stacked, shared, acfg)
     peak, calls = _run_update(stacked, shared, grads, shared_grads, acfg)
-    assert len(calls) == 5  # stage 0 twice (optimistic, then redone), stages 1-3 once
-    assert peak > priced.one_card + SCALAR_SLACK
+    n = priced.stage_elements
+    # stage 0 optimistic, rolled back and redone; stages 1-3 skipped, then scaled
+    assert calls == [("step_", n[0]), ("rollback_", n[0]), ("step_", n[0])] + [
+        ("step_", k) for k in n[1:]]
+    assert peak <= priced.one_card + SCALAR_SLACK
+
+
+def test_full_width_transient_is_one_slice_and_the_largest_square(monkeypatch):
+    """internlm2-1.8b at full width, p=4, seq 4096 (phase 32's run), priced
+    on meta tensors: the transient is no larger than one slice's step (at
+    most 40 bytes an element, bf16 weights) plus the largest leaf's fp32
+    square (the gradient norm's), and the planner prices the 24 layers
+    under zb-h1 and zb-v on one card, with the graph records, under the
+    card's 80 GB (1e9 bytes each)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("internlm2_1_8b")
+    sched = launcher.make_schedule("zb-h1", 4, 8)
+    spec = tlm.RunSpec(p=4, n_chunks=1, microbatch=1, seq_len=4096, m=8)
+    with FakeTensorMode():
+        stacked, shared = tlm.init_params(cfg, spec, sched.placement, device="cpu")
+    tr = steps.optimizer_transient_bytes(stacked, shared)
+    largest = max(t.numel() for t in tree_leaves((stacked, shared)))
+    assert largest == cfg.vocab * cfg.d_model
+    bound = 40 * adamw.SLICE + 4 * largest + SCALAR_SLACK
+    assert 4 * largest <= tr.one_card <= bound  # the square is in it
+    planner = HBMPlanner(cfg, p=4, m=8, microbatch=1, seq_len=4096, executor_mode="graph")
+    for name in ("zb-h1", "zb-v"):
+        one = planner.one_card_bytes(launcher.make_schedule(name, 4, 8))
+        assert one.transient <= bound, name
+        assert one.total < 80e9, (name, one.report())
 
 
 # --------------------------------------------------------------------- (c)
@@ -317,10 +357,10 @@ def test_checked_in_table_holds_both_training_configs():
             recs = tmem.cuda_temp_records(name, mode)
             # one record at the published depth, and internlm2's also at the
             # training phases' cut of chip_smoke.py, beside it, and under the
-            # graph at phase 32's seq 4096 (1F1B at the full depth, zb-h1 and
-            # zb-v at 16 layers); gpt3's under the graph at phase 18's cut
-            # (8 layers, zb-h1 and zb-v)
-            some = {("internlm2-1.8b", "graph"): [(24, 4, 4096), (16, 4, 4096)],
+            # graph at phase 32's seq 4096 (1F1B, zb-h1 and zb-v at the full
+            # depth); gpt3's under the graph at phase 18's cut (8 layers,
+            # zb-h1 and zb-v)
+            some = {("internlm2-1.8b", "graph"): [(24, 4, 4096)],
                     ("gpt3_1_5b", "graph"): [(8, 4, 1024)]}.get((name, mode), [])
             assert sorted(map(tmem.record_key, recs), key=str) == sorted(
                 ([(8, 4, 1024)] if name == "internlm2-1.8b" else []) + [(None, 4, 1024)] + some,
@@ -390,8 +430,8 @@ def test_default_cell_record_has_the_checked_in_form():
     """No cut given, no ``cut`` key: a record of the default cell has the
     keys of the checked-in ones measured there; internlm2-1.8b's records at
     its training phases' cut in ``chip_smoke.py`` (8 layers, p=4, every
-    schedule) and, under the graph, at phase 32's seq 4096 (1F1B at the
-    full depth, zb-h1 and zb-v at 16 layers), and gpt3-1.5b's at phase
+    schedule) and, under the graph, at phase 32's seq 4096 (1F1B, zb-h1
+    and zb-v at the full depth), and gpt3-1.5b's at phase
     18's 8 layers, have the same keys and the ``cut``."""
     table = json.loads(tmem.CUDA_TEMP_TABLE.read_text())
     cfg = get_reduced("internlm2_1_8b")
@@ -404,8 +444,8 @@ def test_default_cell_record_has_the_checked_in_form():
             for old in tmem.cuda_temp_records(name, mode, tmem.CUDA_TEMP_TABLE):  # read anew
                 cut = old.pop("cut", None)
                 some = {("internlm2-1.8b", "graph"): [
-                    {"layers": 24, "p": 4, "schedules": ["1f1b"], "seq_len": 4096},
-                    {"layers": 16, "p": 4, "schedules": ["zb-h1", "zb-v"], "seq_len": 4096}],
+                    {"layers": 24, "p": 4, "schedules": ["1f1b", "zb-h1", "zb-v"],
+                     "seq_len": 4096}],
                     ("gpt3_1_5b", "graph"): [
                     {"layers": 8, "p": 4, "schedules": ["zb-h1", "zb-v"]}]}.get((name, mode), [])
                 assert cut in (None, {"layers": 8, "p": 4, "schedules": list(launcher.SCHEDULES)}

@@ -194,6 +194,10 @@ FP32_SHAPES = {
     "fp32": ((1024, 2048, 2048), 128),
     "reduced": ((64, 48, 96), 128),
     "ragged-fp32": ((77, 129, 257), 128),
+    # train_100m's gpt-100m W ops at its 256 tokens a microbatch
+    "gpt-100m wq,wk,wv,wo": ((256, 640, 640), 128),
+    "gpt-100m wu,wg": ((256, 640, 2560), 128),
+    "gpt-100m wd": ((256, 2560, 640), 128),
 }
 
 
@@ -220,7 +224,8 @@ def test_plan_fp32_splits_n_only_where_the_tiles_do_not_fill(label):
     else:  # as many slices as the 16-row steps of N allow, up to 8
         assert plan.split == min(8, 1 << (plan.k_steps.bit_length() - 1))
     want = {"qwen2-moe router": 8, "deepseek router": 8, "fp32": 1, "reduced": 4,
-            "ragged-fp32": 4}[label]
+            "ragged-fp32": 4, "gpt-100m wq,wk,wv,wo": 8, "gpt-100m wu,wg": 8,
+            "gpt-100m wd": 8}[label]
     assert plan.split == want
 
 
