@@ -10,12 +10,16 @@ train), 22-23 next in a third (deepseek-v3-671b: 50 GB of weights to
 serve; in both the training phase first, in a fresh process, as the
 memory record it is gated against was measured), 24-27 next in a fourth
 (whisper-tiny and llava-next-mistral-7b, the training phases first),
-28-29 in a fifth (xlstm-350m), 30-31 in a sixth (recurrentgemma-9b),
-32-34 in a seventh (internlm2-1.8b at seq 4096, then the optimizer) and
-35 next (each example in a child process of its own),
+28-29, then 36's xlstm half and 38 in a fifth (xlstm-350m), 30-31 in a
+sixth (recurrentgemma-9b), 32, 36, 33, 34 and 37 in a seventh
+(internlm2-1.8b at seq 4096 and the dry run against it, the optimizer,
+then the 32768-token serve cells) and 35 next (each example in a child
+process of its own),
 17 after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
-launcher runs); any failed check raises and the exit code is not 0.
+launcher runs; each child starts while the one before it runs, imports
+what this script imports and waits for its arguments before it touches
+the card: ``Children``); any failed check raises and the exit code is not 0.
 internlm2-1.8b's training phases (9-16 and 13's held-out runs) run at
 T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
 
@@ -97,8 +101,9 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               launch counts are read around this run only.
 6. consistency -- decoding token s after a prefill of s tokens matches the
               last position of a prefill of s + 1 tokens, at full width.
-7. profile -- the device's busy share in prefill and in decode, and the
-              kernels that take the device time, from torch.profiler.
+7. profile -- cut for time (PERF.md §4; the device's busy share in prefill
+              and in decode at phase 5's shape; PERF.md keeps its last
+              readings).
 8. train-reduced -- reduced internlm2, gpt3-1.5b, gemma2-2b,
               qwen2-moe-a2.7b, deepseek-v3-671b, llava-next-mistral-7b,
               whisper-tiny, xlstm-350m and recurrentgemma-9b (float32), p=2,
@@ -129,11 +134,9 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               zb-h1's; then zb-h1 and zb-v once more, 2 steps each with
               the clip off, where their losses and grad norms must agree
               within the same tolerance.
-11. profile-train -- torch.profiler over one full-width step of zb-h1
-              (zb-v's too, until phases 34-35 needed the time), run right after its
-              steps in phase 9: the plan's ticks and chunk ops, host spans of the
-              pipeline and the optimizer, device busy share, top kernels,
-              wgrad_accum's share of device time.
+11. profile-train -- cut for time (PERF.md §4; torch.profiler over one eager
+              step of zb-h1 after phase 9; zb-v's until phases 34-35):
+              phase 16 profiles a replayed graph step of each.
 12. plan    -- the HBM planner at the train phase's run shape, per-device
               budgets from 1 to 80 GiB, under the model fidelity and under
               the measured one (slot bytes measured on the card): each
@@ -311,8 +314,7 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               checks and gate; 5 wgrad_accum launches a sLSTM block and 6
               an mLSTM block (mfg and mig on thin), one rmsnorm a
               block, a forward and a backward sLSTM kernel a sLSTM block
-              and microbatch; one zb-v graph step profiled after the gated
-              runs: each port kernel's share of the device time.
+              and microbatch.
 29. serve-xlstm -- xlstm-350m whole, p=3, phase 5's groups, prompts and
               new tokens: prefill and decode ms, RMSNorm and sLSTM kernel
               launches == the structure's count (a forward a sLSTM block
@@ -358,6 +360,31 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               ids in [0, V), train_100m's losses finite and falling (all
               its fp32 W ops on fma), the second run resumed at step
               EX_STEPS.  Phase 3 holds its W ops and norm rows.
+36. dryrun-vs-card -- ``launch/dryrun.py`` on fake cuda tensors prices
+              phase 32's three runs and phase 28's two at their own shapes:
+              its slots equal the card's (the gating planner's
+              ``slot_bytes``) byte for byte; phase 32's one-card totals (no
+              remainder) within DRY_ALLOC_RTOL of each run's
+              max_memory_allocated, xlstm's printed; zb-v's row on fake cpu
+              tensors equal to the fake cuda one; each row's step FLOPs
+              over the run's median step in TFLOP/s, printed.
+37. serve-32k -- the grid's prefill_32k and decode_32k cells at one
+              card's batch: internlm2-1.8b at full width and depth, p=4, 2
+              groups of 1, prompts of 32768 tokens, 4 new tokens, through
+              launch/serve.py::serve: prefill and decode ms and tokens/s,
+              RMSNorm launches == the structure's count, the dry run's rows
+              at this shape against the run's allocated peak within
+              SERVE_DRY_RTOL, decoding token 32768 against a prefill of
+              32769 within S32_CONSIST_REL_L2.
+38. serve-long-xlstm -- the grid's long_500k cell: xlstm-350m whole, p=3,
+              a prompt of 524288 tokens, 2 new tokens: as phase 37 (the
+              dry-run rows made on the host's CPU in processes of their own
+              while phases 28-29 run), the sLSTM kernel's launches
+              counted, its decode cache a request equal to phase 29's, the
+              gap within LX_CONSIST_REL_L2.  Phase 3 holds the sLSTM
+              forward at (1, 524288, 1024) bit for bit on its first and
+              last SLSTM_EDGE steps, and times it and both new RMSNorm
+              rows.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -366,6 +393,7 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -373,6 +401,7 @@ import functools
 import gc
 import io
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -399,11 +428,14 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import slstm_scan as slstm_kernel  # noqa: E402
 from repro_torch.kernels import wgrad_accum as wgrad_kernel  # noqa: E402
-from repro_torch.kernels.ref import rmsnorm_ref, slstm_scan_ref, wgrad_accum_ref  # noqa: E402
+from repro_torch.kernels.ref import rmsnorm_ref, slstm_scan_ref, slstm_step  # noqa: E402
+from repro_torch.kernels.ref import wgrad_accum_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.calibrate import calibration_record, cut_config  # noqa: E402
 from repro_torch.launch.serve import draw_front, serve  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
 from repro_torch.launch.steps import build_serve_step  # noqa: E402
+from repro_torch.models.serve import build_serve_program  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.examples.train_100m import gpt_100m  # noqa: E402
 from repro_torch.launch.train import init_state, make_data_at, make_schedule, make_step_fn  # noqa: E402
@@ -517,6 +549,7 @@ GRAPH_CHILD = "--graph-phases"  # ... and phase 16 with its plan-vs-card gate
 HELDOUT_CHILD = "--heldout-phase"  # ... and phase 13's held-out runs
 LONG_CHILD = "--long-phases"  # ... and phases 32-34
 EXAMPLE_CHILD = "--example"  # ... and one example of phase 35
+WAIT_TURN = "--wait-turn"  # a child's arguments come on its stdin (``Children``)
 
 # full-width training run: 4 stages on the card, m microbatches of b x seq;
 # internlm2's training phases (9-16 and the held-out runs) run at T_LAYERS
@@ -572,6 +605,11 @@ WGRAD_WHISPER = (("wq,wk,wv,wo", 384, 384), ("wu,wg", 384, 1536), ("wd", 1536, 3
 # step, which the chain's contraction (each step multiplies the carried
 # gradient by the forget gate, at most 1) keeps from growing
 SLSTM_GRAD_RTOL = 1e-5
+# the sLSTM forward at xlstm's 524288-token prefill is held bit for bit on its
+# first and its last SLSTM_EDGE steps: the plain loop, eager, took 1,747 ms
+# over 2048 steps at xlstm's training shape (PERF.md, NVIDIA H100 80GB HBM3,
+# 700 W), so all 524288 would take ~7 minutes
+SLSTM_EDGE = 2048
 # the chain bound: the dependent fp32 operations that carry a step's state
 # to the next, of 4 cycles each at the H100 SXM's 1.98 GHz boost clock
 # (NVIDIA's data sheet).  Forward 2: m_t = max(f_t + m_{t-1}, i_t) is an
@@ -685,13 +723,12 @@ WS_P, WS_PROMPT, WS_CONSIST_REL_L2, WS_CONSIST_MAX_ABS = 2, 432, 3e-2, 0.108
 # vocab 50304), p=3: 8 layers a stage, and the V placement's 6 groups of 4
 # hold the 24 layers too (at p=2 the V placement, at p=4 both, pad 8 of 32
 # slots); m=8 microbatches of 1 x 2048, so each sequence crosses 16 mLSTM
-# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v, one
-# zb-v graph step profiled after the gated runs (the sLSTM and thin W
-# kernels' shares; a profiled step left zb-v's window 0.34 GiB above its
-# record when zb-h1's was profiled before it: H100, 700 W)
+# chunks and runs the sLSTM kernel over 2048 steps; zb-h1 and zb-v (a zb-v
+# graph step was profiled after the gated runs until phases 36-38 needed
+# the time, 11.1 s: the sLSTM and thin W kernels' shares of its device
+# time, 1.1% and 0.5%, are in PERF.md)
 XT_P, XT_SEQ = 3, 2048
-XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=XT_SEQ,
-                   profile=True)
+XLSTM_TRAIN = dict(tag="train-xlstm", p=XT_P, schedules=("zb-h1", "zb-v"), seq=XT_SEQ)
 # recurrentgemma-9b training (phase 30): full width (d 4096, 16 q / 1 kv
 # heads of 256, lru_width 4096, d_ff 12288, window 2048), 6 of its 38
 # layers (two periods of rglru, rglru, attn_local), p=2, m=8 of 1 x 1024,
@@ -731,6 +768,68 @@ TL_EARLIER_TOK_S = {"1f1b": "8,132-8,157 at 24 layers", "zb-h1": "11,824-11,996 
 # seq 2304, p=2, zb-h1 and zb-v: cuda against cpu as phase 8, the graph
 # against the eager walk as phase 16
 TLR_P, TLR_M, TLR_B, TLR_SEQ, TLR_STEPS = 2, 2, 1, 2304, 2
+# the dry run against the card (phase 36): launch/dryrun.py prices phase 32's
+# three runs and phase 28's two at their own shapes, on fake cuda tensors.
+# Gate (a), exact: its slots (core/executor.py::slot_bytes on the fake walk)
+# equal the slots phase 32's and phase 28's gating planners measured on the
+# card, byte for byte.  Gate (b), phase 32's runs: its one-card total (the
+# planner's weights, moments, accumulators, walk and optimizer charge, no
+# remainder: the allocator's, which no dry run sees) within DRY_ALLOC_RTOL
+# of the run's own max_memory_allocated either way.  The seq-4096 24-layer
+# records (configs/cuda_temp_calibration.json, measured by launch/calibrate.py
+# in phase 32's window; NVIDIA H100 80GB HBM3, 700.00 W) put that total, with
+# the 0.707 GiB optimizer charge (a record's "priced" is weights, moments,
+# accumulators and walk alone), at +3.2% (1F1B), +4.98% (zb-h1) and +2.0%
+# (zb-v) of the allocated peak; the card read +3.32%, +5.08% and +2.14%.
+# The limit, 7%, sits 1.9 points above the largest of them and below the
+# +8.8% that one residual slot counted twice gives zb-h1 (a slot is 2.4 GiB,
+# 3.7% of its total; a slot missed is gate (a)'s).  It was set after the
+# first card run: the 5% fixed before it, from the records read as if
+# "priced" held the remainder, failed at +5.08% (zb-h1).  xlstm's totals are
+# printed, not gated (the gate is phase 32's): its records put them 6.6-7.8%
+# over the allocated peaks, the optimizer's charge being 5-9% of xlstm's total
+DRY_ALLOC_RTOL = 0.07
+# the grid's serve cells (phases 37 and 38) through launch/serve.py::serve,
+# the cuts of the cells' global batches (32 and 128 at 32768, 1 at 524288)
+# written down: internlm2-1.8b at full width and depth, p=4, 2 groups of 1,
+# prompts of 32768 tokens, 4 new tokens (prefill_32k, and decode_32k at a
+# batch of 2: the cell prefills 32768 tokens for each sequence it decodes);
+# xlstm-350m whole, p=3 (phase 29's), 1 group of 1, a prompt of 524288
+# tokens, 2 new tokens (long_500k: its decode state does not grow)
+S32_P, S32_M, S32_PROMPT, S32_NEW = 4, 2, 32768, 4
+LX_P, LX_M, LX_PROMPT, LX_NEW = 3, 1, 524288, 2  # p: phase 29's XS_P
+# internlm2's decode-vs-prefill limit at 32768, derived before any run of it by
+# the rule of phases 6 and 17: phase 6's reading, 0.0283 at 48 sublayers
+# (every run), puts the card's bf16 step at 0.0283 / sqrt(48) = 4.1e-3 a
+# sublayer; internlm2's 48 sublayers walk to sqrt(48) x 4.1e-3 = 2.83e-2,
+# and twice that is the limit; the max bound scales CONSIST_MAX_ABS (0.25 at
+# 3e-2) to it: 0.25 x 5.7e-2 / 3e-2 = 0.48.  A cache position off by one or
+# a key block the chunked attention dropped moves the logits by O(1)
+S32_CONSIST_REL_L2, S32_CONSIST_MAX_ABS = 5.7e-2, 0.48
+# xlstm's at 524288, derived before any run of it as phase 29's is, from the
+# JAX package's reading at long prompts: tools/serve_consistency.py --arch
+# xlstm_350m 24 --prompt 8192 --seeds 3 (reduced width, bf16, CPU) reads JAX
+# 0.0521 (the mean of 3 seeds; the port 0.0393), --prompt 32768 --seeds 2
+# JAX 0.0379 (the port 0.0525); the larger JAX reading, walked
+# with the card's step over the 24 sublayers, sqrt(0.0521^2 + 24 x
+# 4.1e-3^2) = 0.0558, and twice that is the limit, 0.112; the max bound as
+# phase 29's: 0.25 x (0.112 / 3e-2) x sqrt(1024 / 2048) = 0.66
+LX_CONSIST_REL_L2, LX_CONSIST_MAX_ABS = 0.112, 0.66
+# the dry run's serve rows at the run's shape against the run's
+# max_memory_allocated (less what the process held before it), set before the
+# first card run: the rows price the weights and caches from the same
+# leaves, and the transient as the live tensors of one group's walk through
+# one stage; what they cannot see is scratch that a kernel takes from the
+# allocator inside an op (cuBLAS's workspace) and the allocator's 512-byte
+# rounding, both < 0.5% here, and their inbox term (the messages of the other
+# stages of a tick, 1-2% of internlm2's total) may not all be live at the
+# transient's peak.  10% leaves room for twice that; a (1, 16, 1024, 32768)
+# fp32 score block that the walk missed is 13% of internlm2's total.  (The
+# first card run failed it for xlstm, at -17.5%: the walk then ran in
+# inference mode, where composite ops such as einsum reach the count whole
+# and their operands' copies went uncounted; the dry run now walks with
+# grad off, and the limit is as it was set)
+SERVE_DRY_RTOL = 0.10
 # the in-place optimizer against the whole-stage one it replaced (phase
 # 34): internlm2-1.8b at full width, OI_LAYERS of its 24 layers (both
 # paths' state and the whole stage's transient fit beside each other), p=4,
@@ -742,13 +841,14 @@ OI_PATHS = ("kept", "skipped-then-scaled", "amended")
 # the examples (phase 35), each a child process started as a user starts
 # it, `python -m repro_torch.examples.<name>`, with the card to itself;
 # train_100m twice on one checkpoint directory (the second resumes), at
-# 200 steps: the launcher's gate, the loss falls over the run, failed at 5
+# 160 steps: the launcher's gate, the loss falls over the run, failed at 5
 # steps (10.5031 -> 10.5657) and first held around step 130 (10.4049 at
-# step 129, 10.1850 at 199, 8.8670 at 299; NVIDIA H100 80GB HBM3, 700 W):
-# lr 1e-3 with no warm-up on a 32768-token vocabulary.  The JAX example's
-# own 5-step smoke fails the same assert of its launcher (10.5201 ->
-# 10.5287, on a CPU); its default is 300 steps, cut to 200 for time
-EX_STEPS = 200
+# step 129, 10.3550 and 10.3706 at 159 in two runs of 200, 10.1850 at 199,
+# 8.8670 at 299; NVIDIA H100 80GB HBM3, 700 W): lr 1e-3 with no warm-up on
+# a 32768-token vocabulary.  The JAX example's own 5-step smoke fails the
+# same assert of its launcher (10.5201 -> 10.5287, on a CPU); its default
+# is 300 steps, cut to 200 for time, then to 160 when phases 36-38 came
+EX_STEPS = 160
 # train_100m's W ops (gpt-100m, fp32: d 640, MHA, d_ff 2560) at its N =
 # 256 tokens a microbatch, on wgrad_accum's fma path, and its norms' rows
 GPT100M = gpt_100m()
@@ -825,13 +925,17 @@ L_BUDGET_MB, L_STEPS = 36864, 4
 # the median of the G_STEPS - 1 replayed steps after the capturing one (3
 # steps until phase 32 needed the time)
 G_RTOL, G_STEPS = 1e-6, 2
-# the driver's failure replay: full width, 1 layer a stage (a 6.3 GB
-# checkpoint against the full depth's 19 GB; 2 a stage, 8.8 GB, until the
-# moe phases lengthened the script), a failure at step 3 restored
-# from the step-2 checkpoint.  On the card the step is deterministic but for
-# the embedding gradient's index_add_ atomics, which reorder fp32 sums
-# (~1e-7 relative): 1e-6 relative on the replayed losses and grad norms
+# the driver's failure replay: full width, 1 layer a stage (2 a stage until
+# the moe phases lengthened the script), its vocabulary cut to R_VOCAB since
+# phases 36-38 needed the time (the embedding and head with their moments
+# were 3.8 of the 6.3 GB checkpoint, its saves and restores 54 of the
+# phase's 75 s: NVIDIA H100 80GB HBM3, 700 W), a failure at step 3
+# restored from the step-2 checkpoint.  On the card the step is
+# deterministic but for the embedding gradient's index_add_ atomics, which
+# reorder fp32 sums (~1e-7 relative): 1e-6 relative on the replayed losses
+# and grad norms
 R_SCHEDULE, R_LAYERS_PER_STAGE, R_STEPS, R_EVERY, R_FAIL_AT, R_RTOL = "zb-h1", 1, 4, 2, 3, 1e-6
+R_VOCAB = 32768
 
 
 # phase 13: the planner's one-card total (measured fidelity, temp term of the
@@ -1044,6 +1148,10 @@ def phase_kernels(cfg_full, cfg_red):
         ("long-train", T_B * TL_SEQ, d, bf16, bf16, "bulk"),
         # train_100m's gpt-100m (fp32): its blocks' and sink's rows
         ("gpt-100m-train", T_B * EX_SEQ, GPT100M.d_model, f32, f32, "bulk"),
+        # the grid's serve cells (phases 37-38): internlm2's 32768-token
+        # prefill and xlstm's 524288-token one, blocks' rows
+        ("serve-32k-prefill", S32_PROMPT, d, bf16, bf16, "bulk"),
+        ("xlstm-long-prefill", LX_PROMPT, xl.d_model, bf16, bf16, "bulk"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1063,9 +1171,10 @@ def phase_kernels(cfg_full, cfg_red):
         w = (1.0 + g.float()).to(xd)
         kernel_of = lambda a: rms_kernel.rmsnorm_fused(a, g)  # noqa: E731
         library_of = lambda a: torch.nn.functional.rms_norm(a, (h,), w, 1e-6)  # noqa: E731
-        ms, lib_ms, turns = in_turns(lambda: kernel_of(x), lambda: library_of(x))
+        calls = 10 if n * h > 2**27 else 100  # a call of the largest rows takes ~0.6 ms
+        ms, lib_ms, turns = in_turns(lambda: kernel_of(x), lambda: library_of(x), iters=calls)
         row = dict(max_abs_err=err, ms=ms, library_ms=lib_ms, path=plan.path,
-                   plain_ms=device_ms(lambda: rmsnorm_ref(x, g)), cold_ms=None,
+                   plain_ms=device_ms(lambda: rmsnorm_ref(x, g), iters=calls), cold_ms=None,
                    library_cold_ms=None)
         row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(n, h, xd, gd)
         cold = "cold: not measured (a few rows; on the path they come from the previous op)"
@@ -1073,7 +1182,7 @@ def phase_kernels(cfg_full, cfg_red):
             out_bytes = x.numel() * x.element_size()
             kernel_cold, k = rotated(kernel_of, x, out_bytes)
             library_cold, _ = rotated(library_of, x, out_bytes)
-            iters = k * -(-100 // k)
+            iters = k * -(-calls // k)
             row["cold_ms"], row["library_cold_ms"], cold_turns = in_turns(
                 kernel_cold, library_cold, iters=iters)
             cold = (f"cold (x and y rotated over {k} copies, {iters} calls a graph): "
@@ -1487,7 +1596,64 @@ def phase_kernels_slstm():
           f"{floor:.4f}, kernels at {floor / ms:.1%} of it; no library call computes the loop")
     del i_pre, f_pre, z, kernels, plain
     torch.cuda.empty_cache()
+    row.update(_slstm_long_check(h))
     return row
+
+
+def _slstm_long_check(h: int):
+    """The sLSTM forward kernel at xlstm's 524288-token prefill, (1,
+    LX_PROMPT, h): each (b, s, h) fp32 array holds 2^29 elements, 2^31
+    bytes, past any 32-bit byte offset.  Its first SLSTM_EDGE steps against
+    the plain loop from the start, and its last SLSTM_EDGE against the
+    plain loop's steps from the kernel's own state before them (every
+    step's c, n, m are the kernel's outputs): h and the state bit for bit.
+    Then the forward's device ms (CUDA events around a CUDA graph of a few
+    calls), the plain loop's ms over those last steps (eager), and the
+    forward's bound: i, f, z read and h written once (bytes), or the
+    forward chain's 2 dependent ops a step (operations).  Prefill runs the
+    forward alone; no PyTorch call computes the loop."""
+    b, s = 1, LX_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    i_pre, f_pre, z = (torch.randn((b, s, h), generator=gen, device="cuda") * sc
+                       for sc in (1.5, 1.5, 0.8))
+    hs, c, n, m = slstm_kernel.forward(i_pre, f_pre, z)
+    e = SLSTM_EDGE
+    ph, (pc, pn, pm) = slstm_scan_ref(i_pre[:, :e], f_pre[:, :e], z[:, :e])
+    head = (torch.equal(ph, hs[:, :e]) and torch.equal(pc, c[:, e - 1])
+            and torch.equal(pn, n[:, e - 1]) and torch.equal(pm, m[:, e - 1]))
+    t0 = s - e
+    state, got = (c[:, t0 - 1], n[:, t0 - 1], m[:, t0 - 1]), []
+
+    def tail():
+        st, out = state, []
+        for t in range(t0, s):
+            h_t, *st = slstm_step(i_pre[:, t], f_pre[:, t], z[:, t], *st)
+            out.append((h_t, *st))
+        return out
+
+    got = tail()
+    torch.cuda.synchronize()
+    end = all(torch.equal(a, w[:, t0 + k]) for k, step in enumerate(got)
+              for a, w in zip(step, (hs, c, n, m)))
+    what = f"slstm_scan forward at (b, s, h) = ({b}, {s}, {h})"
+    check(head and end, f"{what}: the first or last {e} steps are not bit for bit the plain "
+          f"loop's (first {head}, last {end})")
+    del hs, c, n, m, got
+    ms = device_ms(lambda: slstm_kernel.forward(i_pre, f_pre, z), iters=2, replays=2)
+    plain_tail_ms = eager_ms(tail, iters=1, warmup=0)
+    bytes_ms = 4 * b * s * h * 4 / HBM_BYTES_PER_S * 1e3
+    chain_ms = s * SLSTM_CHAIN_OPS[0] * SLSTM_OP_CYCLES / H100_BOOST_HZ * 1e3
+    bound, bound_by = max((bytes_ms, "bytes"), (chain_ms, "operations"))
+    print(f"[kernels] {what} fp32: the first {e} steps from the start and the last {e} from the "
+          f"kernel's state at step {t0 - 1} bit for bit the plain loop's (h, c, n, m); device ms "
+          f"forward={ms:.3f} bound={bound:.3f} ({bound_by}: bytes {bytes_ms:.3f}, chain "
+          f"{chain_ms:.3f}), kernel at {bound / ms:.1%} of it; the plain loop's last {e} steps "
+          f"{plain_tail_ms:.1f} ms (eager, host included: {plain_tail_ms / e * 1e3:.1f} us a "
+          f"step); no library call computes the loop")
+    del i_pre, f_pre, z
+    torch.cuda.empty_cache()
+    return dict(long_shape=[b, s, h], long_fwd_ms=ms, long_bound_ms=bound,
+                long_bound_by=bound_by, long_plain_tail_ms=plain_tail_ms, long_tail_steps=e)
 
 
 def _to(tree, device):
@@ -1799,8 +1965,6 @@ def phase_train(cfg):
                              t.numel() for t in tree_leaves((state[0], state[1]))),
                          param_bytes=sum(t.numel() * t.element_size()
                                          for t in tree_leaves((state[0], state[1]))))
-        if name == T_PROFILED[0]:  # zb-v's eager profile cut for time
-            phase_profile_train(name, plan, state)
         del state
         torch.cuda.empty_cache()
         print(f"[train] {name}: {time.perf_counter() - t_sched:.1f} s in all")
@@ -1965,17 +2129,15 @@ def _check_v_grads(cfg, stacked, shared, side, g_lin, sg_lin, loss_lin):
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(name, plan, state, tag="profile-train", opts=None, cfg=None):
+def phase_profile_train(name, plan, state, tag):
     """Device busy share of one full-width training step under ``name``
-    (from fresh AdamW moments, or ``opts`` = (opt, shared_opt)); returns
-    {kernel name: launches} of that step as the profiler saw them (empty
-    when it recorded no device activity).  ``cfg`` gives a vlm or encdec
-    model its front's side input."""
+    (from fresh AdamW moments); returns {kernel name: launches} of that step
+    as the profiler saw them (empty when it recorded no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked, shared, spec, sched, step, data = state
-    opt, sopt = opts if opts is not None else (adamw.init(stacked), adamw.init(shared))
-    side = side_from_batch(data.batch_at(T_STEPS), spec, DEV, cfg)
+    opt, sopt = adamw.init(stacked), adamw.init(shared)
+    side = side_from_batch(data.batch_at(T_STEPS), spec, DEV)
     torch.cuda.synchronize()
     t_phase = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2051,40 +2213,6 @@ def _union_us(intervals) -> float:
             busy += e - max(s, end)
             end = e
     return busy
-
-
-def phase_profile(cfg, stacked, shared, prompts, new_tokens: int = 2):
-    """Device busy share of the serving path under torch.profiler: a
-    prefill-only run and a prefill + decode run (2 decode steps; 4 until
-    phase 32 needed the time); decode's share is their difference.  The
-    profiler adds host time to every op, so the idle share it shows is an
-    upper bound on the unprofiled run's."""
-    from torch.profiler import ProfilerActivity, profile
-
-    runs, t_phase = {}, time.perf_counter()
-    for new in (0, new_tokens):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            serve(cfg, stacked, shared, prompts, p=P, new_tokens=new)
-            wall_us = (time.perf_counter() - t0) * 1e6
-        iv = _device_intervals(prof)
-        runs[new] = (wall_us, _union_us(iv), iv)
-    (w0, b0, _), (w1, b1, iv1) = runs[0], runs[new_tokens]
-    if not iv1:
-        print("[profile] the profiler recorded no device activity: busy share not measured")
-        return
-    print(f"[profile] prefill: wall {w0 / 1e3:.1f} ms, device busy {b0 / 1e3:.1f} ms "
-          f"(idle share {1 - b0 / w0:.3f})")
-    print(f"[profile] decode ({new_tokens} steps): wall {(w1 - w0) / 1e3:.1f} ms, device busy "
-          f"{(b1 - b0) / 1e3:.1f} ms (idle share {1 - (b1 - b0) / (w1 - w0):.3f})")
-    by_name = {}
-    for s_, e_, name in iv1:
-        by_name[name] = by_name.get(name, 0.0) + (e_ - s_)
-    total = sum(by_name.values())
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[profile] {us / total:6.1%} {us / 1e3:9.2f} ms  {name[:100]}")
-    print(f"[profile] both profiled runs and their reading took "
-          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def _gib(x: float) -> str:
@@ -2312,7 +2440,7 @@ def phase_replay(cfg):
     losses and grad norms must equal an uninterrupted run's of the same
     mode, and the graph's uninterrupted run the eager one's.  Returns both
     kernels' launches over the four runs."""
-    cut = dataclasses.replace(cfg, n_layers=R_LAYERS_PER_STAGE * T_P)
+    cut = cut_config(cfg, R_LAYERS_PER_STAGE * T_P, vocab=R_VOCAB)
     sched = make_schedule(R_SCHEDULE, T_P, T_M)
     spec = RunSpec(p=T_P, n_chunks=sched.n_chunks, microbatch=T_B, seq_len=T_SEQ, m=T_M)
     plan = compile_plan(sched)
@@ -2418,8 +2546,9 @@ def _replay_one_mode(cut, sched, spec, plan, data_at, mode, per_step):
                 exact += met[key] == clean[k][key]
         graphs = (f" ({clean_captures} capture uninterrupted, {captures} with the failure)"
                   if mode == "graph" else "")
-        print(f"[replay] {R_SCHEDULE} {cut.n_layers} layers ({R_LAYERS_PER_STAGE} a stage, depth cut "
-              f"to keep checkpoints small), full width, executor {mode}{graphs}: {R_STEPS} steps, "
+        print(f"[replay] {R_SCHEDULE} {cut.n_layers} layers ({R_LAYERS_PER_STAGE} a stage) and "
+              f"vocab {cut.vocab} (cut to keep checkpoints small), full width, executor "
+              f"{mode}{graphs}: {R_STEPS} steps, "
               f"checkpoint every {R_EVERY}, failure at step {R_FAIL_AT}; steps run {ran}; "
               f"parameters moved {moves(ptrs)} time(s); losses clean "
               f"{[clean[k]['loss'] for k in range(R_STEPS)]} replayed "
@@ -3136,12 +3265,6 @@ def _cut_run(cfg, tr, name, mode, seq, eager=None):
     mem = _mem(walk)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-    if mode == "graph" and tr.get("profile") and name == tr["schedules"][-1]:
-        # the last run of the phase: no gated window follows a profiled step
-        # one more step, profiled, its moments
-        phase_profile_train(f"{name} {mode}", plan, (stacked, shared, spec, sched, step, data),
-                            tag=tag.replace("train", "profile"),
-                            opts=(state["opt"], state["shared_opt"]), cfg=cfg)
     del state
     what = f"{cfg.name} {name}"
     if mode == "eager":
@@ -3290,10 +3413,13 @@ def phase_train_cut(cfg, tr=MOE_TRAIN):
                 tr["res_per_token"] = measured.slot_bytes(1)[1]["res"][0] / (T_B * seq)
             print(f"[{tag}] {cfg.name} {mode} {name}: the model fidelity's total "
                   f"{_gib(model.one_card_bytes(r['sched'], mode).total)} GiB")
+        for C in {r["sched"].n_chunks for r in runs.values() if r["seq"] == seq}:
+            tr.setdefault("slots", {})[(seq, C)] = measured.slot_bytes(C)[1]  # phase 36's
         del measured
         torch.cuda.empty_cache()
     print(f"[{tag}] {cfg.name}: overshoot over {len(overs)} runs min {_gib(min(overs))} max "
           f"{_gib(max(overs))} GiB")
+    tr["runs"] = {k: {f: r[f] for f in ("peak_gb", "tok_s", "seq")} for k, r in runs.items()}
     if "modes" in tr:  # phase 32: its own gates in place of the plain autograd walk
         return runs
     t0 = time.perf_counter()
@@ -3355,7 +3481,7 @@ def phase_train_long(cfg):
     ``prefetch``: phase 21's checks and gate against the record of the
     run's depth at this seq, the reserved peak under TL_RESERVED_MAX_GB, and
     the remat's gate on the measured residual per token; returns {run: the
-    kernels' launches}."""
+    kernels' launches}, and the full depth's runs and slots for phase 36."""
     t0 = time.perf_counter()
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3373,7 +3499,7 @@ def phase_train_long(cfg):
                       data=lambda: _Fetched(prefetch(iter(files), depth=2)))
             runs = phase_train_cut(cut, tr)
             if layers == cfg.n_layers:
-                long = tr["res_per_token"]
+                long, full = tr["res_per_token"], tr
             for (name, mode), r in runs.items():
                 print(f"[{tag}] {name} {mode}: reserved peak {r['reserved_gb']:.2f} GB (limit "
                       f"{TL_RESERVED_MAX_GB} GB), allocated {r['peak_gb']:.2f} GB; "
@@ -3394,7 +3520,7 @@ def phase_train_long(cfg):
           f"{TL_SEQ} (query blocks recomputed in B): {long / short:.3f} of it")
     check(long <= short, f"{cfg.name}: the residual per token at seq {TL_SEQ} ({long:.0f} B) "
           f"passes the one at seq {T_SEQ} ({short:.0f} B)")
-    return counts
+    return counts, full
 
 
 def _reduced_long_run(cfg, name, device, mode):
@@ -3560,29 +3686,28 @@ def phase_optim_inplace():
 # --------------------------------------------------------------------- #
 # phase 35: the examples, as a user starts them
 # --------------------------------------------------------------------- #
-def _example_run(name, args):
+def _example_run(kids, name, args):
     """``python -m repro_torch.examples.<name> <args>``'s run in a child
-    process (this script's ``EXAMPLE_CHILD``): (stdout lines without the
-    counts line, the kernels' launch counts, launches by shape)."""
+    process (this script's ``EXAMPLE_CHILD``, the next of ``kids``):
+    (stdout lines without the counts line, the kernels' launch counts,
+    launches by shape)."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), EXAMPLE_CHILD,
-                          name, *args], capture_output=True, text=True, timeout=600)
-    shown = out.stdout.splitlines()
+    rc, stdout, stderr = kids.run(EXAMPLE_CHILD, [name, *args], timeout=600)
+    shown = stdout.splitlines()
     if len(shown) > 40:  # train_100m's 300 step lines: the first and the last
         shown = shown[:12] + [f"... ({len(shown) - 40} lines)"] + shown[-28:]
     print("\n".join(shown), flush=True)
-    print(out.stderr[-4000:], end="", file=sys.stderr, flush=True)
-    check(out.returncode == 0, f"python -m repro_torch.examples.{name} {' '.join(args)} exited "
-          f"{out.returncode}")
-    lines = out.stdout.strip().splitlines()
+    print(stderr[-4000:], end="", file=sys.stderr, flush=True)
+    check(rc == 0, f"python -m repro_torch.examples.{name} {' '.join(args)} exited {rc}")
+    lines = stdout.strip().splitlines()
     got = json.loads(lines[-1])
     check(lines[-2] == "OK", f"example {name}: its last line is {lines[-2]!r}, not OK")
     print(f"[examples] {name} {' '.join(args)}: exit 0, OK, {time.perf_counter() - t0:.1f} s "
-          f"(the process included); launches {got['launches']}")
+          f"(its turn in the process included); launches {got['launches']}")
     return lines[:-1], tuple(got["launches"]), got["shapes"]
 
 
-def phase_examples():
+def phase_examples(kids):
     """Phase 35: quickstart, serve_pipeline and train_100m (twice, on one
     checkpoint directory) run each in a child process as a user starts
     them, with the card to itself: each exits 0 and prints OK; the
@@ -3593,18 +3718,18 @@ def phase_examples():
     red = get_reduced(ARCH)
     band = (0.1 * np.log(red.vocab), 3.0 * np.log(red.vocab))
     counts, shapes = {}, collections.Counter()
-    lines, counts["example-quickstart"], sh = _example_run("quickstart", [])
+    lines, counts["example-quickstart"], sh = _example_run(kids, "quickstart", [])
     shapes.update(sh)
     loss = float(next(x for x in lines if x.startswith("pipelined loss:")).split(":")[1])
     check(band[0] < loss < band[1], f"quickstart: pipelined loss {loss} outside {band}")
-    lines, counts["example-serve_pipeline"], sh = _example_run("serve_pipeline", [])
+    lines, counts["example-serve_pipeline"], sh = _example_run(kids, "serve_pipeline", [])
     shapes.update(sh)
     ids = json.loads(next(x for x in lines if x.startswith("generated:")).split(":", 1)[1])
     check(len(ids) == 9 and all(0 <= t < red.vocab for t in ids),
           f"serve_pipeline: generated ids {ids} not 9 in [0, {red.vocab})")
     with tempfile.TemporaryDirectory() as tmp:
         args = ["--steps", str(EX_STEPS), "--ckpt-dir", str(pathlib.Path(tmp) / "ckpt")]
-        lines, counts["example-train_100m"], sh = _example_run("train_100m", args)
+        lines, counts["example-train_100m"], sh = _example_run(kids, "train_100m", args)
         shapes.update(sh)
         losses = [float(x.split("loss=")[1].split()[0]) for x in lines if x.startswith("step ")]
         check(len(losses) == EX_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -3612,7 +3737,7 @@ def phase_examples():
         check(counts["example-train_100m"][2]["fma"] == counts["example-train_100m"][0] > 0,
               f"train_100m: wgrad_accum launches {counts['example-train_100m']}: its fp32 W "
               f"ops should all take the fma path")
-        lines, again, sh = _example_run("train_100m", args)
+        lines, again, sh = _example_run(kids, "train_100m", args)
         shapes.update(sh)
         check(not any(x.startswith("step ") for x in lines) and any(
             x.startswith(f"steps=0: the checkpoint in") for x in lines),
@@ -3752,6 +3877,167 @@ def phase_serve_full(cfg, tag, p, prompt, limit, max_abs):
     return launches, by_path, sl
 
 
+# --------------------------------------------------------------------- #
+# phases 36-38: the dry run against the card, and the grid's serve cells
+# --------------------------------------------------------------------- #
+def _listed(slots):
+    return {k: (list(v) if isinstance(v, tuple) else v) for k, v in slots.items()}
+
+
+def _card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0].strip()
+
+
+def phase_dryrun_vs_card(tag, arch, tr, layers=None, gate_total=True, cpu_rows=()):
+    """Phase 36: ``launch/dryrun.py`` prices each gated run of ``tr`` (phase
+    32's or phase 28's, with their ``slots`` and ``runs`` as
+    ``phase_train_cut`` left them) at its own shape on fake cuda tensors,
+    in this process.  ``cpu_rows`` are rows of some of those runs that a
+    ``_dryrun_process`` made on fake cpu tensors (the CLI's default device)
+    while the runs held the card: each must equal its fake cuda row in
+    slots, bytes and FLOPs.  Each row's slots equal the card's byte for
+    byte (gate (a)); its one-card total, no remainder, is within
+    DRY_ALLOC_RTOL of the run's max_memory_allocated when ``gate_total``
+    (gate (b)), else printed; its step FLOPs over the run's median step,
+    in TFLOP/s, printed."""
+    card, total_memory = _card_name(), torch.cuda.get_device_properties(0).total_memory
+    cpu = {(r["schedule"], r["executor_mode"]): r for r in cpu_rows}
+    for (name, mode), r in tr["runs"].items():
+        t0 = time.perf_counter()
+        row = dryrun.dryrun_cell(arch, "train_4k", schedule=name, p=tr["p"], m=T_M,
+                                 microbatch=T_B, layers=layers, seq_len=r["seq"],
+                                 executor_mode=mode, device="cuda", verbose=False,
+                                 device_bytes=total_memory)
+        how = f"fake cuda, {time.perf_counter() - t0:.1f} s"
+        if (name, mode) in cpu:
+            twin = cpu.pop((name, mode))
+            for k in ("slots", "bytes", "one_card", "flops", "step_flops", "pieces"):
+                check(twin[k] == row[k], f"{tag} {name} {mode}: the fake cpu row's {k} "
+                      f"{twin[k]} is not the fake cuda row's {row[k]}")
+            how += f"; the fake cpu row the same, {twin['build_s']} s in its own process"
+        want = _listed(tr["slots"][(r["seq"], row["n_chunks"])])
+        check(row["slots"] == want, f"{tag} {name} {mode}: the dry run's slots {row['slots']} "
+              f"are not the card's {want}")
+        total, alloc = row["one_card"]["total"], r["peak_gb"] * 1e9
+        gap = total / alloc - 1
+        if gate_total:
+            check(abs(gap) <= DRY_ALLOC_RTOL, f"{tag} {name} {mode}: dry-run total "
+                  f"{_gib(total)} GiB is {gap:+.2%} of the run's allocated {_gib(alloc)} GiB "
+                  f"(limit {DRY_ALLOC_RTOL:.0%})")
+        step_s = T_M * T_B * r["seq"] / r["tok_s"]
+        print(f"[{tag}] {arch} {row['layers']} layers {name} {mode} p={row['p']} m={row['m']} "
+              f"b={row['microbatch']} seq={r['seq']}: the dry run ({how}) slots == the card's "
+              f"byte for byte {want}; one-card total {_gib(total)} GiB ("
+              + ", ".join(f"{k} {_gib(v)}" for k, v in row["one_card"].items() if k != "total")
+              + f"; no remainder) against max_memory_allocated {_gib(alloc)} GiB: {gap:+.2%}"
+              + (f" (limit {DRY_ALLOC_RTOL:.0%})" if gate_total else " (printed, not gated)")
+              + f"; a device of a {row['p']}-stage pipeline {_gib(row['total_bytes'])} GiB, "
+              f"fits the card's {row['device_bytes']} B: {row['fits']}"
+              + f"; step FLOPs {row['step_flops']:.4g} over the median step {step_s * 1e3:.1f} "
+              f"ms: {row['step_flops'] / step_s / 1e12:.1f} TFLOP/s on {card}")
+    check(not cpu, f"{tag}: fake cpu rows of no gated run: {sorted(cpu)}")
+
+
+def _serve_cache_bytes(cfg, p, m, b, cache_len) -> int:
+    """Bytes of the caches ``launch/serve.py::serve`` allocates for p stages,
+    m groups of b at ``cache_len`` positions (on the meta device)."""
+    spec = RunSpec(p=p, n_chunks=1, microbatch=b, seq_len=cache_len, m=m)
+    _, cache_init = build_serve_program(cfg, spec, Placement.linear(p), "prefill")
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(cache_init(b, cache_len, device="meta", lead=(p, m))))
+
+
+def phase_serve_long(cfg, tag, p, m, prompt, new, limit, max_abs, dry_rows):
+    """Phase 37 (internlm2-1.8b, prefill_32k and decode_32k) and phase 38
+    (xlstm-350m, long_500k): served whole through ``launch/serve.py::serve``
+    at m groups of 1 and prompts of ``prompt`` tokens, ``new`` new tokens,
+    no warm-up (the process ran its earlier phases): prefill and decode ms
+    and tokens/s; RMSNorm and sLSTM kernel launches == the structure's
+    count (``_serve_counted``); the dry run's ``dry_rows`` at this run shape
+    (``_dryrun_process``es' on fake cpu tensors) against the run's
+    max_memory_allocated, less what the process held before the run,
+    within SERVE_DRY_RTOL; then decoding token ``prompt`` against a prefill
+    of ``prompt + 1`` within ``limit`` and ``max_abs``.  Returns the
+    kernels' launches as ``_serve_counts``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    spec = RunSpec(p=p, n_chunks=1, microbatch=1, seq_len=prompt, m=m)
+    stacked, shared = init_params(cfg, spec, Placement.linear(p), seed=0, device=DEV)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (m, 1, prompt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, by_path, sl = _serve_counted(
+        tag, cfg, p, m, new, lambda: serve(cfg, stacked, shared, prompts, p=p, new_tokens=new,
+                                           log=lambda x: print(f"[{tag}] {x}")))
+    peak = torch.cuda.max_memory_allocated() - base
+    _check_served(cfg, res, m, 1, new)
+    decode_ms = [x * 1e3 for x in res.decode_s]
+    print(f"[{tag}] {cfg.name} ({cfg.n_layers} layers) p={p} m={m} b=1 prompt={prompt} "
+          f"new={new}: prefill_ms={res.prefill_s * 1e3:.1f} "
+          f"prefill_tok_per_s={m * prompt / res.prefill_s:.0f} decode_ms_per_step "
+          f"{[round(x, 1) for x in decode_ms]} generated_tok_per_s="
+          f"{m * new / sum(res.decode_s):.2f}; max_memory_allocated above the process's "
+          f"{_gib(base)} GiB: {_gib(peak)} GiB; rmsnorm launches {launches} by path {by_path}, "
+          f"sLSTM kernel {sl} ({_card_name()})")
+    for row in dry_rows:
+        check((row["p"], row["m"], row["microbatch"], row["seq_len"]) == (p, m, 1, prompt),
+              f"{tag}: a dry-run row at {row['p'], row['m'], row['microbatch'], row['seq_len']}")
+        print(f"[{tag}] dry run {row['shape']} ({row['schedule']}, {row['device']}, "
+              f"{row['build_s']} s): one-card " + ", ".join(
+                  f"{k} {_gib(v)}" for k, v in row["one_card"].items()) + " GiB; step FLOPs "
+              f"{row['step_flops']:.4g}")
+    priced = max(r["one_card"]["total"] for r in dry_rows)
+    gap = priced / peak - 1
+    check(abs(gap) <= SERVE_DRY_RTOL, f"{tag}: the dry run's {_gib(priced)} GiB is {gap:+.2%} "
+          f"of the run's {_gib(peak)} GiB (limit {SERVE_DRY_RTOL:.0%})")
+    print(f"[{tag}] the dry run's larger row {_gib(priced)} GiB against the run's {_gib(peak)} "
+          f"GiB: {gap:+.2%} (limit {SERVE_DRY_RTOL:.0%})")
+    phase_consistency(cfg, stacked, shared, prompts, res, p=p, limit=limit, tag=tag,
+                      max_abs=max_abs)
+    del stacked, shared, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _serve_counts(launches, by_path, sl)
+
+
+def _dryrun_process(arch, shape, **over):
+    """``python -m repro_torch.launch.dryrun`` for one cell, started now on
+    the host's CPU (fake cpu tensors: it never touches the card), its rows
+    to a temporary file: (the process, the file).  A process still running
+    when this one exits is stopped, and its file removed."""
+    out = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+    out.close()
+    args = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+            "--out", out.name]
+    for k, v in over.items():
+        args += [f"--{k.replace('_', '-')}", str(v)]
+    proc = subprocess.Popen(args, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(_stop, proc, out.name)
+    return proc, out.name
+
+
+def _stop(proc, path) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    pathlib.Path(path).unlink(missing_ok=True)
+
+
+def _dryrun_rows(procs):
+    """The rows of ``_dryrun_process``es, each waited for; a failed one fails."""
+    rows = []
+    for proc, path in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"a dry-run process failed (exit {proc.returncode}): "
+              f"{log[-2000:]}")
+        rows += json.loads(pathlib.Path(path).read_text())
+        pathlib.Path(path).unlink()
+    return rows
+
+
 def _kernel_row(name, source, replaces, launches, by_path, row, **extra):
     return {
         "name": name,
@@ -3779,27 +4065,33 @@ def main() -> int:
     cfg_full, cfg_red = get_config(ARCH), get_reduced(ARCH)
     cfg_train = train_config()
     t_start = time.perf_counter()
+    kids = Children(CHILD_ORDER)  # the first child imports while the kernels build
+    # phase 38's dry-run rows: a walk of 524288 tokens on fake cpu tensors (~1
+    # min of one core), in processes of their own on the host's CPU while the
+    # children before xlstm's hold the card
+    xlstm_dry = [_dryrun_process(XLSTM, sh, p=LX_P, m=LX_M, microbatch=1, seq_len=LX_PROMPT,
+                                 new_tokens=LX_NEW) for sh in ("prefill_32k", "long_500k")]
     phase_build()
     phase_card()
     print(f"[time] build and card done at {time.perf_counter() - t_start:.1f}s")
-    more = run_child(GPT3_CHILD, "gpt3_launches")
+    more = run_child(kids, GPT3_CHILD, "gpt3_launches")
     print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(MOE_CHILD, "moe_launches"))
+    more.update(run_child(kids, MOE_CHILD, "moe_launches"))
     print(f"[time] qwen2-moe phases (child process) done at {time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(DEEPSEEK_CHILD, "deepseek_launches"))
+    more.update(run_child(kids, DEEPSEEK_CHILD, "deepseek_launches"))
     print(f"[time] deepseek-v3 phases (child process) done at "
           f"{time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(FRONT_CHILD, "front_launches"))
+    more.update(run_child(kids, FRONT_CHILD, "front_launches"))
     print(f"[time] whisper and llava phases (child process) done at "
           f"{time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(XLSTM_CHILD, "xlstm_launches"))
+    more.update(run_child(kids, XLSTM_CHILD, "xlstm_launches", _dryrun_rows(xlstm_dry)))
     print(f"[time] xlstm phases (child process) done at {time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(RGEMMA_CHILD, "recurrentgemma_launches"))
+    more.update(run_child(kids, RGEMMA_CHILD, "recurrentgemma_launches"))
     print(f"[time] recurrentgemma phases (child process) done at "
           f"{time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(LONG_CHILD, "long_launches"))
+    more.update(run_child(kids, LONG_CHILD, "long_launches"))
     print(f"[time] seq-4096 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
-    more.update(phase_examples())
+    more.update(phase_examples(kids))
     print(f"[time] examples phase (child processes) done at {time.perf_counter() - t_start:.1f}s")
     rows = phase_kernels(cfg_full, cfg_red)
     print(f"[time] rmsnorm kernel phase done at {time.perf_counter() - t_start:.1f}s")
@@ -3813,7 +4105,6 @@ def main() -> int:
     stacked, shared, prompts, res, serve_launches = phase_serve(cfg_full)
     print(f"[time] serve phase (5) done at {time.perf_counter() - t_start:.1f}s")
     phase_consistency(cfg_full, stacked, shared, prompts, res)
-    phase_profile(cfg_full, stacked, shared, prompts)
     print(f"[time] internlm2 serving phases (5-7) done at {time.perf_counter() - t_start:.1f}s")
     del stacked, shared, res
     torch.cuda.empty_cache()
@@ -3836,9 +4127,13 @@ def main() -> int:
     more["replay"] = phase_replay(cfg_train)
     print(f"[time] replay phase done at {time.perf_counter() - t_start:.1f}s")
     del planners
-    more.update(run_child(GRAPH_CHILD, "graph_launches", runs))
+    torch.cuda.empty_cache()
+    more.update(run_child(kids, GRAPH_CHILD, "graph_launches", {
+        n: {k: r[k] for k in ("seq", "peak_gb", "reserved_gb")}
+        | {"losses": r["res"].losses, "grad_norms": r["res"].grad_norms,
+           "step_s": r["res"].step_s} for n, r in runs.items()}))
     print(f"[time] graph phases (child process) done at {time.perf_counter() - t_start:.1f}s")
-    more.update(run_child(HELDOUT_CHILD, "heldout_launches"))
+    more.update(run_child(kids, HELDOUT_CHILD, "heldout_launches"))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     check(all(sum(c[4].values()) > 0 for n, c in more.items() if n.startswith(
         ("train-xlstm", "serve-xlstm"))), "a run of xlstm launched no sLSTM kernel")
@@ -3872,7 +4167,8 @@ def main() -> int:
                     "(apply_slstm)", sum(slstm_by_run.values()), slstm_by_run, srow,
                     launches_by_kernel_path=slstm_by_path, chain_ms=srow["chain_ms"],
                     bytes_ms=srow["bytes_ms"], floor_ms=srow["floor_ms"],
-                    fwd_ms=srow["fwd_ms"]),
+                    fwd_ms=srow["fwd_ms"], **{k: v for k, v in srow.items()
+                                              if k.startswith("long_")}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3967,9 +4263,11 @@ def front_child_main() -> int:
     return 0
 
 
-def xlstm_child_main() -> int:
+def xlstm_child_main(rows_path) -> int:
     """Phases 28 and 29: xlstm-350m trained in ``launch/calibrate.py``'s
-    order (``phase_train_cut`` says why), then served; alone in this
+    order (``phase_train_cut`` says why), then served; then 36's xlstm half
+    and 38, whose dry-run rows (prefill_32k's and long_500k's at phase 38's
+    run shape, a JSON list) are read from ``rows_path``; alone in this
     process; the last line is a JSON object with the kernels' launches of
     each run."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3977,13 +4275,26 @@ def xlstm_child_main() -> int:
     build.build()
     t0 = time.perf_counter()
     cfg = get_config(XLSTM)
-    counts = phase_train_cut(cfg, XLSTM_TRAIN)
+    tr = dict(XLSTM_TRAIN)
+    counts = phase_train_cut(cfg, tr)
     print(f"[time] xlstm training phase done at {time.perf_counter() - t0:.1f}s (child)")
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dryrun_vs_card("dryrun-xlstm", XLSTM, tr, gate_total=False)
+    print(f"[time] dryrun-vs-card phase (xlstm) done at {time.perf_counter() - t0:.1f}s (child)")
     counts["serve-xlstm"] = _serve_counts(*phase_serve_full(
         cfg, "serve-xlstm", XS_P, PROMPT, XS_CONSIST_REL_L2, XS_CONSIST_MAX_ABS))
     print(f"[time] xlstm serving phase done at {time.perf_counter() - t0:.1f}s (child)")
+    at29 = _serve_cache_bytes(cfg, XS_P, M, B, PROMPT + NEW)
+    at_long = _serve_cache_bytes(cfg, LX_P, LX_M, 1, LX_PROMPT + LX_NEW)
+    check(at_long * M * B == at29 * LX_M, f"xlstm's decode cache: {at_long} B for {LX_M} x 1 at "
+          f"{LX_PROMPT + LX_NEW} positions, {at29} B for {M} x {B} at {PROMPT + NEW}")
+    print(f"[serve-long-xlstm] decode cache {at_long} B a request at {LX_PROMPT + LX_NEW} "
+          f"positions == {at29 // (M * B)} B a request at phase 29's {PROMPT + NEW}")
+    counts["serve-long-xlstm"] = phase_serve_long(
+        cfg, "serve-long-xlstm", LX_P, LX_M, LX_PROMPT, LX_NEW, LX_CONSIST_REL_L2,
+        LX_CONSIST_MAX_ABS, json.loads(pathlib.Path(rows_path).read_text()))
+    print(f"[time] serve-long-xlstm phase done at {time.perf_counter() - t0:.1f}s (child)")
     print(json.dumps({"xlstm_launches": counts}))
     return 0
 
@@ -4024,16 +4335,33 @@ def long_child_main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.build()
     t0 = time.perf_counter()
-    counts = phase_train_long(get_config(ARCH))
+    cfg = get_config(ARCH)
+    # a fake cpu row for phase 36 and phase 37's rows, made on the host's CPU
+    # in processes of their own while phase 32 holds the card
+    dry = [_dryrun_process(ARCH, "train_4k", schedule="zb-v", p=TL_P, m=T_M, microbatch=T_B,
+                           layers=cfg.n_layers, seq_len=TL_SEQ,
+                           device_bytes=torch.cuda.get_device_properties(0).total_memory)]
+    dry32 = [_dryrun_process(ARCH, sh, p=S32_P, m=S32_M, microbatch=1, seq_len=S32_PROMPT,
+                             new_tokens=S32_NEW) for sh in ("prefill_32k", "decode_32k")]
+    counts, tr = phase_train_long(cfg)
     print(f"[time] train-long phase done at {time.perf_counter() - t0:.1f}s (child)")
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dryrun_vs_card("dryrun-long", ARCH, tr, layers=cfg.n_layers, cpu_rows=_dryrun_rows(dry))
+    print(f"[time] dryrun-vs-card phase (train-long) done at {time.perf_counter() - t0:.1f}s "
+          f"(child)")
     phase_train_long_reduced(get_reduced(ARCH))
     print(f"[time] train-long-reduced phase done at {time.perf_counter() - t0:.1f}s (child)")
     gc.collect()
     torch.cuda.empty_cache()
     phase_optim_inplace()
     print(f"[time] optim-inplace phase done at {time.perf_counter() - t0:.1f}s (child)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve-32k"] = phase_serve_long(
+        cfg, "serve-32k", S32_P, S32_M, S32_PROMPT, S32_NEW, S32_CONSIST_REL_L2,
+        S32_CONSIST_MAX_ABS, _dryrun_rows(dry32))
+    print(f"[time] serve-32k phase done at {time.perf_counter() - t0:.1f}s (child)")
     print(json.dumps({"long_launches": counts}))
     return 0
 
@@ -4075,7 +4403,57 @@ def heldout_child_main() -> int:
     return 0
 
 
-def run_child(flag, key, eager_runs=None):
+class Children:
+    """This script's child processes, in ``order``, each started one turn
+    ahead: while one child runs its phases the next starts, imports what
+    this script imports (~7 s of a child's start on the card's host, PERF.md
+    §4) and waits on its standard input for its arguments, a JSON list
+    (``WAIT_TURN``; run by hand, a child takes them on its command line); it
+    touches the card only once it has them, after the one before it has
+    ended.  A child still waiting when this process exits is stopped."""
+
+    def __init__(self, order):
+        self.order = list(order)
+        atexit.register(self.stop)
+        self._start_next()
+
+    def _start_next(self) -> None:
+        self.ahead = None
+        if self.order:
+            flag = self.order.pop(0)
+            self.ahead = flag, subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()), flag, WAIT_TURN],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def run(self, flag, args=(), timeout=900):
+        """The next child, which must be ``flag``, run with ``args``:
+        (exit code, stdout, stderr).  The one after it starts now."""
+        check(self.ahead is not None and self.ahead[0] == flag,
+              f"child {flag} run out of order (next: {self.ahead and self.ahead[0]})")
+        proc = self.ahead[1]
+        self._start_next()
+        try:
+            out, err = proc.communicate(json.dumps(list(args)) + "\n", timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        return proc.returncode, out, err
+
+    def stop(self) -> None:
+        if self.ahead is not None and self.ahead[1].poll() is None:
+            self.ahead[1].kill()
+            self.ahead[1].wait()
+
+
+# the children in the order main() runs them: phases 18-19, 20-21, 22-23,
+# 24-27, 28-29 (with 36's and 38), 30-31, 32-34 (with 36's and 37), the
+# four example runs of 35, 16 and 13's held-out runs
+CHILD_ORDER = (GPT3_CHILD, MOE_CHILD, DEEPSEEK_CHILD, FRONT_CHILD, XLSTM_CHILD, RGEMMA_CHILD,
+               LONG_CHILD, *[EXAMPLE_CHILD] * 4, GRAPH_CHILD, HELDOUT_CHILD)
+
+
+def run_child(kids, flag, key, payload=None):
     """Phases in a child process with the card to itself, as a launcher
     run has it; returns the child's launch counts by run.  ``GPT3_CHILD``
     runs phases 18-19 before this process allocates anything: gpt3-1.5b's
@@ -4086,54 +4464,55 @@ def run_child(flag, key, eager_runs=None):
     22-23 after it (50 GB of weights to serve, ~50-65 GiB to train), and
     ``FRONT_CHILD`` phases 24-27 after that (llava: 14.5 GB of weights to
     serve, up to LT_PRICE_GIB to train).
-    ``GRAPH_CHILD`` runs phase 16 and its gate against ``eager_runs``
-    (phase 9's results, passed in a file), ``HELDOUT_CHILD`` the held-out
+    ``XLSTM_CHILD`` gets phase 38's dry-run rows in ``payload``, a JSON
+    value passed in a file.  ``GRAPH_CHILD`` runs phase 16 and its gate
+    against ``payload``, phase 9's results, ``HELDOUT_CHILD`` the held-out
     runs: in this process, after phases 3-15, the graph runs reserved up to
     2.0 GiB more than in a fresh one, and the held-out runs 3.1 GiB more
     after phase 16's in one process (H100, 700 W); the planner prices a
     process that trains one model, as the launcher's does."""
-    args, tmp = [flag], None
-    if eager_runs is not None:
-        torch.cuda.empty_cache()
+    args, tmp = [], None
+    if payload is not None:
         tmp = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
-        json.dump({n: {k: r[k] for k in ("seq", "peak_gb", "reserved_gb")}
-                   | {"losses": r["res"].losses, "grad_norms": r["res"].grad_norms,
-                      "step_s": r["res"].step_s} for n, r in eager_runs.items()}, tmp)
+        json.dump(payload, tmp)
         tmp.close()
         args.append(tmp.name)
     try:
-        out = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), *args],
-                             capture_output=True, text=True, timeout=900)
+        rc, stdout, stderr = kids.run(flag, args)
     finally:
         if tmp is not None:
             pathlib.Path(tmp.name).unlink()
-    print(out.stdout, end="", flush=True)
-    print(out.stderr, end="", file=sys.stderr, flush=True)
-    check(out.returncode == 0, f"the phases of {flag} failed in their child process (exit "
-          f"{out.returncode})")
-    counts = json.loads(out.stdout.strip().splitlines()[-1])[key]
+    print(stdout, end="", flush=True)
+    print(stderr, end="", file=sys.stderr, flush=True)
+    check(rc == 0, f"the phases of {flag} failed in their child process (exit {rc})")
+    counts = json.loads(stdout.strip().splitlines()[-1])[key]
     return {run: tuple(c) for run, c in counts.items()}
 
 
+def _child_exit(code: int) -> None:
+    """A child process's end once its last line is out: without the
+    interpreter's teardown of its tensors and caches, which the process's
+    own end releases anyway (a child's start and end cost ~10-13 s, PERF.md
+    §4).  A child that raised ends the ordinary way, its atexit handlers
+    (``_dryrun_process``'s) run."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == [GPT3_CHILD]:
-        sys.exit(gpt3_child_main())
-    if sys.argv[1:2] == [MOE_CHILD]:
-        sys.exit(moe_child_main())
-    if sys.argv[1:2] == [DEEPSEEK_CHILD]:
-        sys.exit(deepseek_child_main())
-    if sys.argv[1:2] == [FRONT_CHILD]:
-        sys.exit(front_child_main())
-    if sys.argv[1:2] == [XLSTM_CHILD]:
-        sys.exit(xlstm_child_main())
-    if sys.argv[1:2] == [RGEMMA_CHILD]:
-        sys.exit(recurrentgemma_child_main())
-    if sys.argv[1:2] == [GRAPH_CHILD]:
-        sys.exit(graph_child_main(sys.argv[2]))
-    if sys.argv[1:2] == [HELDOUT_CHILD]:
-        sys.exit(heldout_child_main())
-    if sys.argv[1:2] == [EXAMPLE_CHILD]:
-        sys.exit(example_child_main(sys.argv[2], sys.argv[3:]))
-    if sys.argv[1:2] == [LONG_CHILD]:
-        sys.exit(long_child_main())
+    children = {GPT3_CHILD: gpt3_child_main, MOE_CHILD: moe_child_main,
+                DEEPSEEK_CHILD: deepseek_child_main, FRONT_CHILD: front_child_main,
+                XLSTM_CHILD: xlstm_child_main, RGEMMA_CHILD: recurrentgemma_child_main,
+                HELDOUT_CHILD: heldout_child_main, LONG_CHILD: long_child_main,
+                GRAPH_CHILD: graph_child_main,
+                EXAMPLE_CHILD: lambda name, *args: example_child_main(name, list(args))}
+    if sys.argv[1:2] and sys.argv[1] in children:
+        args = sys.argv[2:]
+        if args == [WAIT_TURN]:  # started ahead by Children: its arguments come when its turn does
+            go = sys.stdin.readline()
+            if not go:  # the parent is gone
+                _child_exit(1)
+            args = json.loads(go)
+        _child_exit(children[sys.argv[1]](*args))
     sys.exit(main())

@@ -69,7 +69,7 @@ from .schedules.ir import (
     OpKind,
 )
 
-__all__ = ["PipelineProgram", "PipelineExecutor", "GraphedGradFn", "slot_bytes"]
+__all__ = ["PipelineProgram", "PipelineExecutor", "GraphedGradFn", "slot_bytes", "storage_key"]
 
 PyTree = Any
 
@@ -115,16 +115,22 @@ def _take(pool: Dict, key, what: str):
     return pool.pop(key)
 
 
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage: the same for every view of it, and
+    defined for fake tensors too, whose ``data_ptr()`` is 0 for all."""
+    return t.untyped_storage()._cdata
+
+
 def _storage_bytes(tensors: Iterable[Any], skip: set) -> Dict[int, int]:
-    """{storage address: bytes} of the tensors among ``tensors``, each
+    """{storage identity: bytes} of the tensors among ``tensors``, each
     storage once, leaving out the storages in ``skip``."""
     out: Dict[int, int] = {}
     for t in tensors:
         if not isinstance(t, torch.Tensor):
             continue
-        st = t.untyped_storage()
-        if st.data_ptr() not in skip and st.nbytes():
-            out[st.data_ptr()] = st.nbytes()
+        key, n = storage_key(t), t.untyped_storage().nbytes()
+        if key not in skip and n:
+            out[key] = n
     return out
 
 
@@ -133,12 +139,15 @@ def slot_bytes(prog: PipelineProgram, stage_params, shared, side_all) -> Dict[st
     """Bytes that one slot of each pool holds, measured.
 
     The JAX executor's ``state_shapes`` evaluates the slots' shapes; the
-    port cannot (the RMSNorm function and the CUDA kernels do not run on
-    ``meta``), so this runs microbatch 0 through F and B of every chunk
-    and the sink with ``stage_params`` (per chunk, one stage's
-    parameters, no stage axis) on their device: 1/(p*m) of a step's F
-    and B work, no W.  Each slot counts the storages it keeps alive,
-    each once, and none of the parameters or side inputs:
+    port runs microbatch 0 through F and B of every chunk and the sink
+    with ``stage_params`` (per chunk, one stage's parameters, no stage
+    axis) on their device: 1/(p*m) of a step's F and B work, no W.  On
+    fake tensors (``launch/dryrun.py``) that walk computes nothing and
+    gives the same bytes, without a device: the kernels' entries return
+    what the kernels return and save what they save (``kernels/ops.py``),
+    and storages are told apart by identity (:func:`storage_key`), not by
+    address.  Each slot counts the storages it keeps alive, each once,
+    and none of the parameters or side inputs:
 
       * residual (per chunk): the chunk's input, its output and every
         tensor its F graph saved (``saved_tensors_hooks``).  The output
@@ -159,7 +168,7 @@ def slot_bytes(prog: PipelineProgram, stage_params, shared, side_all) -> Dict[st
     """
     C = prog.n_chunks()
     side_mb = tree_map(lambda a: a[0], side_all)
-    skip = {t.untyped_storage().data_ptr() for t in tree_leaves((stage_params, shared, side_all))}
+    skip = {storage_key(t) for t in tree_leaves((stage_params, shared, side_all))}
 
     def fwd_saving(fn, *args):
         saved = []

@@ -23,12 +23,23 @@ addresses of capture, zeroed by every replay), W is the only writer,
 nothing reads them before the step's gradients are returned, and
 ``optim/postval.py``'s rollback and redo read only those returned
 gradients, never a W-pass intermediate.
+
+Fake tensors (``torch._subclasses.fake_tensor.FakeTensor``, of the dry run
+``launch/dryrun.py``) take the kernels' route whatever their device,
+and launch nothing: each entry returns what its kernel returns, in shape,
+dtype and device, allocated under the fake mode; the sLSTM loop goes
+through :class:`~repro_torch.kernels.slstm_scan.SLSTMScan`, which saves
+what it saves on the card; ``wgrad_accum`` runs its product ``a^T @ g``
+as a fake ``torch.mm``, which an active ``FlopCounterMode`` counts as the
+kernel's 2·N·H·F operations (the kernel is a ctypes call that no mode
+sees).  No launch counter moves.  A real tensor never takes this branch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import is_fake
 from . import rmsnorm as _rms
 from . import slstm_scan as _sl
 from . import wgrad_accum as _wg
@@ -38,6 +49,9 @@ __all__ = ["rmsnorm", "slstm_scan", "wgrad_accum"]
 
 
 def _rmsnorm_fwd(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    if is_fake(x):  # the kernel's output, no launch
+        _rms.check_args(x, g)
+        return torch.empty_like(x)
     if x.device.type == "cuda":
         return _rms.rmsnorm_fused(x, g, eps)  # checks its arguments itself
     _rms.check_args(x, g)  # the plain path refuses what the kernel would refuse
@@ -69,7 +83,7 @@ def slstm_scan(i_pre: torch.Tensor, f_pre: torch.Tensor, z: torch.Tensor):
     """The sLSTM time loop: i_pre, f_pre, z fp32 (b, s, h) -> (h (b, s, h),
     (c, n, m) (b, h), the state after the last step, which carries no
     gradient on the card)."""
-    if i_pre.device.type == "cuda":
+    if is_fake(i_pre) or i_pre.device.type == "cuda":  # a fake tensor launches nothing
         hs, c, n, m = _sl.SLSTMScan.apply(i_pre, f_pre, z)  # checks its arguments itself
         return hs, (c, n, m)
     _sl.check_args(i_pre, f_pre, z)
@@ -82,6 +96,10 @@ def wgrad_accum(a: torch.Tensor, g: torch.Tensor, acc: torch.Tensor) -> torch.Te
     """a (N, H), g (N, F), acc (H, F) float32: adds ``a^T @ g`` (summed in
     fp32) into ``acc`` in place, in the reference's order ``acc + sum``, and
     returns ``acc``."""
+    if is_fake(a):  # in place, no launch; the product for a flop counter
+        _wg.check_args(a, g, acc)
+        torch.mm(a.t(), g)
+        return acc
     if a.device.type == "cuda":
         return _wg.wgrad_accum_cuda(a, g, acc)  # checks its arguments itself
     _wg.check_args(a, g, acc)

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, is_fake
 
 __all__ = ["SLSTMScan", "check_args", "forward", "backward", "grid", "launches",
            "launches_by_path", "PATHS", "CHANNELS", "CHUNK", "FWD_RING", "BWD_RING", "WARPS"]
@@ -96,12 +96,15 @@ def _launch(path: str, tensors, shape) -> None:
 
 def forward(i_pre: torch.Tensor, f_pre: torch.Tensor, z: torch.Tensor):
     """Launch the forward kernel: -> (h, c, n, m), each (b, s, h) fp32, the
-    output and the state after every step."""
+    output and the state after every step.  On fake tensors (the dry run)
+    it returns the outputs unwritten and launches nothing."""
     check_args(i_pre, f_pre, z)
-    if i_pre.device.type != "cuda":
+    fake = is_fake(i_pre)
+    if not fake and i_pre.device.type != "cuda":
         raise ValueError(f"slstm_scan: the CUDA kernel needs CUDA tensors, got {i_pre.device}")
     outs = [torch.empty_like(i_pre) for _ in range(4)]
-    _launch("fwd", (i_pre, f_pre, z, *outs), tuple(i_pre.shape))
+    if not fake:
+        _launch("fwd", (i_pre, f_pre, z, *outs), tuple(i_pre.shape))
     return tuple(outs)
 
 
@@ -115,7 +118,8 @@ def backward(i_pre, f_pre, z, c, n, m, dh):
                              f"{tuple(t.shape)} {t.dtype}; want {tuple(i_pre.shape)} float32, "
                              f"contiguous")
     outs = [torch.empty_like(i_pre) for _ in range(3)]
-    _launch("bwd", (i_pre, f_pre, z, c, n, m, dh, *outs), tuple(i_pre.shape))
+    if not is_fake(i_pre):  # a fake tensor launches nothing
+        _launch("bwd", (i_pre, f_pre, z, c, n, m, dh, *outs), tuple(i_pre.shape))
     return tuple(outs)
 
 

@@ -2,7 +2,8 @@
 neither ``jax`` nor the JAX package ``repro`` (the planner, the driver and
 the checkpoint store included, also once the planner has shape-evaluated a
 dense model, the two moe models, the second with the mla kind, the vlm and
-the encdec model, and the examples), the serving and training
+the encdec model, the examples, and the dry run and the mesh descriptions,
+after a dry-run row), the serving and training
 entry points do not carry on on the CPU when the card they ask for is
 missing, and the training launcher takes every schedule of the JAX
 launcher when the CPU is asked for."""
@@ -44,6 +45,9 @@ def test_imports_pull_in_neither_jax_nor_repro():
         "fixed_state_bytes(get_reduced('recurrentgemma_9b'), 2, 2)\n"
         "import repro_torch.examples.quickstart, repro_torch.examples.serve_pipeline\n"
         "import repro_torch.examples.straggler_replan, repro_torch.examples.train_100m\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "repro_torch.launch.dryrun.dryrun_cell('xlstm_350m', 'train_4k', reduced=True, p=3, m=3,\n"
+        "                                      seq_len=16, verbose=False)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -5,6 +5,8 @@
     PYTHONPATH=src python3 tools/serve_consistency.py --arch xlstm_350m 24 --seeds 10
     PYTHONPATH=src python3 tools/serve_consistency.py --arch xlstm_350m 24 --seeds 20 \
         --first-seed 30
+    PYTHONPATH=src python3 tools/serve_consistency.py --arch xlstm_350m 24 --seeds 3 \
+        --prompt 8192
 
 ``chip_smoke.py`` holds the port's full-width bf16 serving to a limit on
 the relative L2 gap between decoding token s after a prefill of s tokens and
@@ -221,7 +223,8 @@ def one_case(arch: str, n_layers: int, seed: int) -> dict:
 def main(argv=None) -> int:
     """``--moe`` runs only the moe cases, ``--recurrent`` only the recurrent
     ones, ``--arch NAME LAYERS`` one case; ``--seeds N`` seeds 0..N-1 (default
-    3), from ``--first-seed K`` on when given.  Each case's summary holds
+    3), from ``--first-seed K`` on when given; ``--prompt S`` prompts of S
+    tokens (default PROMPT).  Each case's summary holds
     the paired difference of the gaps, port minus JAX, seed by seed: its
     mean and the half-width of its 95% interval (1.96 standard errors)."""
     torch.manual_seed(0)
@@ -234,6 +237,9 @@ def main(argv=None) -> int:
         i = args.index("--arch")
         cases = [(args[i + 1], int(args[i + 2]))]
     first = int(args[args.index("--first-seed") + 1]) if "--first-seed" in args else 0
+    if "--prompt" in args:
+        global PROMPT
+        PROMPT = int(args[args.index("--prompt") + 1])
     seeds = (range(first, first + int(args[args.index("--seeds") + 1])) if "--seeds" in args
              else SEEDS)
     for arch, n_layers in cases:
