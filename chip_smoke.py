@@ -14,7 +14,7 @@ memory record it is gated against was measured), 24-27 next in a fourth
 sixth (recurrentgemma-9b), 32, 36, 33, 34 and 37 in a seventh
 (internlm2-1.8b at seq 4096 and the dry run against it, the optimizer,
 then the 32768-token serve cells) and 35 next (each example in a child
-process of its own),
+process of its own), 39 after 13 in T_P rank processes of its own,
 17 after 7, and 16 with its half of 13, then 13's held-out runs,
 last, each in a child process of its own (a fresh process, as the
 launcher runs; each child starts while the one before it runs, imports
@@ -385,6 +385,23 @@ T_LAYERS = 8 of its 24 layers, its serving ones (5-7) at full depth:
               forward at (1, 524288, 1024) bit for bit on its first and
               last SLSTM_EDGE steps, and times it and both new RMSNorm
               rows.
+39. pipe-procs -- after 13, phase 9's runs of 1f1b, zb-h1 and zb-v again
+              with one process a pipeline stage: T_P rank processes
+              (``PipeRanks``, started after phase 2, importing while the
+              children run), every rank on the one card (``--share-card``),
+              gloo between them through pinned host buffers
+              (``launch/steps.py::build_stage_train_step``, eager), from
+              phase 9's seed-0 weights (each rank keeps its stage's slice
+              and a replica of the shared ones) and batches: the step-0
+              loss on every rank and every step-0 gradient leaf bit for bit
+              against phase 9's step-0 walk (by digests computed on the
+              card; the embedding's within G_RTOL relative L2: index_add_
+              atomics), later losses and grad norms within G_RTOL, the
+              ranks' replicas of the shared parameters and moments equal
+              by digest, both kernels' launches by path summed over the
+              ranks equal to phase 9's; each rank's reserved peak beside
+              the planner's per-device total and the step time printed,
+              not gated (four ranks time-share one card).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
@@ -396,14 +413,18 @@ from __future__ import annotations
 import atexit
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
 import io
 import json
+import multiprocessing
 import os
 import pathlib
+import queue
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -417,7 +438,7 @@ import torch  # noqa: E402
 
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import all_configs, get_config, get_reduced  # noqa: E402
-from repro_torch.core.executor import PipelineExecutor, slot_bytes  # noqa: E402
+from repro_torch.core.executor import PipelineExecutor, slot_bytes, stage_slice  # noqa: E402
 from repro_torch.core.memory import cuda_temp_record, record_key  # noqa: E402
 from repro_torch.core.planner import HBMPlanner, stage_program_factory  # noqa: E402
 from repro_torch.core.schedules import compile_plan  # noqa: E402
@@ -433,7 +454,9 @@ from repro_torch.kernels.ref import wgrad_accum_ref  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.calibrate import calibration_record, cut_config  # noqa: E402
 from repro_torch.launch.serve import draw_front, serve  # noqa: E402
-from repro_torch.launch.steps import TrainStepConfig, build_train_step  # noqa: E402
+from repro_torch.launch.mesh import init_pipe_group  # noqa: E402
+from repro_torch.launch.steps import TrainStepConfig, build_stage_train_step  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.launch.steps import build_serve_step  # noqa: E402
 from repro_torch.models.serve import build_serve_program  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
@@ -948,6 +971,12 @@ PLAN_OVERSHOOT_MAX = 0.10
 # (two chunks a stage: two slot sizes priced; zb-h1's held-out run, its
 # one-chunk twin, was cut for the script's time)
 H_SEQ, H_SCHEDULES, H_STEPS = 512, ("zb-v",), 2
+# phase 39: phase 9's run of these schedules again with one process a stage,
+# T_P ranks on the one card (``--share-card``), gated against phase 9 by the
+# graph-vs-eager rules (G_RTOL); a rank waits at most PIPE_WAIT_S for its job
+# (the script's limit), PIPE_TIMEOUT_S for a peer, the phase PIPE_PHASE_S
+PIPE_SCHEDULES = ("1f1b", "zb-h1", "zb-v")
+PIPE_WAIT_S, PIPE_TIMEOUT_S, PIPE_PHASE_S = 1200.0, 120.0, 400.0
 
 
 def train_config():
@@ -1878,7 +1907,10 @@ def _init_full(cfg, sched, seq: int, compact: bool = False):
     return stacked, shared, spec, data
 
 
-def _train_full(cfg, name: str, seq: int, tcfg=None):
+def _train_full(cfg, name: str, seq: int, tcfg=None, ref=None):
+    """Phase 9's run of ``name``; with ``ref`` (a dict), phase 39's
+    reference goes into it: the step-0 walk's loss, gradient digests and
+    embedding gradient (on the host), and the final parameters' digests."""
     sched = make_schedule(name, T_P, T_M)
     plan = compile_plan(sched)
     stacked, shared, spec, data = _init_full(cfg, sched, seq)
@@ -1888,25 +1920,61 @@ def _train_full(cfg, name: str, seq: int, tcfg=None):
     print(f"[train] {name}: {base_gb:.2f} GB allocated after init (bf16 weights; "
           f"{sched.n_chunks} chunk(s) a stage, {plan.n_ticks} ticks)")
     torch.cuda.reset_peak_memory_stats()
-    state, walk = _first_walk_peaks(step, stacked, shared, spec, data)
+    state, walk = _first_walk_peaks(step, stacked, shared, spec, data, ref)
     _reset_counts()
     res = train(cfg, spec, step, stacked, shared, data, T_STEPS,
                 log=lambda s: print(f"[train] {name}: {s}"), state=state)
     launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mem = _mem(walk)
+    if ref is not None:  # after the window's peaks are read
+        ref["final"] = _walk_digests((stacked, shared))
     return (res, launches, peak_gb, base_gb, plan, (stacked, shared, spec, sched, step, data),
-            _mem(walk))
+            mem)
 
 
-def _first_walk_peaks(step, stacked, shared, spec, data):
+def _first_walk_peaks(step, stacked, shared, spec, data, ref=None):
     """(AdamW state, the memory window's peaks at the end of the first
     walk), as ``launch/calibrate.py::measure_run`` reads them: the state on
     the card, step 0's walk (in graph mode the capture and a replay), its
-    results dropped; the driver then steps from that state, as the
-    launcher's does.  The walk's launches are not counted."""
+    results dropped (with ``ref``, after phase 39's reference is taken
+    from them: digests, scalars on the card, and the embedding gradient
+    copied to the host, so the window's peaks do not move); ``TrainDriver``
+    then steps from that state, as the launcher's does.  The walk's launches are
+    not counted."""
     state = init_state(stacked, shared)
-    step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, DEV))
-    return state, _walk_peaks()
+    out = step.grad_fn(stacked, shared, side_from_batch(data.batch_at(0), spec, DEV))
+    peaks = _walk_peaks()
+    if ref is not None:
+        grads, shared_grads, loss = out
+        ref.update(loss0=float(loss), grads=_walk_digests((grads, shared_grads)),
+                   embed=shared_grads["embed"].cpu())
+    del out
+    return state, peaks
+
+
+def _digest(t) -> tuple:
+    """A fingerprint of a tensor's bits, computed on its device without a
+    copy: its elements' bit patterns read as int32 words, summed whole, at
+    odd positions and at every third (each sum taken modulo 2^32).  Equal
+    tensors give equal digests; a changed word changes the first sum."""
+    flat = t.detach().reshape(-1)
+    if flat.numel() * flat.element_size() % 4:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    words = flat.view(torch.int32)
+    return tuple(int(x) for x in torch.stack([
+        words.sum(dtype=torch.int32), words[1::2].sum(dtype=torch.int32),
+        words[::3].sum(dtype=torch.int32)]).tolist())
+
+
+def _walk_digests(tree) -> dict:
+    """{leaf key: digest} of a (stacked per chunk, shared) pair of trees,
+    a stage-stacked leaf's digest per stage (a list); the key as a rank's
+    own trees (no stage axis) give it."""
+    out = {}
+    for k, t in keyed_leaves(tree):
+        out[k] = [_digest(t[s]) for s in range(t.shape[0])] if k.startswith("[0]") else _digest(t)
+    return out
 
 
 def _walk_peaks():
@@ -1929,7 +1997,8 @@ def phase_train(cfg):
     out = {}
     for name in T_SCHEDULES:
         seq, t_sched = T_SEQ, time.perf_counter()
-        res, launches, peak_gb, base_gb, plan, state, mem = _train_full(cfg, name, seq)
+        ref = {} if name in PIPE_SCHEDULES else None
+        res, launches, peak_gb, base_gb, plan, state, mem = _train_full(cfg, name, seq, ref=ref)
         if peak_gb > T_MEM_LIMIT_GB:
             print(f"[train] {name}: peak {peak_gb:.1f} GB > {T_MEM_LIMIT_GB} GB at seq {seq}; "
                   f"running it again at seq 512")
@@ -1937,6 +2006,7 @@ def phase_train(cfg):
             torch.cuda.empty_cache()
             seq = 512
             res, launches, peak_gb, base_gb, plan, state, mem = _train_full(cfg, name, seq)
+            ref = None
         reserved_gb = torch.cuda.max_memory_reserved() / 1e9  # the same window as peak_gb
         sched = state[3]
         want = _check_counts(name, launches, expected_train_launches(cfg, T_P, sched.n_chunks, T_M),
@@ -1960,7 +2030,7 @@ def phase_train(cfg):
               f"profile summed over stages {profile:g} M_B; {plan.n_ticks} ticks, simulated "
               f"bubble rate {bubble:.4f} (unit times, several cards)")
         out[name] = dict(res=res, launches=launches, seq=seq, peak_gb=peak_gb, base_gb=base_gb,
-                         reserved_gb=reserved_gb, mem=mem,
+                         reserved_gb=reserved_gb, mem=mem, pipe_ref=ref,
                          sched=sched, plan=plan, n_params=sum(
                              t.numel() for t in tree_leaves((state[0], state[1]))),
                          param_bytes=sum(t.numel() * t.element_size()
@@ -2727,6 +2797,203 @@ def phase_train_graph(cfg, runs):
         torch.cuda.empty_cache()
         print(f"[train-graph] {name}: {time.perf_counter() - t_sched:.1f} s in all")
     return out, mem_runs
+
+
+class PipeRanks:
+    """Phase 39's T_P rank processes, started ahead (``spawn``): each
+    imports this script's modules while the earlier phases run and waits
+    for its job on a queue before it touches the card (at most
+    PIPE_WAIT_S).  ``run(job)`` hands every rank the job and returns each
+    rank's results; a rank that fails or a phase past PIPE_PHASE_S ends
+    every rank and raises: no phase carries on without a rank."""
+
+    def __init__(self, world: int):
+        ctx = multiprocessing.get_context("spawn")
+        self.tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_"))
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=pipe_rank_main, daemon=True, args=(
+            r, world, f"file://{self.tmp}/store", self.jobs[r], str(self.tmp)))
+            for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+        atexit.register(self.stop)
+
+    def run(self, job) -> list:
+        for q in self.jobs:
+            q.put(job)
+        deadline = time.monotonic() + PIPE_PHASE_S
+        while any(proc.is_alive() for proc in self.procs):
+            failed = [r for r, proc in enumerate(self.procs)
+                      if not proc.is_alive() and proc.exitcode != 0]
+            check(not failed and time.monotonic() < deadline,
+                  f"phase 39: rank(s) {failed} failed (exit codes "
+                  f"{[proc.exitcode for proc in self.procs]})" if failed else
+                  f"phase 39: the ranks did not end within {PIPE_PHASE_S:g} s")
+            time.sleep(0.2)
+        codes = [proc.exitcode for proc in self.procs]
+        check(all(c == 0 for c in codes), f"phase 39: rank exit codes {codes}")
+        return [torch.load(self.tmp / f"pipe.rank{r}.pt") for r in range(len(self.procs))]
+
+    def stop(self) -> None:
+        for proc in self.procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def pipe_rank_main(rank, world, init_method, jobs, tmp) -> None:
+    """One rank of phase 39 (a process of its own, spawned by
+    ``PipeRanks``): waits for its job, then runs phase 9's schedules as
+    stage ``rank`` of ``world`` on cuda:0, and writes its results.  It
+    ends with this script: the kernel sends it SIGKILL when its parent
+    dies (``prctl(PR_SET_PDEATHSIG)``)."""
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG = 1
+    try:
+        job = jobs.get(timeout=PIPE_WAIT_S)
+    except queue.Empty:
+        _child_exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()  # the parent built them: this only loads the cached libraries
+    group = init_pipe_group(rank=rank, world=world, init_method=init_method, device=DEV,
+                            share_card=True, timeout_s=PIPE_TIMEOUT_S)
+    cfg = train_config()
+    out = {name: _pipe_rank_run(group, cfg, name, pathlib.Path(tmp)) for name in job}
+    torch.save(out, pathlib.Path(tmp) / f"pipe.rank{rank}.pt")
+    group.close()
+    _child_exit(0)
+
+
+def _pipe_rank_run(group, cfg, name, tmp):
+    """Stage ``group.rank``'s share of phase 9's run of ``name``: phase 9's
+    seed-0 weights (drawn whole on the card, as phase 9 draws them, this
+    stage's slice kept), the step-0 walk on batch 0 (its digests; rank 0
+    writes the embedding gradient), then T_STEPS steps with the kernels'
+    launches counted around them, and the final parameters' digests."""
+    rank = group.rank
+    sched = make_schedule(name, T_P, T_M)
+    plan = compile_plan(sched)
+    stacked, shared, spec, data = _init_full(cfg, sched, T_SEQ)
+    params = stage_slice(stacked, rank)
+    del stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, _ = build_stage_train_step(cfg, spec, plan, sched.placement, group, TrainStepConfig())
+    g, sg, loss = step.grad_fn(params, shared, side_from_batch(data.batch_at(0), spec, DEV))
+    grads = {k: _digest(t) for k, t in keyed_leaves((g, sg))}
+    if rank == 0:
+        torch.save(sg["embed"].cpu(), tmp / f"embed.{name}.pt")
+    loss0, walk_messages = float(loss), step.grad_fn.transport.messages
+    del g, sg, loss
+    state = init_state(params, shared)
+    _reset_counts()
+    res = train(cfg, spec, step, params, shared, data, T_STEPS, state=state)
+    launches = _read_counts()
+    torch.cuda.synchronize()
+    return dict(loss0=loss0, grads=grads, losses=res.losses, grad_norms=res.grad_norms,
+                walk_s=step.grad_fn.seconds,
+                amended=res.amended, step_s=res.step_s, launches=launches,
+                final={k: _digest(t) for k, t in keyed_leaves((params, shared))},
+                replica={k: _digest(t) for k, t in keyed_leaves((state["shared"],
+                                                                  state["shared_opt"]))},
+                reserved=torch.cuda.max_memory_reserved(),
+                param_bytes=sum(t.numel() * t.element_size()
+                                for t in tree_leaves((params, shared))),
+                messages=step.grad_fn.transport.messages, walk_messages=walk_messages,
+                pinned=step.grad_fn.transport.buffer_bytes())
+
+
+def phase_pipe_procs(cfg, runs, ranks, planner):
+    """Phase 39: phase 9's runs of PIPE_SCHEDULES with one process a stage
+    (``launch/steps.py::build_stage_train_step``), the T_P ranks sharing the
+    card through pinned host buffers, against phase 9: the step-0 loss and
+    every step-0 gradient leaf bit for bit but the embedding's (within
+    G_RTOL relative L2: ``index_add_`` atomics), later losses and grad norms
+    within G_RTOL, the ranks' replicas of the shared parameters and moments
+    equal, the kernels' launches by path summed over the ranks equal to
+    phase 9's.  Printed, not gated: each rank's reserved peak beside the
+    planner's per-device total of the schedule (measured fidelity; its
+    temp the one-card remainder / p, uncalibrated per device), and the step
+    time of four ranks that time-share one card.  Returns {run: launches
+    summed over the ranks}, {run: each rank's (wgrad_accum, rmsnorm)
+    launches by path})."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = ranks.run(list(PIPE_SCHEDULES))
+    priced = {c.name: c.breakdown for c in planner.candidates() if c.breakdown is not None}
+    counts, per_rank = {}, {}
+    for name in PIPE_SCHEDULES:
+        ref, outs = runs[name], [r[name] for r in results]
+        pr = ref["pipe_ref"]
+        check(pr is not None, f"{name}: phase 9 ran at seq {ref['seq']}, not {T_SEQ}")
+        check(all(o["loss0"] == pr["loss0"] == ref["res"].losses[0] for o in outs),
+              f"{name}: step-0 losses {[o['loss0'] for o in outs]} != phase 9's {pr['loss0']!r}")
+        exact = 0
+        for r, o in enumerate(outs):
+            check(sorted(o["grads"]) == sorted(pr["grads"]), f"{name}: rank {r}'s gradient "
+                  f"leaves are not phase 9's")
+            for k, got in o["grads"].items():
+                if k == "[1]['embed']":
+                    continue
+                want = pr["grads"][k][r] if k.startswith("[0]") else pr["grads"][k]
+                check(got == want, f"{name}: rank {r}'s step-0 gradient leaf {k} differs from "
+                      f"phase 9's")
+                exact += 1
+        embed = torch.load(ranks.tmp / f"embed.{name}.pt")
+        gap = float((embed - pr["embed"]).double().norm() / pr["embed"].double().norm())
+        check(gap <= G_RTOL, f"{name}: step-0 embedding gradient off phase 9's by {gap}")
+        e_res = ref["res"]
+        gaps = [abs(a - b) / abs(b) for o in outs for a, b in
+                list(zip(o["losses"][1:], e_res.losses[1:])) + list(zip(o["grad_norms"],
+                                                                         e_res.grad_norms))]
+        check(all(len(o["losses"]) == T_STEPS for o in outs) and max(gaps) <= G_RTOL,
+              f"{name}: later losses / grad norms differ from phase 9's by {max(gaps)}")
+        check(all(o["replica"] == outs[0]["replica"] for o in outs),
+              f"{name}: the ranks' shared replicas differ")
+        summed = functools.reduce(_add_counts, [o["launches"] for o in outs])
+        check(summed == ref["launches"], f"{name}: launches summed over the ranks {summed} != "
+              f"phase 9's {ref['launches']}")
+        counts[f"pipe-{name}"] = summed
+        per_rank[f"pipe-{name}"] = [{"wgrad_accum": o["launches"][2], "rmsnorm": o["launches"][3]}
+                                    for o in outs]
+        same = sum(o["final"][k] == (pr["final"][k][r] if k.startswith("[0]") else pr["final"][k])
+                   for r, o in enumerate(outs) for k in o["final"])
+        n_final = sum(len(o["final"]) for o in outs)
+        bd = priced.get(name)
+        med = float(np.median([t for o in outs for t in o["step_s"][1:]]))
+        print(f"[pipe-procs] {name} p={T_P} m={T_M} b={T_B} seq={T_SEQ}, {T_P} processes on one "
+              f"card, transport host: step-0 loss {outs[0]['loss0']!r} == phase 9 on every rank; "
+              f"step-0 gradient {exact} rank-leaves bit for bit, embedding rel_l2 {gap:.3g} "
+              f"(limit {G_RTOL}); later losses / grad norms max rel gap {max(gaps):.3g}; shared "
+              f"replicas equal on {T_P} ranks; launches summed over ranks wgrad_accum="
+              f"{summed[0]} {summed[2]} rmsnorm={summed[1]} {summed[3]} == phase 9; final "
+              f"parameters {same} of {n_final} rank-leaves bit for bit with phase 9 (not gated: "
+              f"the embedding's atomics move the clip scale)")
+        print(f"[pipe-procs] {name} per rank launches " + "; ".join(
+            f"rank {r} wgrad_accum={o['launches'][0]} rmsnorm={o['launches'][1]}"
+            for r, o in enumerate(outs)))
+        print(f"[pipe-procs] {name} memory, per rank max_memory_reserved GiB "
+              f"{[round(o['reserved'] / 2**30, 3) for o in outs]} beside the planner's per-device "
+              f"total {_gib(bd.total) if bd else 'n/a'} GiB (measured fidelity; temp "
+              f"{_gib(bd.temp) if bd else 'n/a'} GiB is the one-card remainder / {T_P}, "
+              f"uncalibrated per device); parameters per rank GB "
+              f"{[round(o['param_bytes'] / 1e9, 3) for o in outs]}; pinned host buffers per rank "
+              f"MiB {[round(o['pinned'] / 2**20, 1) for o in outs]}; messages per rank a walk "
+              f"{[o['walk_messages'] for o in outs]}")
+        print(f"[pipe-procs] {name} time: ms_per_step median(steps 1-{T_STEPS - 1}, all ranks)="
+              f"{med * 1e3:.1f} per rank {[[round(t * 1e3, 1) for t in o['step_s']] for o in outs]}"
+              f" | phase 9 eager median={float(np.median(e_res.step_s)) * 1e3:.1f} (four ranks "
+              f"time-share one card: no bubble reading); of the last step, per rank, the ticks "
+              f"{[round(o['walk_s']['ticks'] * 1e3, 1) for o in outs]} ms, the shared "
+              f"gradients' and loss's sums {[round(o['walk_s']['sums'] * 1e3, 1) for o in outs]}"
+              f" ms, the rest (statistics, relay, AdamW) "
+              f"{[round((o['step_s'][-1] - sum(o['walk_s'].values())) * 1e3, 1) for o in outs]}"
+              f" ms")
+    print(f"[pipe-procs] {time.perf_counter() - t0:.1f} s in all")
+    return counts, per_rank
 
 
 def phase_heldout(cfg):
@@ -4073,6 +4340,7 @@ def main() -> int:
                                  new_tokens=LX_NEW) for sh in ("prefill_32k", "long_500k")]
     phase_build()
     phase_card()
+    ranks = PipeRanks(T_P)  # phase 39's ranks import while the children hold the card
     print(f"[time] build and card done at {time.perf_counter() - t_start:.1f}s")
     more = run_child(kids, GPT3_CHILD, "gpt3_launches")
     print(f"[time] gpt3 phases (child process) done at {time.perf_counter() - t_start:.1f}s")
@@ -4122,6 +4390,12 @@ def main() -> int:
     planners = phase_plan(cfg_train)
     phase_plan_vs_card(cfg_train, runs, planners, "eager")
     print(f"[time] planner phases done at {time.perf_counter() - t_start:.1f}s")
+    pipe_counts, pipe_ranks = phase_pipe_procs(cfg_train, runs, ranks, planners["measured"])
+    more.update(pipe_counts)
+    for r in runs.values():
+        r.pop("pipe_ref")  # the embedding gradients' host copies
+    print(f"[time] pipe-procs phase (39, {T_P} rank processes) done at "
+          f"{time.perf_counter() - t_start:.1f}s")
     more["launcher"] = phase_launch_budget(cfg_train)
     print(f"[time] launcher phase done at {time.perf_counter() - t_start:.1f}s")
     more["replay"] = phase_replay(cfg_train)
@@ -4157,10 +4431,12 @@ def main() -> int:
         _kernel_row("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:29", sum(rms_by_run.values()), rms_by_run,
                     rows["prefill"], launches_by_kernel_path=rms_by_path,
+                    pipe_ranks={n: [c["rmsnorm"] for c in cs] for n, cs in pipe_ranks.items()},
                     by_shape=by_shape(rows)),
         _kernel_row("wgrad_accum", "src/repro_torch/kernels/csrc/wgrad_accum.cu",
                     "src/repro/kernels/wgrad_accum.py:51", sum(wgrad_by_run.values()),
                     wgrad_by_run, wrows["wu,wg"], launches_by_kernel_path=wgrad_by_path,
+                    pipe_ranks={n: [c["wgrad_accum"] for c in cs] for n, cs in pipe_ranks.items()},
                     by_shape=by_shape(wrows)),
         _kernel_row("slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
                     "none: port-only, the lax.scan of src/repro/models/modules.py:500 "

@@ -1,4 +1,5 @@
-"""Ticked pipeline executor of the port: one device holds all p stages.
+"""Ticked pipeline executor of the port: all p stages in one process, or
+one process a stage.
 
 Counterpart of ``src/repro/core/executor.py``.  It runs any
 :class:`~repro_torch.core.schedules.ir.ExecutionPlan` -- one chunk a stage
@@ -7,7 +8,8 @@ V-Half: the last stage hands chunk 0's output to its own chunk 1 and the
 gradient back by a local send) -- since it follows the tables generically
 (chunk ids, per-chunk inboxes, local sends, all four channels).  The JAX
 version is one SPMD program under ``shard_map`` with collective permutes;
-this one is re-designed for one device:
+:meth:`PipelineExecutor.build_grad_fn` is re-designed for one process that
+holds every stage:
 
   * the host walks the plan tick by tick; in each tick every stage runs its
     F, B or W, in stage order (``op_kind``/``op_chunk``/``op_mb``);
@@ -45,12 +47,20 @@ those by the plan's slot counts, as the JAX executor sizes its pools.
 :meth:`PipelineExecutor.accumulator_bytes` prices the fp32 gradient
 accumulators from the leaf shapes (the planner's ``temp`` term).
 
-One process per stage with NCCL point-to-point sends is a later slice.
+:meth:`PipelineExecutor.build_stage_grad_fn` is the JAX SPMD program with
+one process a stage: rank s walks row s of the tables through the same
+stage body (``_run_op``), holds its own pools and accumulators (no stage
+axis), and hands its messages on through ``core/p2p.py`` at each tick's
+end; the shared gradients and the loss are summed over the ranks in stage
+order afterwards.  Its transport is ``host`` (gloo through pinned host
+buffers), so p ranks can share one card; NCCL between cards is ROADMAP
+Queue 1, item 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -58,22 +68,22 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import torch
 
 from ..tree import tree_flatten, tree_leaves, tree_map
+from . import p2p
 from .passes import FBWModule, loss_seed
 from .schedules.ir import (
-    CHANNEL_BWD_DOWN,
-    CHANNEL_BWD_UP,
     CHANNEL_FWD_DOWN,
     CHANNEL_FWD_UP,
+    CHANNEL_SHIFT,
     ExecutionPlan,
     N_CHANNELS,
     OpKind,
 )
 
-__all__ = ["PipelineProgram", "PipelineExecutor", "GraphedGradFn", "slot_bytes", "storage_key"]
+__all__ = ["PipelineProgram", "PipelineExecutor", "GraphedGradFn", "slot_bytes", "storage_key",
+           "stage_slice", "microbatch_split"]
 
 PyTree = Any
 
-_CHANNEL_SHIFT = {CHANNEL_FWD_UP: +1, CHANNEL_FWD_DOWN: -1, CHANNEL_BWD_DOWN: -1, CHANNEL_BWD_UP: +1}
 _ACT_CHANNELS = (CHANNEL_FWD_UP, CHANNEL_FWD_DOWN)
 
 
@@ -96,6 +106,17 @@ class PipelineProgram:
 
     def n_chunks(self) -> int:
         return len(self.chunks)
+
+
+def microbatch_split(batch, m: int):
+    """(G, ...) -> (m, G/m, ...): the microbatch axis up front, on every leaf."""
+    def split(x):
+        g = x.shape[0]
+        if g % m:
+            raise ValueError(f"batch {g} not divisible by m={m}")
+        return x.reshape((m, g // m) + tuple(x.shape[1:]))
+
+    return tree_map(split, batch)
 
 
 def acc_dt(dtype: torch.dtype) -> torch.dtype:
@@ -299,106 +320,210 @@ class PipelineExecutor:
 
         @torch.no_grad()  # each F builds its own graph (passes.autograd_fbw)
         def grad_fn(stacked, shared, side_all):
-            local = [[tree_map(lambda a: a[s], stacked[c]) for s in range(p)] for c in range(C)]
+            params = [tuple(tree_map(lambda a: a[s], stacked[c]) for c in range(C))
+                      for s in range(p)]
             # one (p, ...) fp32 accumulator per leaf and chunk, allocated once;
             # stage s adds into its contiguous view [s], and the stacked
             # tensors are the step's gradients
             grads = tuple(tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
                                                          device=a.device), stacked[c])
                           for c in range(C))
-            acc = [[tree_map(lambda a: a[s], grads[c]) for s in range(p)] for c in range(C)]
-            shared_acc = tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
-                                                        device=a.device), shared)
-            loss = torch.zeros((), dtype=torch.float32, device=shared["embed"].device)
-            act_in = [{} for _ in range(p)]  # (chunk, slot) -> activation
-            grad_in = [{} for _ in range(p)]  # (chunk, slot) -> activation gradient
-            res = [{} for _ in range(p)]  # joint slot -> chunk residuals
-            wctx = [{} for _ in range(p)]  # joint slot -> chunk W-context
-            sink_res = [{} for _ in range(p)]
-            sink_wctx = [{} for _ in range(p)]
+            acc = [tuple(tree_map(lambda a: a[s], grads[c]) for c in range(C)) for s in range(p)]
+            sums = _Sums(shared)
+            pools = [_Pools() for _ in range(p)]
+            by_name = {name: [getattr(pl, name) for pl in pools] for name in _Pools.NAMES}
 
             for t in range(plan.n_ticks):
-                sends = [None] * p
-                for s in range(p):
-                    kind = int(plan.op_kind[s, t])
-                    if kind == OpKind.IDLE:
-                        continue
-                    c, j = int(plan.op_chunk[s, t]), int(plan.op_mb[s, t])
-                    side_mb = tree_map(lambda a: a[j], side_all)
-                    params = local[c][s]
-                    is_loss = bool(plan.op_is_loss[s, t])
-                    if kind == OpKind.F:
-                        if plan.op_is_src[s, t]:
-                            x = prog.src_fwd(shared, side_mb).to(prog.act_dtype)
-                        else:
-                            x = _take(act_in[s], (c, int(plan.op_in_slot[s, t])), "act inbox")
-                        y, r = prog.chunks[c].fwd(params, x, side_mb)
-                        _put(res[s], int(plan.op_res_slot_joint[s, t]), r, "residual")
-                        if is_loss:
-                            lj, sr = prog.sink.fwd(shared, y, side_mb)
-                            _put(sink_res[s], int(plan.op_sink_slot[s, t]), (sr, lj), "sink residual")
-                            loss = loss + lj.float()
-                        sends[s] = y.to(prog.act_dtype)
-                    elif kind == OpKind.B:
-                        r = _take(res[s], int(plan.op_res_slot_joint[s, t]), "residual")
-                        if is_loss:
-                            sr, lj = _take(sink_res[s], int(plan.op_sink_slot[s, t]), "sink residual")
-                            dy, sw = prog.sink.bwd_x(shared, sr, loss_seed(lj), side_mb)
-                            _put(sink_wctx[s], int(plan.op_sink_wctx_slot[s, t]), sw, "sink wctx")
-                            dy = dy.to(prog.act_dtype)
-                        else:
-                            dy = _take(grad_in[s], (c, int(plan.op_in_slot[s, t])), "grad inbox")
-                        dx, w = prog.chunks[c].bwd_x(params, r, dy, side_mb)
-                        del r
-                        _put(wctx[s], int(plan.op_wctx_slot_joint[s, t]), w, "wctx")
-                        if plan.op_is_last_b[s, t]:
-                            shared_acc = prog.src_bwd_w(shared, side_mb, dx, shared_acc)
-                        else:
-                            sends[s] = dx.to(prog.act_dtype)
-                    else:  # W: the W-context alone, no residuals
-                        w = _take(wctx[s], int(plan.op_wctx_slot_joint[s, t]), "wctx")
-                        out = prog.chunks[c].bwd_w(params, w, side_mb, acc=acc[c][s])
-                        del w
-                        # the block linears come back in place; the rest (norm
-                        # gains, masks) is added out of place: into the view
-                        for dst, src in zip(tree_leaves(acc[c][s]), tree_leaves(out)):
-                            if src is not dst:
-                                dst.copy_(src)
-                        del out
-                        if is_loss:
-                            sw = _take(sink_wctx[s], int(plan.op_sink_wctx_slot[s, t]), "sink wctx")
-                            shared_acc = prog.sink.bwd_w(shared, sw, side_mb, acc=shared_acc)
-
+                sends = [_run_op(prog, plan, s, t, params[s], acc[s], pools[s], sums, shared,
+                                 side_all) for s in range(p)]
                 # end of tick: local deposits, then the channel hand-offs
                 for s in range(p):
-                    if plan.send_local[s, t]:
-                        box = grad_in if plan.local_is_grad[s, t] else act_in
-                        key = (int(plan.local_chunk[s, t]), int(plan.local_slot[s, t]))
-                        _put(box[s], key, sends[s], "local inbox")
+                    _deposit_local(plan, s, t, sends[s], pools[s])
                 for s in range(p):
                     for d in range(N_CHANNELS):
                         if not plan.recv_valid[s, t, d]:
                             continue
-                        src = (s - _CHANNEL_SHIFT[d]) % p
+                        src = (s - CHANNEL_SHIFT[d]) % p
                         if plan.send_channel[src, t] != d or sends[src] is None:
                             raise RuntimeError(f"tick {t}: stage {s} expects channel {d} "
                                                f"from stage {src}, which sent nothing")
-                        box = act_in if d in _ACT_CHANNELS else grad_in
-                        key = (int(plan.recv_chunk[s, t, d]), int(plan.recv_slot[s, t, d]))
-                        _put(box[s], key, sends[src], "inbox")
+                        _deposit_arrival(plan, s, t, d, sends[src], pools[s])
                 if on_tick is not None:
-                    on_tick(t, dict(act_in=act_in, grad_in=grad_in, res=res, wctx=wctx,
-                                    sink_res=sink_res, sink_wctx=sink_wctx))
+                    on_tick(t, by_name)
 
-            for pools, what in ((act_in, "act inbox"), (grad_in, "grad inbox"), (res, "residual"),
-                                (wctx, "wctx"), (sink_res, "sink residual"),
-                                (sink_wctx, "sink wctx")):
-                left = [s for s in range(p) if pools[s]]
-                if left:
-                    raise RuntimeError(f"{what} slots still live after the last tick on stages {left}")
-            return grads, shared_acc, loss
+            for s in range(p):
+                pools[s].check_empty(f"stage {s}")
+            return grads, sums.shared_acc, sums.loss
 
         return grad_fn
+
+    def build_stage_grad_fn(self, group):
+        """One rank's share of :meth:`build_grad_fn`: the per-rank walk.
+
+        ``grad_fn(params, shared, side_all) -> (grads, shared_grads,
+        loss)`` on rank ``group.rank`` = stage s of ``group.world`` = p
+        processes (``launch/mesh.py::PipeGroup``).  ``params`` holds, per
+        chunk, stage s's parameter trees with no stage axis (its slice of
+        ``stacked``), ``shared`` this rank's replica of the shared
+        parameters; ``grads`` are its own accumulators, shaped like
+        ``params``.  The rank walks row s of the tables through the same
+        stage body as :meth:`build_grad_fn` and deposits its local sends
+        as it does; at each tick's end it posts its channel sends and
+        receives through ``core/p2p.py``'s ``host`` transport, exactly on
+        ``plan.channel_edges(t, d)``, whose arrivals fill its inboxes as
+        ``recv_valid`` says.  Before any traffic the plan is checked: each
+        receive of row s has a sender in the sender's row
+        (:func:`~repro_torch.core.p2p.check_channels`).  After the last
+        tick the shared gradients and the loss are summed over the group in
+        stage order (the JAX executor's two ``psum``): every rank returns
+        the same ``shared_grads`` and ``loss``.  A shared leaf that one
+        stage alone writes (internlm2's embedding on the source stage, head
+        and final norm on the loss stage) comes out with the one-process
+        accumulator's bits, since a sum with zeros is exact.  Eager only: a
+        CUDA graph cannot hold the host sends between the ticks.
+        ``grad_fn.transport`` is the rank's transport (its message count);
+        ``grad_fn.seconds`` holds the last call's host seconds of the ticks
+        and of the two sums (every tick's hand-off waits for the card, so
+        they split the call as the card sees it).
+        """
+        prog, plan = self.program, self.plan
+        s, C = group.rank, plan.n_chunks
+        if group.world != plan.p:
+            raise ValueError(f"a plan of {plan.p} stages walked by a group of {group.world} ranks")
+        p2p.check_channels(plan, s)
+        transport = p2p.HostTransport(group, plan, prog.act_shape, prog.act_dtype)
+
+        @torch.no_grad()
+        def grad_fn(params, shared, side_all):
+            grads = tuple(tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
+                                                         device=a.device), params[c])
+                          for c in range(C))
+            sums = _Sums(shared)
+            pools = _Pools()
+            t0 = time.perf_counter()
+            for t in range(plan.n_ticks):
+                send = _run_op(prog, plan, s, t, params, grads, pools, sums, shared, side_all)
+                _deposit_local(plan, s, t, send, pools)
+                for d, msg in transport.exchange(t, send):
+                    _deposit_arrival(plan, s, t, d, msg, pools)
+            pools.check_empty(f"rank {s}")
+            t1 = time.perf_counter()
+            shared_grads = p2p.sum_in_stage_order(group, sums.shared_acc)
+            loss = functools.reduce(torch.add, p2p.gather_in_stage_order(group, sums.loss))
+            grad_fn.seconds = dict(ticks=t1 - t0, sums=time.perf_counter() - t1)
+            return grads, shared_grads, loss
+
+        grad_fn.transport, grad_fn.seconds = transport, None
+        return grad_fn
+
+
+class _Pools:
+    """One stage's slot pools (see the module's docstring)."""
+
+    NAMES = ("act_in", "grad_in", "res", "wctx", "sink_res", "sink_wctx")
+    WHAT = ("act inbox", "grad inbox", "residual", "wctx", "sink residual", "sink wctx")
+
+    def __init__(self):
+        self.act_in: Dict = {}  # (chunk, slot) -> activation
+        self.grad_in: Dict = {}  # (chunk, slot) -> activation gradient
+        self.res: Dict = {}  # joint slot -> chunk residuals
+        self.wctx: Dict = {}  # joint slot -> chunk W-context
+        self.sink_res: Dict = {}
+        self.sink_wctx: Dict = {}
+
+    def check_empty(self, who: str) -> None:
+        for name, what in zip(self.NAMES, self.WHAT):
+            if getattr(self, name):
+                raise RuntimeError(f"{what} slots still live after the last tick on {who}")
+
+
+class _Sums:
+    """What a walk adds across stages: the shared parameters' gradient
+    accumulator (``acc_dt``, zeroed) and the loss."""
+
+    def __init__(self, shared):
+        self.shared_acc = tree_map(lambda a: torch.zeros(a.shape, dtype=acc_dt(a.dtype),
+                                                         device=a.device), shared)
+        self.loss = torch.zeros((), dtype=torch.float32, device=shared["embed"].device)
+
+
+def _run_op(prog: PipelineProgram, plan: ExecutionPlan, s: int, t: int, params, acc,
+            pools: _Pools, sums: _Sums, shared, side_all) -> Optional[torch.Tensor]:
+    """Stage s's op at tick t, the stage body of both walks: ``params`` and
+    ``acc`` are its per-chunk parameters and gradient accumulators; it
+    reads and writes its ``pools`` and adds into ``sums``.  Returns the
+    output the op hands on (F's activation, B's input gradient), else None."""
+    kind = int(plan.op_kind[s, t])
+    if kind == OpKind.IDLE:
+        return None
+    c, j = int(plan.op_chunk[s, t]), int(plan.op_mb[s, t])
+    side_mb = tree_map(lambda a: a[j], side_all)
+    is_loss = bool(plan.op_is_loss[s, t])
+    if kind == OpKind.F:
+        if plan.op_is_src[s, t]:
+            x = prog.src_fwd(shared, side_mb).to(prog.act_dtype)
+        else:
+            x = _take(pools.act_in, (c, int(plan.op_in_slot[s, t])), "act inbox")
+        y, r = prog.chunks[c].fwd(params[c], x, side_mb)
+        _put(pools.res, int(plan.op_res_slot_joint[s, t]), r, "residual")
+        if is_loss:
+            lj, sr = prog.sink.fwd(shared, y, side_mb)
+            _put(pools.sink_res, int(plan.op_sink_slot[s, t]), (sr, lj), "sink residual")
+            sums.loss = sums.loss + lj.float()
+        return y.to(prog.act_dtype)
+    if kind == OpKind.B:
+        r = _take(pools.res, int(plan.op_res_slot_joint[s, t]), "residual")
+        if is_loss:
+            sr, lj = _take(pools.sink_res, int(plan.op_sink_slot[s, t]), "sink residual")
+            dy, sw = prog.sink.bwd_x(shared, sr, loss_seed(lj), side_mb)
+            _put(pools.sink_wctx, int(plan.op_sink_wctx_slot[s, t]), sw, "sink wctx")
+            dy = dy.to(prog.act_dtype)
+        else:
+            dy = _take(pools.grad_in, (c, int(plan.op_in_slot[s, t])), "grad inbox")
+        dx, w = prog.chunks[c].bwd_x(params[c], r, dy, side_mb)
+        del r
+        _put(pools.wctx, int(plan.op_wctx_slot_joint[s, t]), w, "wctx")
+        if plan.op_is_last_b[s, t]:
+            sums.shared_acc = prog.src_bwd_w(shared, side_mb, dx, sums.shared_acc)
+            return None
+        return dx.to(prog.act_dtype)
+    # W: the W-context alone, no residuals
+    w = _take(pools.wctx, int(plan.op_wctx_slot_joint[s, t]), "wctx")
+    out = prog.chunks[c].bwd_w(params[c], w, side_mb, acc=acc[c])
+    del w
+    # the block linears come back in place; the rest (norm gains, masks) is
+    # added out of place: into the accumulator
+    for dst, src in zip(tree_leaves(acc[c]), tree_leaves(out)):
+        if src is not dst:
+            dst.copy_(src)
+    del out
+    if is_loss:
+        sw = _take(pools.sink_wctx, int(plan.op_sink_wctx_slot[s, t]), "sink wctx")
+        sums.shared_acc = prog.sink.bwd_w(shared, sw, side_mb, acc=sums.shared_acc)
+    return None
+
+
+def _deposit_local(plan: ExecutionPlan, s: int, t: int, send, pools: _Pools) -> None:
+    """Stage s's local send of tick t (the V placement's turn from chunk 0
+    to chunk 1 and back), into its own inbox; never channel traffic."""
+    if plan.send_local[s, t]:
+        box = pools.grad_in if plan.local_is_grad[s, t] else pools.act_in
+        key = (int(plan.local_chunk[s, t]), int(plan.local_slot[s, t]))
+        _put(box, key, send, "local inbox")
+
+
+def _deposit_arrival(plan: ExecutionPlan, s: int, t: int, d: int, msg, pools: _Pools) -> None:
+    """A message that reached stage s on channel d at tick t, into its inbox."""
+    box = pools.act_in if d in _ACT_CHANNELS else pools.grad_in
+    key = (int(plan.recv_chunk[s, t, d]), int(plan.recv_slot[s, t, d]))
+    _put(box, key, msg, "inbox")
+
+
+def stage_slice(stacked, s: int):
+    """Stage s's parameters (or moments, or gradients) of stage-stacked
+    per-chunk trees, each leaf a contiguous copy with no stage axis: a
+    rank's share of ``stacked``."""
+    return tuple(tree_map(lambda a: a[s].clone(), chunk) for chunk in stacked)
 
 
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}

@@ -9,8 +9,10 @@ after all stages ran, the outputs are handed on exactly as ``send_up`` /
 ``recv_up`` / ``send_down`` / ``recv_down`` / ``send_local`` say (the JAX
 version's end-of-tick ``ppermute``).  Each group's cache slice is a view of
 the stacked cache buffers, updated in place by the chunk functions; the JAX
-version is pure and re-emits the caches instead.  One process per stage
-with NCCL point-to-point sends is a later slice.
+version is pure and re-emits the caches instead.  Serving with one process
+a stage, sending where the plan's ``send_*`` / ``recv_*`` say over
+``core/p2p.py``'s transport as training does, is a later slice (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ __all__ = [
     "CHANNEL_BWD_DOWN",
     "CHANNEL_BWD_UP",
     "N_CHANNELS",
+    "CHANNEL_SHIFT",
 ]
 
 
@@ -66,6 +67,9 @@ CHANNEL_FWD_DOWN = 1  # F output, stage s -> s-1   (ZB-V second chunk)
 CHANNEL_BWD_DOWN = 2  # B output, stage s -> s-1
 CHANNEL_BWD_UP = 3  # B output, stage s -> s+1   (ZB-V second chunk)
 N_CHANNELS = 4
+# each channel's direction: the receiver of stage s's message is s + shift (mod p)
+CHANNEL_SHIFT = {CHANNEL_FWD_UP: +1, CHANNEL_FWD_DOWN: -1, CHANNEL_BWD_DOWN: -1,
+                 CHANNEL_BWD_UP: +1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,6 +447,62 @@ class ExecutionPlan:
         chunk slots) per family.  The planner's inbox term and
         ``PipelineExecutor.buffer_bytes`` both read it."""
         return self.n_chunks * (max(self.n_act_slots) + max(self.n_grad_slots))
+
+    # ------------------------------------------------------------------ #
+    # the channels' traffic, tick by tick (the JAX plan's helpers; the
+    # per-rank walk of core/executor.py sends on exactly these edges)
+    # ------------------------------------------------------------------ #
+    def channel_live_ticks(self) -> np.ndarray:
+        """(4,) number of ticks each channel carries at least one message."""
+        return self.channel_liveness().sum(axis=0).astype(np.int64)
+
+    def used_channels(self) -> Tuple[int, ...]:
+        return tuple(d for d in range(N_CHANNELS) if (self.send_channel == d).any())
+
+    _TICK_TABLES = (
+        "op_kind",
+        "op_chunk",
+        "op_mb",
+        "op_in_slot",
+        "op_res_slot",
+        "op_wctx_slot",
+        "op_res_slot_joint",
+        "op_wctx_slot_joint",
+        "op_is_src",
+        "op_is_loss",
+        "op_is_last_b",
+        "op_sink_slot",
+        "op_sink_wctx_slot",
+        "send_channel",
+        "send_local",
+        "local_chunk",
+        "local_slot",
+        "local_is_grad",
+        "recv_valid",
+        "recv_chunk",
+        "recv_slot",
+    )
+
+    def tick_column(self, t: int) -> Dict[str, np.ndarray]:
+        """Every per-tick table's column at tick ``t``: ``(p,)`` for the
+        per-op tables, ``(p, 4)`` for the receive tables."""
+        return {name: getattr(self, name)[:, t] for name in self._TICK_TABLES}
+
+    def channel_liveness(self) -> np.ndarray:
+        """(T, 4) bool: does any stage send a message on channel d at tick t?"""
+        live = np.zeros((self.n_ticks, N_CHANNELS), bool)
+        for d in range(N_CHANNELS):
+            live[:, d] = (self.send_channel == d).any(axis=0)
+        return live
+
+    def channel_edges(self, t: int, channel: int) -> List[Tuple[int, int]]:
+        """The (sender, receiver) pairs of one (tick, channel): each stage
+        whose ``send_channel`` is ``channel`` at ``t`` and its ring
+        neighbour in the channel's direction; empty when the channel is
+        idle at ``t``."""
+        shift = CHANNEL_SHIFT[channel]
+        senders = np.nonzero(self.send_channel[:, t] == channel)[0]
+        return [(int(s), int((s + shift) % self.p)) for s in senders]
 
 
 def compile_plan(schedule: Schedule) -> ExecutionPlan:

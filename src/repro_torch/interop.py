@@ -17,7 +17,7 @@ import torch
 from .optim.adamw import AdamWState
 from .tree import tree_map
 
-__all__ = ["params_from_numpy", "adamw_from_numpy", "to_torch"]
+__all__ = ["params_from_numpy", "adamw_from_numpy", "to_torch", "stage_share_from_numpy"]
 
 
 def to_torch(a: np.ndarray, *, device="cpu", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -62,3 +62,23 @@ def adamw_from_numpy(state, *, device) -> AdamWState:
 
     return AdamWState(t=to_torch(t, device=device, dtype=torch.int32), m=tree_map(conv, m),
                       v=tree_map(conv, v))
+
+
+def stage_share_from_numpy(stacked, shared, stage: int, *, device,
+                           dtype: Optional[torch.dtype] = None, opt=None, shared_opt=None):
+    """One rank's share of the JAX package's parameters (and, if given,
+    AdamW states), numpy trees as :func:`params_from_numpy` and
+    :func:`adamw_from_numpy` take them: per chunk, the stage-stacked leaves
+    at ``[stage]`` (no stage axis), and the whole ``shared`` tree, its
+    replica on every rank.  Returns (params, shared) or, with ``opt`` and
+    ``shared_opt``, (params, shared, opt, shared_opt)."""
+    def at(tree):
+        return tree_map(lambda a: np.asarray(a)[stage], tree)
+
+    params, shared_t = params_from_numpy(tuple(at(chunk) for chunk in stacked), shared,
+                                         device=device, dtype=dtype)
+    if opt is None:
+        return params, shared_t
+    t, m, v = opt
+    return (params, shared_t, adamw_from_numpy((t, at(m), at(v)), device=device),
+            adamw_from_numpy(shared_opt, device=device))

@@ -1,15 +1,19 @@
 """Step builders of the port: the pipelined training step and the serving step.
 
 Counterpart of ``src/repro/launch/steps.py``.  No ``shard_map`` and no
-``jit``: one device holds all p pipeline stages and the host drives the
-executors (``core/executor.py`` for training, ``core/infer_executor.py`` for
-serving); under ``executor_mode="graph"`` the training walk is captured
-once into a CUDA graph and replayed.  The training step mirrors the JAX
-one: grads of the pipelined step, the frozen ``mask`` leaves zeroed,
-per-stage gradient statistics with the shared parameters counted on stage
-0, then AdamW under optimizer post-validation (``within_step``) or the
-blocking baseline (``sync``), written into the parameters and moments in
-place, slice by slice, as the JAX step writes into its donated buffers.
+``jit``: the host drives the executors (``core/executor.py`` for training,
+``core/infer_executor.py`` for serving).  :func:`build_train_step` holds
+all p pipeline stages in one process; under ``executor_mode="graph"`` the
+training walk is captured once into a CUDA graph and replayed.
+:func:`build_stage_train_step` is one rank's share of it with one process a
+stage (``launch/mesh.py::PipeGroup``): the per-rank walk, the paper's
+statistics relay stage to stage, each rank's own AdamW step.  The training
+step mirrors the JAX one: grads of the pipelined step, the frozen ``mask``
+leaves zeroed, per-stage gradient statistics with the shared parameters
+counted on stage 0, then AdamW under optimizer post-validation
+(``within_step``) or the blocking baseline (``sync``), written into the
+parameters and moments in place, slice by slice, as the JAX step writes
+into its donated buffers.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.executor import GraphedGradFn, PipelineExecutor, acc_dt
+from ..core.p2p import gather_in_stage_order
 from ..core.infer_executor import InferExecutor, compile_infer_plan
 from ..core.schedules.ir import ExecutionPlan, Placement
 from ..models.lm import ArchConfig, RunSpec, build_program
@@ -31,7 +36,7 @@ from ..tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["TrainStepConfig", "OptimizerTransient", "build_train_step",
+__all__ = ["TrainStepConfig", "OptimizerTransient", "build_train_step", "build_stage_train_step",
            "optimizer_transient_bytes", "build_serve_step"]
 
 
@@ -61,6 +66,27 @@ def _at(tree, s):
     return tuple(tree_map(lambda a: a[s], x) for x in tree)
 
 
+def _stage_stats(grads, stats_shared, s):
+    """Stage s's gradient statistics, the shared parameters' counted on
+    stage 0 only (the arithmetic of every stage is the same, so a non-finite
+    shared gradient reaches every stage's sum, as in the JAX step)."""
+    st = postval.local_stats(grads)
+    on0 = 1.0 if s == 0 else 0.0
+    return postval.GradStats(st.sumsq + on0 * stats_shared.sumsq,
+                             st.nonfinite | (s == 0 and stats_shared.nonfinite))
+
+
+def _post_validate(params, state, g, partial, full, tcfg: TrainStepConfig):
+    """One stage's in-place AdamW under ``tcfg.postval_mode``: (new state,
+    amended)."""
+    if tcfg.postval_mode == "sync":
+        _, new_s = postval.sync_step_(params, state, g, tcfg.adamw, full)
+        return new_s, False
+    _, s1, dec = postval.optimistic_step_(params, state, g, partial, tcfg.adamw)
+    _, new_s, am = postval.validate_and_fix_(params, s1, g, dec, full, tcfg.adamw)
+    return new_s, am
+
+
 def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss, tcfg: TrainStepConfig):
     """The optimizer half of the training step: the frozen leaves' gradients
     zeroed, the statistics, then AdamW stage by stage, in place: each
@@ -69,31 +95,22 @@ def _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss, tcfg: T
     parameters and moments (``adamw.step_``), as the JAX step writes its
     update into the donated buffers.  Parameters and moments keep their
     addresses."""
-    acfg, p = tcfg.adamw, len(tree_leaves(grads)[0])
+    p = len(tree_leaves(grads)[0])
     grads = tree_map(lambda g, f: torch.zeros_like(g) if f else g, grads,
                      _freeze_filter(stacked))
 
     # gradient statistics per stage; shared params counted on stage 0 only
     stats_shared = postval.local_stats(shared_grads)
-    stats = []
-    for s in range(p):
-        st = postval.local_stats(_at(grads, s))
-        on0 = 1.0 if s == 0 else 0.0
-        stats.append(postval.GradStats(st.sumsq + on0 * stats_shared.sumsq,
-                                       st.nonfinite | (s == 0 and stats_shared.nonfinite)))
-    prefix, full = postval.pipe_prefix_stats(stats)
+    prefix, full = postval.pipe_prefix_stats(
+        [_stage_stats(_at(grads, s), stats_shared, s) for s in range(p)])
 
     amended, new_t = False, opt.t
     for s in range(p):
         # stage 0 steps (local, shared) together, as every stage of the
         # JAX step does; the shared result of the other stages is unused
         params, g, state = _stage(stacked, shared, grads, shared_grads, opt, shared_opt, s)
-        if tcfg.postval_mode == "sync":
-            _, new_s = postval.sync_step_(params, state, g, acfg, full)
-        else:
-            _, s1, dec = postval.optimistic_step_(params, state, g, prefix[s], acfg)
-            _, new_s, am = postval.validate_and_fix_(params, s1, g, dec, full, acfg)
-            amended = amended or am
+        new_s, am = _post_validate(params, state, g, prefix[s], full, tcfg)
+        amended = amended or am
         if s == 0:
             new_t = new_s.t
     metrics = {"loss": loss, "grad_norm": torch.sqrt(full.sumsq), "amended": amended}
@@ -242,6 +259,80 @@ def build_train_step(cfg: ArchConfig, spec: RunSpec, plan: ExecutionPlan, placem
             grads, shared_grads, loss = grad_fn(stacked, shared, side)
         with torch.profiler.record_function("train_step.optimizer"):
             return _update(stacked, shared, opt, shared_opt, grads, shared_grads, loss, tcfg)
+
+    step.grad_fn = grad_fn
+    return step, program
+
+
+def _stage_update(group, params, shared, opt, shared_opt, grads, shared_grads, loss,
+                  tcfg: TrainStepConfig):
+    """One rank's share of :func:`_update` on stage s = ``group.rank``:
+    its statistics (``shared_grads`` are the group's sum, so stage 0 counts
+    them as the one-process step does), the relay
+    (``postval.relay_prefix_stats``), then its AdamW in place.  Rank 0 steps
+    (its stage, shared) together on its prefix, as stage 0 of
+    :func:`_update`; rank s > 0 steps its stage on its prefix and its
+    replica of the shared parameters on stage 0's (the relay carries it):
+    a replica stepped on its own prefix would, where that prefix's decision
+    was amended and stage 0's was not, hold a rolled-back-and-redone update
+    that is not stage 0's bits.  So every replica and the step count equal
+    stage 0's, as the one-process step keeps stage 0's.  ``amended`` is
+    OR-ed over the group; ``grad_norm`` is the full statistics' on every
+    rank."""
+    s = group.rank
+    grads = tree_map(lambda g, f: torch.zeros_like(g) if f else g, grads, _freeze_filter(params))
+    stats_shared = postval.local_stats(shared_grads)
+    partial, full, first = postval.relay_prefix_stats(group, _stage_stats(grads, stats_shared, s))
+    if s == 0:
+        new_s, amended = _post_validate(
+            (params, shared), adamw.AdamWState(opt.t, (opt.m, shared_opt.m), (opt.v, shared_opt.v)),
+            (grads, shared_grads), partial, full, tcfg)
+    else:
+        _, amended = _post_validate((params,), adamw.AdamWState(opt.t, (opt.m,), (opt.v,)),
+                                    (grads,), partial, full, tcfg)
+        new_s, _ = _post_validate(
+            (shared,), adamw.AdamWState(shared_opt.t, (shared_opt.m,), (shared_opt.v,)),
+            (shared_grads,), first, full, tcfg)
+    amended = any(bool(a) for a in gather_in_stage_order(
+        group, torch.tensor(float(amended), dtype=torch.float32)))
+    metrics = {"loss": loss, "grad_norm": torch.sqrt(full.sumsq), "amended": amended}
+    return (params, shared, adamw.AdamWState(new_s.t, opt.m, opt.v),
+            adamw.AdamWState(new_s.t, shared_opt.m, shared_opt.v), metrics)
+
+
+def build_stage_train_step(cfg: ArchConfig, spec: RunSpec, plan: ExecutionPlan,
+                           placement: Placement, group, tcfg: Optional[TrainStepConfig] = None):
+    """Returns (step, program): rank ``group.rank``'s share of
+    :func:`build_train_step`, one process a stage.
+
+    ``step(params, shared, opt, shared_opt, side) -> (params, shared, opt,
+    shared_opt, metrics)``: ``params`` holds, per chunk, this stage's
+    parameter trees with no stage axis (``core/executor.py::stage_slice``),
+    ``opt`` their moments, ``shared`` and ``shared_opt`` this rank's
+    replica of the shared parameters and their moments; ``side`` the whole
+    step's side inputs.  Updated in place and returned; ``metrics`` (loss,
+    grad norm, amended) are the same on every rank.  ``step.grad_fn`` is
+    the per-rank walk (``PipelineExecutor.build_stage_grad_fn``).  The
+    walk runs eagerly: ``executor_mode="graph"`` raises.
+    """
+    tcfg = tcfg or TrainStepConfig()
+    if tcfg.postval_mode not in ("within_step", "sync"):
+        raise ValueError(f"unknown postval_mode {tcfg.postval_mode!r}")
+    if tcfg.executor_mode != "eager":
+        raise ValueError(f"executor_mode {tcfg.executor_mode!r}: a rank's walk sends between its "
+                         f"ticks, which a CUDA graph cannot hold; one process a stage runs "
+                         f"'eager' (capturing a rank's compute between its sends: ROADMAP Queue 1, "
+                         f"item 12)")
+    program = build_program(cfg, spec, placement)
+    grad_fn = PipelineExecutor(program, plan).build_stage_grad_fn(group)
+
+    @torch.no_grad()
+    def step(params, shared, opt, shared_opt, side):
+        with torch.profiler.record_function("train_step.pipeline"):
+            grads, shared_grads, loss = grad_fn(params, shared, side)
+        with torch.profiler.record_function("train_step.optimizer"):
+            return _stage_update(group, params, shared, opt, shared_opt, grads, shared_grads,
+                                 loss, tcfg)
 
     step.grad_fn = grad_fn
     return step, program

@@ -3,9 +3,25 @@
   python -m repro_torch.launch.train --arch gpt3_1_5b \\
       --pipe-size 4 --schedule zb-h1 --microbatch 1 --seq-len 1024 --m 8 --steps 3 \\
       [--memory-budget-mb 10240] [--ckpt-dir DIR]
+  python -m repro_torch.launch.train --procs 4 --pipe-size 4 [--share-card] ...
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --procs 4 --pipe-size 4 ...
 
-All p stages sit on one device.  Runs on the CUDA card by default and raises
-when there is none; it never carries on on the CPU unless ``--device cpu``
+Without ``--procs`` all p stages sit in one process on one device.  With
+``--procs P`` (P = ``--pipe-size``) each stage is a process of its own
+(``launch/mesh.py::PipeGroup``, ``core/p2p.py``): the launcher starts P
+ranks that meet through a file store in a temporary directory, or, under
+torchrun, this process is one rank.  Rank s takes ``cuda:s`` when the
+machine has a card for every rank, ``cuda:0`` for every rank with
+``--share-card``, the CPU with ``--device cpu``; fewer cards than ranks and
+no ``--share-card`` raises.  The transport is ``host`` (gloo through pinned
+host buffers; the first line printed names it), the walk eager (the last
+line says ``executor=eager procs=P transport=host``), every rank prints its
+device, its stage's parameter bytes and its reserved peak, and rank 0 the
+usual summary.  ``--ckpt-dir`` with ``--procs`` raises: per-rank
+checkpoints are not ported (ROADMAP Queue 1, item 13).
+
+Runs on the CUDA card by default and raises when there is none; it never
+carries on on the CPU unless ``--device cpu``
 asks for it.  Weights are random, drawn from ``--seed``; batches come from the
 seeded synthetic stream (``data.SyntheticLM``).  Schedules: every one the JAX
 launcher accepts -- 1f1b, zb-h1, zb-h2, zb-v, v-min, v-half, zb-1p, zb-2p; the
@@ -38,6 +54,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import pickle
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -46,6 +65,7 @@ import torch
 
 from ..configs import get_config, get_reduced
 from ..core.memory import CUDA_TEMP_TABLE, cuda_temp_record, record_key
+from ..core.executor import stage_slice
 from ..core.planner import stage_program_factory
 from ..core.schedules import (
     compile_plan,
@@ -61,9 +81,11 @@ from ..core.schedules import (
 from ..data import DataConfig, SyntheticLM
 from ..models.lm import ArchConfig, RunSpec, front_spec, init_params
 from ..optim import adamw
+from ..tree import tree_leaves
 from ..runtime import DriverConfig, TrainDriver, replan_under_budget
+from .mesh import PIPE_TIMEOUT_S, init_pipe_group, pipe_device, spawn_ranks
 from .serve import _sync, resolve_device
-from .steps import TrainStepConfig, build_train_step
+from .steps import TrainStepConfig, build_stage_train_step, build_train_step
 
 __all__ = ["SCHEDULES", "TrainResult", "build_everything", "side_from_batch", "init_state",
            "make_step_fn", "make_data_at", "train", "main"]
@@ -86,6 +108,13 @@ def make_schedule(name: str, p: int, m: int):
     return SCHEDULES[name](p, m)
 
 
+def run_config(arch: str, reduced: bool, layers: Optional[int] = None) -> ArchConfig:
+    """The run's config: ``arch`` (reduced or not), its depth cut to
+    ``layers`` when given (as ``launch/calibrate.py --layers``)."""
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
 def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, microbatch: int,
                      seq_len: int, m: int, tcfg: TrainStepConfig,
                      memory_budget_bytes: Optional[float] = None, *, device,
@@ -98,10 +127,23 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
     is the chosen plan's priced total on one card
     (:class:`~repro_torch.core.planner.OneCardBytes`); without, it is None.
     ``layers`` cuts the config's depth (as ``launch/calibrate.py --layers``)."""
-    cfg = get_reduced(arch) if reduced else get_config(arch)
+    cfg, sched, one_card = plan_schedule(arch, reduced, pipe_size, schedule, microbatch, seq_len,
+                                         m, tcfg, memory_budget_bytes, device=device, seed=seed,
+                                         layers=layers)
+    spec = RunSpec(p=pipe_size, n_chunks=sched.n_chunks, microbatch=microbatch,
+                   seq_len=seq_len, m=m)
+    step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, tcfg)
+    return cfg, spec, sched, step, one_card
+
+
+def plan_schedule(arch: str, reduced: bool, pipe_size: int, schedule: str, microbatch: int,
+                  seq_len: int, m: int, tcfg: TrainStepConfig,
+                  memory_budget_bytes: Optional[float] = None, *, device, seed: int = 0,
+                  layers: Optional[int] = None):
+    """-> (cfg, schedule, one_card): :func:`build_everything`'s choice of
+    schedule, the step not built."""
+    cfg = run_config(arch, reduced, layers)
     depth = get_config(arch).n_layers  # what a record with no cut was measured at
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
     one_card = None
     if memory_budget_bytes is not None:
         factory = stage_program_factory(cfg, pipe_size, m, microbatch, seq_len, device, seed)
@@ -140,10 +182,7 @@ def build_everything(arch: str, reduced: bool, pipe_size: int, schedule: str, mi
             torch.cuda.empty_cache()  # the slot measurement's cached blocks
     else:
         sched = make_schedule(schedule, pipe_size, m)
-    spec = RunSpec(p=pipe_size, n_chunks=sched.n_chunks, microbatch=microbatch,
-                   seq_len=seq_len, m=m)
-    step, _ = build_train_step(cfg, spec, compile_plan(sched), sched.placement, tcfg)
-    return cfg, spec, sched, step, one_card
+    return cfg, sched, one_card
 
 
 def side_from_batch(batch: Dict[str, np.ndarray], spec: RunSpec, device,
@@ -284,7 +323,16 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                     "gradient accumulators, the optimizer's transient and the CUDA remainder "
                     "calibrated on the card); runs the fastest schedule of any family that "
                     "fits (overrides --schedule)")
+    ap.add_argument("--procs", type=int, default=None,
+                    help="one process a pipeline stage: start this many ranks (= --pipe-size); "
+                    "under torchrun this process is one of them")
+    ap.add_argument("--share-card", action="store_true",
+                    help="with --procs: every rank on cuda:0 (else rank s on cuda:s)")
+    ap.add_argument("--transport", default="host", choices=["host", "nccl"],
+                    help="with --procs: how the ranks' messages travel (nccl is not ported)")
     args = ap.parse_args(argv)
+    if args.procs is not None:
+        return _main_procs(args)
 
     device = resolve_device(args.device)
     executor = "graph" if device.type == "cuda" else "eager"
@@ -320,6 +368,129 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     print(f"steps={len(res.losses)} wall={dt:.1f}s{tput_s} "
           f"loss[0]={res.losses[0]:.4f} loss[-1]={res.losses[-1]:.4f} schedule={sched.name} "
           f"executor={executor}")
+    if len(res.losses) > 1 and not res.losses[-1] < res.losses[0]:
+        raise RuntimeError("loss must decrease on the synthetic stream")
+    return res
+
+
+def _check_procs(args) -> None:
+    """What a run of one process a stage refuses, before any rank starts."""
+    if args.procs != args.pipe_size:
+        raise ValueError(f"--procs {args.procs} must equal --pipe-size {args.pipe_size}: one "
+                         f"process a pipeline stage")
+    if args.ckpt_dir is not None:
+        raise NotImplementedError(
+            "--ckpt-dir with --procs: per-rank checkpoints and the recovery from a failed step "
+            "across ranks are not ported (ROADMAP Queue 1, item 13); run without --ckpt-dir")
+    if args.transport != "host":
+        raise NotImplementedError(
+            f"--transport {args.transport}: only the host transport is ported; NCCL between "
+            f"cards waits for a machine with four cards (ROADMAP Queue 1, item 1)")
+    pipe_device(args.device, 0, args.procs, args.share_card)
+
+
+def _main_procs(args) -> Optional[TrainResult]:
+    """``--procs P``: P ranks, one a stage, spawned here, or this process
+    one of them under torchrun.  Returns rank 0's result (None on the
+    other ranks under torchrun)."""
+    _check_procs(args)
+    torchrun = "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    if torchrun and int(os.environ["WORLD_SIZE"]) != args.procs:
+        raise ValueError(f"torchrun started {os.environ['WORLD_SIZE']} processes, --procs is "
+                         f"{args.procs}")
+    if not torchrun or int(os.environ["RANK"]) == 0:
+        where = ("every rank on cuda:0" if args.share_card else
+                 "rank s on cuda:s" if torch.device(args.device).type == "cuda" else
+                 "every rank on the cpu")
+        print(f"pipe group: procs={args.procs} transport={args.transport} (gloo point-to-point "
+              f"through {'pinned ' if torch.device(args.device).type == 'cuda' else ''}host "
+              f"buffers), one process a stage, {where}", flush=True)
+    opts = vars(args)
+    if torchrun:
+        return _rank_main(int(os.environ["RANK"]), args.procs, None, opts, None)
+    with tempfile.TemporaryDirectory(prefix="repro_train_") as tmp:
+        out = os.path.join(tmp, "rank0.pkl")
+        spawn_ranks(_rank_main, args.procs, (opts, out),
+                    timeout_s=PIPE_TIMEOUT_S * (args.steps + 10))
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+
+def _rank_main(rank: int, world: int, init_method: Optional[str], opts: Dict[str, Any],
+               out: Optional[str]) -> Optional[TrainResult]:
+    """One rank of ``--procs``: stage ``rank`` of the run ``opts`` (the
+    launcher's arguments) describes; rank 0 prints the summary and writes
+    its result to ``out``."""
+    args = argparse.Namespace(**opts)
+    if torch.device(args.device).type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(1)
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    group = init_pipe_group(rank=rank, world=world, init_method=init_method or "env://",
+                            local_rank=local, device=args.device, share_card=args.share_card,
+                            transport=args.transport)
+    try:
+        return _train_rank(group, args, out)
+    finally:
+        group.close()
+
+
+def _train_rank(group, args, out: Optional[str]) -> Optional[TrainResult]:
+    device, rank = group.device, group.rank
+    tcfg = TrainStepConfig(adamw=adamw.AdamWConfig(lr=args.lr), postval_mode=args.postval,
+                           executor_mode="eager")
+    budget = None if args.memory_budget_mb is None else args.memory_budget_mb * 2**20
+    # rank 0 picks the schedule (under a budget the planner measures on its
+    # device) and hands it to the others
+    pick = [None]
+    if rank == 0:
+        pick[0] = plan_schedule(args.arch, args.reduced, args.pipe_size, args.schedule,
+                                args.microbatch, args.seq_len, args.m, tcfg, budget,
+                                device=device, seed=args.seed, layers=args.layers)[1]
+    torch.distributed.broadcast_object_list(pick, src=0)
+    sched = pick[0]
+    cfg = run_config(args.arch, args.reduced, args.layers)
+    spec = RunSpec(p=args.pipe_size, n_chunks=sched.n_chunks, microbatch=args.microbatch,
+                   seq_len=args.seq_len, m=args.m)
+    step, _ = build_stage_train_step(cfg, spec, compile_plan(sched), sched.placement, group,
+                                     tcfg)
+    data = SyntheticLM(DataConfig(global_batch=spec.m * spec.microbatch, seq_len=spec.seq_len,
+                                  vocab=cfg.vocab, seed=args.seed))
+
+    def fresh_state():
+        # every stage's weights drawn as the one-process launcher draws them,
+        # this rank's kept
+        stacked, shared = init_params(cfg, spec, sched.placement, seed=args.seed, device=device)
+        params = stage_slice(stacked, rank)
+        del stacked
+        return init_state(params, shared)
+
+    driver = TrainDriver(DriverConfig(ckpt_dir=None, max_retries=0), make_step_fn(step),
+                         fresh_state, make_data_at(data, spec, device, cfg))
+    t0 = time.perf_counter()
+    state, metrics_log = driver.run(args.steps)
+    dt = time.perf_counter() - t0
+    res = _result(driver, metrics_log, print if rank == 0 else None)
+    res.schedule = sched
+    stage_b = sum(t.numel() * t.element_size() for t in tree_leaves(state["params"]))
+    shared_b = sum(t.numel() * t.element_size() for t in tree_leaves(state["shared"]))
+    reserved = (f"{torch.cuda.max_memory_reserved(device) / 2**20:.1f} MiB"
+                if device.type == "cuda" else "n/a on the cpu")
+    lines = [None] * group.world if rank == 0 else None
+    torch.distributed.gather_object(
+        f"rank {rank}: device {device}, stage {rank}'s parameters {stage_b + shared_b} bytes "
+        f"({stage_b} of its blocks + {shared_b} of the shared replica), max_memory_reserved "
+        f"{reserved}", lines, dst=0)
+    if rank != 0:
+        return None
+    print("\n".join(lines), flush=True)
+    tput = driver.throughput()
+    tput_s = f" steps/s={tput:.3f}" if tput else ""
+    print(f"steps={len(res.losses)} wall={dt:.1f}s{tput_s} loss[0]={res.losses[0]:.4f} "
+          f"loss[-1]={res.losses[-1]:.4f} schedule={sched.name} executor=eager "
+          f"procs={group.world} transport={group.transport}", flush=True)
+    if out is not None:
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
     if len(res.losses) > 1 and not res.losses[-1] < res.losses[0]:
         raise RuntimeError("loss must decrease on the synthetic stream")
     return res

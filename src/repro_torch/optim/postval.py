@@ -7,9 +7,14 @@ optimistically on the *partially* reduced statistics of the stages before it
 validates its decision and -- on mis-speculation -- rolls the step back
 exactly (Alg. 1) and redoes it with the true global clip scale.
 
-All p stages sit on one device here, so ``pipe_prefix_stats`` is a prefix sum
-over the list of per-stage statistics with no collectives.  The decisions
-are host booleans: each is read once per stage and step (one device sync).
+With all p stages in one process, ``pipe_prefix_stats`` is a prefix sum over
+the list of per-stage statistics.  With one process a stage,
+``relay_prefix_stats`` is the paper's relay itself: stage s receives stage
+s-1's inclusive prefix, adds its own and sends it on to stage s+1, and the
+full statistics come back from the last stage, stage to stage; it adds in
+``pipe_prefix_stats``' order, so it gives its bits.  (The JAX package's
+log-depth scan of ppermutes adds in another order.)  The decisions are host
+booleans: each is read once per stage and step (one device sync).
 
 ``optimistic_step``, ``validate_and_fix`` and ``sync_step`` step through the
 functional ``adamw.step`` / ``adamw.rollback``; ``optimistic_step_``,
@@ -24,6 +29,7 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.p2p import exchange
 from ..tree import tree_leaves
 from . import adamw
 
@@ -35,6 +41,7 @@ __all__ = [
     "local_stats",
     "combine_stats",
     "pipe_prefix_stats",
+    "relay_prefix_stats",
     "decide_partial",
     "decide_global",
     "optimistic_step",
@@ -85,6 +92,48 @@ def pipe_prefix_stats(stats: Sequence[GradStats]) -> Tuple[List[GradStats], Grad
         run = st if run is None else combine_stats(run, st)
         prefix.append(run)
     return prefix, run
+
+
+def _stats_msg(*stats: GradStats) -> torch.Tensor:
+    """Statistics as a host fp32 message: (sumsq, nonfinite) each."""
+    return torch.tensor([v for st in stats for v in (float(st.sumsq), float(bool(st.nonfinite)))],
+                        dtype=torch.float32)
+
+
+def _msg_stats(msg: torch.Tensor, k: int, device) -> GradStats:
+    return GradStats(msg[2 * k].to(device), (msg[2 * k + 1] > 0.5).to(device))
+
+
+def relay_prefix_stats(group, stats: GradStats) -> Tuple[GradStats, GradStats, GradStats]:
+    """(partial, full, first) on rank ``group.rank`` of a pipe group
+    (``launch/mesh.py::PipeGroup``): ``partial`` is the inclusive prefix of
+    the stages up to this one, relayed stage to stage; ``full`` the last
+    stage's, relayed back; ``first`` stage 0's own (it travels beside the
+    prefix), whose decision every rank's replica of the shared parameters
+    follows.  Each message is a few host floats (the fp32 sums carry their
+    bits), each wait bounded by the group's timeout."""
+    r, w, dev = group.rank, group.world, stats.sumsq.device
+    if r == 0:
+        first = partial = stats
+    else:
+        msg = torch.empty(4, dtype=torch.float32)
+        exchange(group, [], [(r - 1, msg, 0)], lambda: f"rank {r}: the relay's prefix from rank "
+                                                        f"{r - 1}")
+        first = _msg_stats(msg, 0, dev)
+        partial = combine_stats(_msg_stats(msg, 1, dev), stats)
+    if r < w - 1:
+        exchange(group, [(r + 1, _stats_msg(first, partial), 0)], [],
+                 lambda: f"rank {r}: the relay's prefix to rank {r + 1}")
+        msg = torch.empty(2, dtype=torch.float32)
+        exchange(group, [], [(r + 1, msg, 1)], lambda: f"rank {r}: the full statistics from "
+                                                        f"rank {r + 1}")
+        full = _msg_stats(msg, 0, dev)
+    else:
+        full = partial
+    if r > 0:
+        exchange(group, [(r - 1, _stats_msg(full), 1)], [],
+                 lambda: f"rank {r}: the full statistics to rank {r - 1}")
+    return partial, full, first
 
 
 def decide_partial(partial: GradStats, cfg: adamw.AdamWConfig) -> Decision:

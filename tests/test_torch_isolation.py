@@ -3,7 +3,8 @@ neither ``jax`` nor the JAX package ``repro`` (the planner, the driver and
 the checkpoint store included, also once the planner has shape-evaluated a
 dense model, the two moe models, the second with the mla kind, the vlm and
 the encdec model, the examples, and the dry run and the mesh descriptions,
-after a dry-run row), the serving and training
+after a dry-run row, and the launcher's one-process-a-stage path with its
+pipe group and transport), the serving and training
 entry points do not carry on on the CPU when the card they ask for is
 missing, and the training launcher takes every schedule of the JAX
 launcher when the CPU is asked for."""
@@ -45,7 +46,7 @@ def test_imports_pull_in_neither_jax_nor_repro():
         "fixed_state_bytes(get_reduced('recurrentgemma_9b'), 2, 2)\n"
         "import repro_torch.examples.quickstart, repro_torch.examples.serve_pipeline\n"
         "import repro_torch.examples.straggler_replan, repro_torch.examples.train_100m\n"
-        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh, repro_torch.core.p2p\n"
         "repro_torch.launch.dryrun.dryrun_cell('xlstm_350m', 'train_4k', reduced=True, p=3, m=3,\n"
         "                                      seq_len=16, verbose=False)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -57,6 +58,31 @@ def test_imports_pull_in_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "clean" in out.stdout
+
+
+def test_pipe_rank_path_pulls_in_neither_jax_nor_repro():
+    """One rank of ``--procs`` (a world of one, as torchrun starts it)
+    walks the per-rank step through ``core/p2p.py`` and the relay."""
+    code = (
+        "import os, socket, sys\n"
+        "sock = socket.socket(); sock.bind(('127.0.0.1', 0)); port = sock.getsockname()[1]\n"
+        "sock.close()\n"
+        "os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',\n"
+        "                  MASTER_PORT=str(port))\n"
+        "from repro_torch.launch import train\n"
+        "res = train.main(['--arch', 'internlm2_1_8b', '--reduced', '--device', 'cpu',\n"
+        "                  '--procs', '1', '--pipe-size', '1', '--m', '2', '--seq-len', '8',\n"
+        "                  '--microbatch', '1', '--steps', '1', '--schedule', 'zb-h1'])\n"
+        "assert len(res.losses) == 1\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean" in out.stdout and "procs=1 transport=host" in out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
